@@ -1,13 +1,16 @@
 """salva_tpu_torch — the PyTorch + CUDA port of salva_tpu.
 
 SPH fluid simulation (dimforge/salva's capabilities) on torch tensors,
-with the hot dense pair passes as hand-written CUDA kernels for NVIDIA
-Hopper (``ops/pair.py``, ``csrc/pair_passes.cu``). The module layout and
-names follow ``salva_tpu``, the JAX package this port is held against.
+with the four hot dense pair passes as hand-written CUDA kernels for
+NVIDIA Hopper (``ops/pair.py``, ``csrc/pair_passes.cu``). The module
+layout and names follow ``salva_tpu``, the JAX package this port is held
+against.
 
-Ported so far: the 3D/2D DFSPH dense layout — ``LiquidWorld`` with
-``add_fluid`` / ``add_boundary`` / ``step`` over a static ``domain``.
-Everything else raises ``NotImplementedError`` (see ``ROADMAP.md``).
+Ported so far: the 3D/2D DFSPH and IISPH dense layout, with sparse or
+full-grid boundary binning — ``LiquidWorld`` with ``add_fluid`` /
+``add_boundary`` / ``step`` over a static ``domain``, on a CUDA device
+(the default) or on the CPU when asked (``device="cpu"``). Everything
+else raises ``NotImplementedError`` (see ``ROADMAP.md``).
 
 This package imports torch and numpy only; the CUDA kernels build at
 their first launch, never at import.

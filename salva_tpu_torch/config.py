@@ -75,8 +75,12 @@ class DFSPHConfig:
 
 @dataclasses.dataclass(frozen=True)
 class IISPHConfig:
-    """Implicit Incompressible SPH solver parameters (not ported yet; kept
-    so configurations name the same classes in both packages)."""
+    """Implicit Incompressible SPH solver parameters.
+
+    Defaults mirror the reference (``iisph_solver.rs``): 1..50 relaxed
+    Jacobi pressure iterations with 5% density tolerance and relaxation
+    factor ``omega`` 0.5. Runs on the dense layout
+    (``solver/iisph_dense.py``)."""
 
     min_pressure_iter: int = 1
     max_pressure_iter: int = 50

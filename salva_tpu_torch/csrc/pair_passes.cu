@@ -1,6 +1,6 @@
-// Dense pair passes of the DFSPH main path as hand-written CUDA kernels
-// for Hopper (sm_90a), bound to Python through a plain C interface
-// (ctypes; see ops/_build.py and ops/pair.py).
+// Dense pair passes of the DFSPH and IISPH solvers as hand-written CUDA
+// kernels for Hopper (sm_90a), bound to Python through a plain C
+// interface (ctypes; see ops/_build.py and ops/pair.py).
 //
 // Layout (the dense grid of geometry/dense_grid.py): channel-major
 // [D, cap, C] float32 arrays, cell axis last and contiguous; slot (r, c)
@@ -15,6 +15,10 @@
 //               t_pass_pallas3 (+ hi_complement)
 //   hoist_ff <- pallas_pair.py hoist_ff_pallas / _build_hoist_kernel, via
 //               hoist_ff_pallas3 (+ hi_complement)
+//   hoist_fb <- pallas_pair.py hoist_fb_pallas / _build_fb_hoist_kernel,
+//               as run by pallas_pair2.py hoist_fb_pallas3 (and the XLA
+//               twins of solver/dense_common.py: _hoist_fb_sparse and the
+//               roll fold of DenseCtx._hoist); see hoist_fb_kernel
 // The TPU kernels split each pass into an ungated 8-row slice plus a
 // gated complement over 8-row slot groups, because the TPU computes in
 // (8, 128) tiles. Here one thread owns one output slot and walks the
@@ -244,6 +248,108 @@ __global__ void hoist_ff_kernel(const float* __restrict__ P,
   cnt_out[slot] = cnt_pairs;
 }
 
+// Fluid-boundary hoist: per live fluid slot i, over the boundary
+// particles j of its 3^dim neighbour cells within h:
+//   rho = sum Volb_j W,  Gb = sum Volb_j grad,  sq = sum |grad|^2 Volb_j^2,
+//   s2 = sum |grad|^2 Volb_j (when need_s2),  Sb = sum Volb_j (vb_j . grad),
+//   cnt = the number of such pairs.
+// Replaces pallas_pair.py hoist_fb_pallas (as hoist_fb_pallas3 runs it on
+// 8-row slices of the fluid grid). The TPU needed three forms of this
+// hoist: the Pallas kernel over full-grid boundary arrays, a sparse XLA
+// fold over the fluid columns next to a boundary (through a top_k table),
+// and a roll fold over the boundary arrays rematerialized onto the full
+// grid. One kernel covers all three: the boundary grid is either the
+// full grid (cell_to_col == nullptr: column = cell) or the compact
+// occupied-cell table (cell_to_col = cell_to_active, whose void column
+// is empty), and the fluid columns to visit are either all of them
+// (cols == nullptr) or the sparse hoist's adjacency table (so a table
+// that overflows drops exactly the columns the reference drops; entries
+// outside [0, C) are unused). A thread walks each neighbour cell's true
+// boundary count, so an empty cell costs one count load and the
+// sparse/dense distinction of the TPU disappears.
+//
+// Outputs are zero-filled by the caller; a thread writes only its own
+// live slot of a listed column. What bounds it on the H100: at the 97k
+// dam-break state the output planes (8 channels x cap x C x 4 B, ~17 MB
+// at cap 16 and a 32,768-cell window) are the only sizeable traffic,
+// ~5 us at 3.35 TB/s; the pair work (~10^7 candidate pairs near the
+// floor) is of the same order at the float32 rate, so like the other
+// passes it is latency-bound on the dependent count and position loads.
+template <int DIM>
+__global__ void hoist_fb_kernel(const float* __restrict__ P,
+                                const int* __restrict__ count,
+                                const int* __restrict__ cols, int n_cols,
+                                const float* __restrict__ Pb,
+                                const float* __restrict__ Volb,
+                                const float* __restrict__ Vb,
+                                const int* __restrict__ count_b,
+                                const int* __restrict__ cell_to_col,
+                                float* __restrict__ rho_out,
+                                float* __restrict__ gb_out,
+                                float* __restrict__ sq_out,
+                                float* __restrict__ s2_out,
+                                float* __restrict__ sb_out,
+                                int* __restrict__ cnt_out, int cap, int C,
+                                int cap_b, int Cb, int ny, int nz,
+                                int need_s2, Cubic k) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y;
+  if (t >= n_cols) return;
+  const int c = cols ? cols[t] : t;
+  if (c < 0 || c >= C) return;          // unused table entry
+  if (r >= min(count[c], cap)) return;  // dead slot: stays zero
+  const size_t plane = (size_t)cap * C;
+  const size_t plane_b = (size_t)cap_b * Cb;
+  const size_t slot = (size_t)r * C + c;
+  float pi[DIM];
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) pi[d] = P[d * plane + slot];
+  float rho = 0.0f, sq = 0.0f, s2 = 0.0f, sb = 0.0f;
+  float gb[DIM];
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) gb[d] = 0.0f;
+  int cnt_pairs = 0;
+  for (int o = 0; o < Stencil<DIM>::kOffsets; ++o) {
+    const int n = c + flat_shift<DIM>(o, ny, nz);
+    if (n < 0 || n >= C) continue;  // outside the grid: an empty cell
+    const int b = cell_to_col ? cell_to_col[n] : n;
+    if (b < 0 || b >= Cb) continue;
+    const int cnt = min(count_b[b], cap_b);
+    for (int j = 0; j < cnt; ++j) {
+      const size_t js = (size_t)j * Cb + b;
+      float dp[DIM];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) dp[d] = pi[d] - Pb[d * plane_b + js];
+      float r2 = dp[0] * dp[0];
+#pragma unroll
+      for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
+      if (r2 > k.h2) continue;  // outside the support: every term is 0
+      const float vj = Volb[js];
+      const float dwr = cubic_dwr(r2, k);
+      rho += vj * cubic_w(r2, k);
+      float gsq = 0.0f, vdotg = 0.0f;
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) {
+        const float g = dp[d] * dwr;
+        gb[d] += g * vj;
+        gsq = gsq + g * g;
+        vdotg = vdotg + Vb[d * plane_b + js] * g * vj;
+      }
+      sq += gsq * vj * vj;
+      if (need_s2) s2 += gsq * vj;
+      sb += vdotg;
+      ++cnt_pairs;
+    }
+  }
+  rho_out[slot] = rho;
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) gb_out[d * plane + slot] = gb[d];
+  sq_out[slot] = sq;
+  s2_out[slot] = s2;
+  sb_out[slot] = sb;
+  cnt_out[slot] = cnt_pairs;
+}
+
 constexpr int kThreads = 128;
 
 dim3 grid_for(int cap, int C) {
@@ -309,6 +415,36 @@ int salva_hoist_ff(const float* P, const float* M, const int* count,
   } else if (dim == 2) {
     hoist_ff_kernel<2><<<grid_for(cap, C), kThreads, 0, s>>>(
         P, M, count, rho, gf, sq, s2, cnt, cap, C, ny, nz, need_s2, k);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// `cols` may be null (visit all C columns; n_cols = C) and `cell_to_col`
+// may be null (the boundary grid is the full grid, Cb = C). The outputs
+// must be zero-filled: only listed live slots are written.
+int salva_hoist_fb(const float* P, const int* count, const int* cols,
+                   int n_cols, const float* Pb, const float* Volb,
+                   const float* Vb, const int* count_b,
+                   const int* cell_to_col, float* rho, float* gb, float* sq,
+                   float* s2, float* sb, int* cnt, int dim, int cap, int C,
+                   int cap_b, int Cb, int ny, int nz, int need_s2,
+                   float inv_h2, float w_norm, float dwr_scale, float h2,
+                   void* stream) {
+  if (cap <= 0 || C <= 0 || n_cols <= 0 || cap_b <= 0 || Cb <= 0) {
+    return (int)cudaSuccess;
+  }
+  const Cubic k{inv_h2, w_norm, dwr_scale, h2};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dim == 3) {
+    hoist_fb_kernel<3><<<grid_for(cap, n_cols), kThreads, 0, s>>>(
+        P, count, cols, n_cols, Pb, Volb, Vb, count_b, cell_to_col, rho, gb,
+        sq, s2, sb, cnt, cap, C, cap_b, Cb, ny, nz, need_s2, k);
+  } else if (dim == 2) {
+    hoist_fb_kernel<2><<<grid_for(cap, n_cols), kThreads, 0, s>>>(
+        P, count, cols, n_cols, Pb, Volb, Vb, count_b, cell_to_col, rho, gb,
+        sq, s2, sb, cnt, cap, C, cap_b, Cb, ny, nz, need_s2, k);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -13,7 +13,8 @@ as ``int64`` holding the same non-negative values — every bit test
 
 ``state_from_numpy`` / ``state_to_numpy`` convert to and from numpy: a
 particle state as a dictionary of arrays keyed by field name, the solver
-state (``[N, dim + 2]`` float32 for DFSPH) as one array. That is the form
+state (``[N, dim + 2]`` float32 for DFSPH, the ``[N]`` pressures for
+IISPH) as one array. That is the form
 in which a ``salva_tpu`` state (or any other producer) enters this
 package.
 """
@@ -138,11 +139,12 @@ _DTYPES = {
 }
 
 
-def state_from_numpy(fields, device="cpu"):
+def state_from_numpy(fields, *, device):
     """Build a ``FluidsState`` (when ``fields`` has ``fluid_id``) or a
     ``BoundariesState`` (``boundary_id``) from numpy arrays, one per
     field — u32 bitmasks widen to int64 without changing their values —
-    or, given one array, the float32 solver-state tensor."""
+    or, given one array, the float32 solver-state tensor. ``device`` is
+    the caller's: there is no default."""
     if isinstance(fields, np.ndarray):
         return torch.tensor(fields, dtype=_F32, device=device)
     if "fluid_id" in fields:

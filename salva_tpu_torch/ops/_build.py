@@ -43,6 +43,10 @@ _SIGNATURES = {
                      _F, _F, _F, _F, _P],
     "salva_hoist_ff": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _F, _F, _F, _F, _P],
+    "salva_hoist_fb": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _F, _F, _F, _P],
 }
 
 

@@ -1,4 +1,4 @@
-"""The three dense pair passes of the DFSPH main path.
+"""The four dense pair passes of the DFSPH and IISPH solvers.
 
 Each pass has a hand-written CUDA kernel (``csrc/pair_passes.cu``) and a
 plain PyTorch version beside it:
@@ -8,7 +8,8 @@ wrapper       computes, per live slot i of the [cap, C] grid  plain version
 ============  ==========================================  ===============
 ``k_pass``    K_i = sum_j (m k)_j grad_ij       [dim,cap,C]  ``k_pass_plain``
 ``t_pass``    T_i = sum_j m_j (Q_j . grad_ij)   [cap, C]     ``t_pass_plain``
-``hoist_ff``  rho, Gf, sq, s2, pair count                    ``hoist_ff_plain``
+``hoist_ff``  rho, Gf, sq, s2, pair count (j fluid)          ``hoist_ff_plain``
+``hoist_fb``  rho, Gb, sq, s2, Sb, pair count (j boundary)   ``hoist_fb_plain``
 ============  ==========================================  ===============
 
 (grad_ij = (p_i - p_j) dW/dr / r, summed over the 3^dim cell stencil.)
@@ -18,31 +19,55 @@ launches the kernel or raises — there is no fallback. Every launch adds
 one to ``LAUNCHES[name]``, so a run can show which passes went through
 the kernels.
 
-The plain versions are the half-stencil folds of
+The fluid-fluid plain versions are the half-stencil folds of
 ``salva_tpu.solver.dense_common.DenseCtx`` (``_k_pass_half``,
 ``_t_pass_half``, ``_hoist_ff_half``): each +/- offset pair of the
 stencil shares one ``[cap, cap, C]`` pair block, whose mirrored j-side
-sum is rolled back onto cell c + s. The kernels walk the full stencil
-per output slot instead, so the two agree to float32 summation order.
+sum is rolled back onto cell c + s. ``hoist_fb_plain`` is the same
+class's fluid-boundary fold (``_hoist_fb_sparse`` and the roll fold of
+``_hoist``). The kernels walk the full stencil per output slot instead,
+so the two agree to float32 summation order.
 
 All passes take the per-cell live counts ``counts`` ([C] int32, ranks
-fill from 0, so slot (r, c) is live iff r < counts[c]); the plain hoist
-rebuilds the occupancy mask from them.
+fill from 0, so slot (r, c) is live iff r < counts[c]); the plain hoists
+rebuild the occupancy masks from them (``hoist_fb`` takes the boundary
+side's counts ``counts_b`` the same way).
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
 from ..geometry import dense_grid as dg
 from ..kernels.sph import _cubic_normalizer, get_kernel, w_dwr
 
-LAUNCHES = {"k_pass": 0, "t_pass": 0, "hoist_ff": 0}
+LAUNCHES = {"k_pass": 0, "t_pass": 0, "hoist_ff": 0, "hoist_fb": 0}
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def fold_pairs(offsets, h, dim, pos_i, mask_i, pos_j, mask_j, jview,
+               j_arrays: Dict, body, init):
+    """Fold ``body(acc, dpos, r2, within, j) -> acc`` over all 3^dim
+    neighbor views produced by ``jview(arr, o)``."""
+    acc = init
+    h2 = h * h
+    for o in range(len(offsets)):
+        pj = jview(pos_j, o)
+        mj = jview(mask_j, o)
+        j = {k: jview(v, o) for k, v in j_arrays.items()}
+        dpos = [pos_i[d][:, None, :] - pj[d][None, :, :] for d in range(dim)]
+        r2 = dpos[0] * dpos[0]
+        for d in range(1, dim):
+            r2 = r2 + dpos[d] * dpos[d]
+        within = (r2 <= h2) & (mask_i[:, None, :] > 0) & (mj[None, :, :] > 0)
+        acc = body(acc, dpos, r2, within, j)
+    return acc
 
 
 # -- plain PyTorch versions (half-stencil folds) ------------------------------
@@ -158,6 +183,107 @@ def hoist_ff_plain(spec, h, dim, kernel_density, kernel_gradient, P, M,
                     torch.sum(gsq * mi, dim=0), s, dims=-1
                 )
     return rho, torch.stack(gf), sq, s2, cnt
+
+
+def _fb_body(h, dim, kernel_density, kernel_gradient, need_s2):
+    """``DenseCtx._hoist``'s ``fb_body``: the fluid-boundary sums of one
+    [cap_f, cap_b, n] pair block."""
+    kd_w, kd_dw = get_kernel(kernel_density)
+    kg_w, kg_dw = get_kernel(kernel_gradient)
+
+    def fb_body(acc, dpos, r2, within, j):
+        rho, gb, sq, s2, sb, cnt = acc
+        _, dwr = w_dwr(r2, h, dim, kg_w, kg_dw)
+        wd, _ = w_dwr(r2, h, dim, kd_w, kd_dw)
+        vj = torch.where(within, j["vol"][None, :, :], 0.0)
+        rho = rho + torch.sum(vj * wd, dim=1)
+        gsq = torch.zeros_like(r2)
+        vdotg = torch.zeros_like(r2)
+        gb_new = []
+        for d in range(dim):
+            g_d = dpos[d] * dwr
+            gb_new.append(gb[d] + torch.sum(g_d * vj, dim=1))
+            gsq = gsq + g_d * g_d
+            vdotg = vdotg + j["vb"][d][None, :, :] * g_d * vj
+        sq = sq + torch.sum(gsq * vj * vj, dim=1)
+        if need_s2:
+            s2 = s2 + torch.sum(gsq * vj, dim=1)
+        sb = sb + torch.sum(vdotg, dim=1)
+        cnt = cnt + torch.sum(within, dim=1, dtype=torch.int32)
+        return rho, torch.stack(gb_new), sq, s2, sb, cnt
+
+    return fb_body
+
+
+def hoist_fb_plain(spec, h, dim, kernel_density, kernel_gradient, P, counts,
+                   Pb, Volb, Vbvel, counts_b, cell_to_col=None, cols=None,
+                   need_s2=True):
+    """(rho_fb, Gb, sq_fb, s2_fb, Sb, cnt_fb) on the full [cap_f, C] fluid
+    grid: per live fluid slot, over the boundary particles of its 3^dim
+    neighbor cells, sum Volb_j W, Volb_j grad, |grad|^2 Volb_j^2,
+    |grad|^2 Volb_j (zero unless ``need_s2``), Volb_j (vb_j . grad) and
+    the pairs within h.
+
+    - ``Pb`` / ``Vbvel`` [dim, cap_b, Cb], ``Volb`` [cap_b, Cb] and
+      ``counts_b`` [Cb]: the boundary grid, one column per boundary cell
+      of the binning;
+    - ``cell_to_col`` [C + 1]: the boundary column of each fluid-grid cell
+      (``cell_to_active`` of the sparse binning, whose void column is
+      empty); None for the full-grid binning (Cb == C, identity);
+    - ``cols`` [n]: the fluid columns to visit (the sparse hoist's
+      boundary-adjacency table over the compact binning; entries outside
+      [0, C) are unused), or None for every column. Columns not visited
+      get zeros.
+
+    With both None this is ``DenseCtx._hoist``'s roll fold; with a table,
+    ``_hoist_fb_sparse`` (gathered blocks, scattered back)."""
+    cap, C = P.shape[-2], P.shape[-1]
+    maskf = _live_mask(counts, cap)
+    maskb = _live_mask(counts_b, Pb.shape[-2])
+    shifts = dg.flat_shifts(spec)
+    if cols is None:
+        Pi, maski = P, maskf
+    else:
+        got = (cols >= 0) & (cols < C)
+        cg = torch.where(got, cols, 0).long()
+        Pi = P[..., cg]
+        maski = torch.where(got[None, :], maskf[..., cg], 0.0)
+    if cell_to_col is None:
+        def jview(arr, o):
+            return _rollj(arr, shifts[o])
+    else:
+        base = (cg if cols is not None
+                else torch.arange(C, dtype=torch.int64, device=P.device))
+        sh = torch.tensor(shifts, dtype=torch.int64, device=P.device)
+        nb = torch.clamp(base[:, None] + sh[None, :], 0, C)  # [n, 3^dim]
+        nb = cell_to_col.long()[nb]
+
+        def jview(arr, o):
+            return arr[..., nb[:, o]]
+
+    z = torch.zeros_like(maski)
+    rho, gb, sq, s2, sb, cnt = fold_pairs(
+        dg.neighbor_offsets(dim), h, dim, Pi, maski, Pb, maskb, jview,
+        {"vol": Volb, "vb": Vbvel},
+        _fb_body(h, dim, kernel_density, kernel_gradient, need_s2),
+        (z, torch.zeros_like(Pi), z, z, z,
+         torch.zeros_like(maski, dtype=torch.int32)),
+    )
+    if cols is None:
+        return rho, gb, sq, s2, sb, cnt
+    # Scatter back to the grid (unused table slots target the spare
+    # column C, which is cut off).
+    af_sc = torch.where(got, cols, C).long()
+    packed = torch.cat([rho[None], gb, sq[None], s2[None], sb[None]], dim=0)
+    fullf = torch.zeros(packed.shape[:-1] + (C + 1,), dtype=packed.dtype,
+                        device=P.device)
+    fullf[..., af_sc] = packed
+    fulli = torch.zeros(cnt.shape[:-1] + (C + 1,), dtype=cnt.dtype,
+                        device=P.device)
+    fulli[..., af_sc] = cnt
+    fullf, fulli = fullf[..., :C], fulli[..., :C]
+    return (fullf[0], fullf[1:1 + dim], fullf[1 + dim], fullf[2 + dim],
+            fullf[3 + dim], fulli)
 
 
 # -- CUDA kernel wrappers ------------------------------------------------------
@@ -293,3 +419,79 @@ def hoist_ff(spec, h, dim, kernel_density, kernel_gradient, P, M, counts,
             s2.data_ptr(), cnt.data_ptr(), dim_, cap, C, ny, nz,
             int(bool(need_s2)), *_cubic_args(h, dim), device=P.device)
     return rho, gf, sq, s2, cnt
+
+
+def _check_fb(dim, C, on_cpu, device, Pb, Volb, Vbvel, counts_b,
+              cell_to_col, cols):
+    """Validate ``hoist_fb``'s boundary-side operands (see
+    :func:`hoist_fb_plain`); raise on anything the kernel does not take."""
+    if Pb.ndim != 3 or Pb.shape[0] != dim:
+        raise ValueError("hoist_fb: expected boundary positions "
+                         "[dim, cap_b, Cb]")
+    cap_b, Cb = Pb.shape[1], Pb.shape[2]
+    ints = [(counts_b, (Cb,), "counts_b")]
+    if cell_to_col is None:
+        if Cb != C or cols is not None:
+            raise ValueError(
+                "hoist_fb: without a cell_to_col map the boundary grid is "
+                f"the fluid grid ({C} columns, got {Cb}) and every column "
+                "is visited (cols=None)"
+            )
+    else:
+        ints.append((cell_to_col, (C + 1,), "cell_to_col"))
+    if cols is not None:
+        if cols.ndim != 1:
+            raise ValueError("hoist_fb: cols must be one-dimensional")
+        ints.append((cols, tuple(cols.shape), "cols"))
+    for t, shape in ((Pb, (dim, cap_b, Cb)), (Volb, (cap_b, Cb)),
+                     (Vbvel, (dim, cap_b, Cb))):
+        if t.dtype != torch.float32:
+            raise TypeError(f"hoist_fb: expected float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"hoist_fb: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    for t, shape, name in ints:
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"hoist_fb: {name} must be int32 of shape "
+                             f"{shape}")
+    for t in [Pb, Volb, Vbvel] + [t for t, _, _ in ints]:
+        if t.device != device or not (on_cpu or t.is_contiguous()):
+            raise ValueError(
+                f"hoist_fb: every operand must be a contiguous tensor on "
+                f"{device}"
+            )
+    return cap_b, Cb
+
+
+def hoist_fb(spec, h, dim, kernel_density, kernel_gradient, P, counts, Pb,
+             Volb, Vbvel, counts_b, cell_to_col=None, cols=None,
+             need_s2=True):
+    """(rho_fb, Gb, sq_fb, s2_fb, Sb, cnt_fb) on the full [cap_f, C] fluid
+    grid; operands as :func:`hoist_fb_plain`. The kernel visits the
+    listed columns only; the others stay zero (outputs are zero-filled
+    here)."""
+    on_cpu = _check("hoist_fb", spec, dim, (kernel_density, kernel_gradient),
+                    [(P, _vec)], counts)
+    cap_b, Cb = _check_fb(dim, P.shape[2], on_cpu, P.device, Pb, Volb, Vbvel,
+                          counts_b, cell_to_col, cols)
+    if on_cpu:
+        return hoist_fb_plain(spec, h, dim, kernel_density, kernel_gradient,
+                              P, counts, Pb, Volb, Vbvel, counts_b,
+                              cell_to_col=cell_to_col, cols=cols,
+                              need_s2=need_s2)
+    dim_, cap, C, ny, nz = _grid_args(spec, dim, P)
+    scl = (cap, C)
+    rho = torch.zeros(scl, dtype=torch.float32, device=P.device)
+    gb = torch.zeros_like(P)
+    sq, s2, sb = (torch.zeros_like(rho) for _ in range(3))
+    cnt = torch.zeros(scl, dtype=torch.int32, device=P.device)
+    n_cols = C if cols is None else cols.shape[0]
+    _launch("hoist_fb", "salva_hoist_fb", P.data_ptr(), counts.data_ptr(),
+            None if cols is None else cols.data_ptr(), n_cols,
+            Pb.data_ptr(), Volb.data_ptr(), Vbvel.data_ptr(),
+            counts_b.data_ptr(),
+            None if cell_to_col is None else cell_to_col.data_ptr(),
+            rho.data_ptr(), gb.data_ptr(), sq.data_ptr(), s2.data_ptr(),
+            sb.data_ptr(), cnt.data_ptr(), dim_, cap, C, cap_b, Cb, ny, nz,
+            int(bool(need_s2)), *_cubic_args(h, dim), device=P.device)
+    return rho, gb, sq, s2, sb, cnt

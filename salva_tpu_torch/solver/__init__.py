@@ -1,4 +1,4 @@
-"""Pressure solvers of the dense layout (DFSPH)."""
+"""Pressure solvers of the dense layout (DFSPH, IISPH)."""
 
 from .common import SolverDiagnostics
 from .nonpressure import ForceSet

@@ -1,28 +1,27 @@
-"""Shared machinery of the dense-layout pressure solver (main-path subset).
+"""Shared machinery of the dense-layout pressure solvers (DFSPH, IISPH).
 
 Port of ``salva_tpu.solver.dense_common``: binning, the per-substep
 hoisted sums (density, gradient sums, gradient norms, boundary terms,
-contact counts) and the per-iteration pair passes of dense DFSPH, on the
-full-grid layout (one column per window cell, ``[cap, C]``; neighbor
-views are flat rolls of the cell axis) with the sparse boundary binning
-(boundary-owner passes over occupied boundary cells only) and the sparse
-fluid-boundary hoist.
+contact counts) and the per-iteration pair passes of the dense solvers,
+on the full-grid layout (one column per window cell, ``[cap, C]``;
+neighbor views are flat rolls of the cell axis), with either boundary
+binning: sparse (``dense_sparse_boundary=True``, the default:
+boundary-owner passes over occupied boundary cells only, and the sparse
+fluid-boundary hoist over boundary-adjacent fluid columns) or full-grid
+(``False``: the boundaries bin into the fluid grid's cells).
 
-The three hot fluid-fluid passes (``k_pass``, ``t_pass`` and the ff
-hoist) go through ``ops.pair``: hand kernels for CUDA tensors, the
-half-stencil folds for CPU tensors. Everything else is plain torch.
+The four hot passes (``k_pass``, ``t_pass``, the ff hoist and the fb
+hoist) go through ``ops.pair``: hand kernels for CUDA tensors, the plain
+folds for CPU tensors. Everything else is plain torch.
 
 Not ported (each raises ``NotImplementedError`` naming its flag): the
 dense+spill structure (``dense_spill_columns``), the compact layout
-(``dense_compact``), frozen pair coefficients (``dense_frozen_pairs``),
-the full-grid boundary binning (``dense_sparse_boundary=False``) and the
-full-stencil plain folds (``dense_half_stencil=False``); the multi-device
-halo path has no counterpart yet.
+(``dense_compact``), frozen pair coefficients (``dense_frozen_pairs``)
+and the full-stencil plain folds (``dense_half_stencil=False``); the
+multi-device halo path has no counterpart yet.
 """
 
 from __future__ import annotations
-
-from typing import Dict
 
 import numpy as np
 import torch
@@ -31,6 +30,7 @@ from ..config import SimConfig
 from ..geometry import dense_grid as dg
 from ..kernels import get_kernel, w_dwr
 from ..ops import pair
+from ..ops.pair import fold_pairs
 
 
 def per_fluid_mean_max_grid(values, fid, mask, num_fluids: int):
@@ -48,30 +48,9 @@ def per_fluid_mean_max_grid(values, fid, mask, num_fluids: int):
     return err
 
 
-def fold_pairs(offsets, h, dim, pos_i, mask_i, pos_j, mask_j, jview,
-               j_arrays: Dict, body, init):
-    """Fold ``body(acc, dpos, r2, within, j) -> acc`` over all 3^dim
-    neighbor views produced by ``jview(arr, o)``."""
-    acc = init
-    h2 = h * h
-    for o in range(len(offsets)):
-        pj = jview(pos_j, o)
-        mj = jview(mask_j, o)
-        j = {k: jview(v, o) for k, v in j_arrays.items()}
-        dpos = [pos_i[d][:, None, :] - pj[d][None, :, :] for d in range(dim)]
-        r2 = dpos[0] * dpos[0]
-        for d in range(1, dim):
-            r2 = r2 + dpos[d] * dpos[d]
-        within = (r2 <= h2) & (mask_i[:, None, :] > 0) & (mj[None, :, :] > 0)
-        acc = body(acc, dpos, r2, within, j)
-    return acc
-
-
 def _unsupported(sim: SimConfig):
     """The config flag of the first non-ported branch this configuration
     would take, or None."""
-    if not sim.dense_sparse_boundary:
-        return "dense_sparse_boundary=False (the full-grid boundary binning)"
     for flag in ("dense_compact", "dense_frozen_pairs", "dense_spill_columns"):
         if getattr(sim, flag, None):
             return flag
@@ -153,44 +132,18 @@ class DenseCtx:
         self.sf = spec_f
         offs = self.offsets
         self.jff = lambda arr, o: dg.shift_j(spec_f, arr, offs[o])
-        # Boundary side compact (walls/floors occupy few cells):
-        # boundary-owner passes run over A_b occupied columns; the compact
-        # boundary arrays are rematerialized onto the full grid once
-        # (below) so fluid-owner fb reads are roll views.
-        a_b = max(
-            64,
-            min(
-                spec_b.num_cells,
-                int(boundaries.capacity
-                    * sim.dense_active_ratio_boundary),
-            ),
-        )
-        self.binb = dg.bin_particles_active(
-            spec_b, a_b, boundaries.positions, boundaries.alive,
-            cap=spec_b.cap, drop_clamped=self.drop_b,
-            origin=self.origin_dyn,
-        )
-        self.sb = dg.ActiveSpec(a_b + 1, spec_b.cap)
-        nbb = dg.neighbor_table(
-            spec_f, self.binb.active_cells, self.binb.cell_to_active
-        ).long()
-        self.jbb = lambda arr, o: arr[..., nbb[:, o]]
-        C = spec_f.num_cells
-        shifts = torch.tensor(dg.flat_shifts(spec_f), dtype=torch.int64,
-                              device=dev)
-        active = self.binb.active_cells.long()  # [A_b + 1], void = C
-        is_void = active >= C
-        self._b_active = active
-        self._b_is_void = is_void
-
-        def jbf(arr, o):
-            """Full-grid fluid column of each boundary active cell at
-            offset o (void columns read column 0; their boundary
-            slots are sentinel-masked)."""
-            cols = torch.where(is_void, 0, active + shifts[o])
-            return arr[..., torch.clamp(cols, 0, C - 1)]
-
-        self.jbf = jbf
+        self.sparse_b = bool(sim.dense_sparse_boundary)
+        if self.sparse_b:
+            self._bin_boundaries_sparse(sim, spec_f, spec_b, boundaries)
+        else:
+            # Full-grid boundary binning: the boundary grid is the fluid
+            # grid's [cap_b, C], so every fluid/boundary view is a roll.
+            self.binb = dg.bin_particles(
+                spec_b, boundaries.positions, boundaries.alive,
+                drop_clamped=self.drop_b, origin=self.origin_dyn,
+            )
+            self.sb = spec_b
+            self.jbf = self.jbb = self.jff
         self.maskf = self.binf.mask
         self.live = self.maskf > 0
         # Per-cell live counts [C] (ranks fill from 0): what the hand
@@ -225,15 +178,56 @@ class DenseCtx:
              (boundaries.velocities, 0.0)],
         )
         self.maskb = self.binb.mask
+        self.counts_b = (self.maskb > 0).sum(dim=0, dtype=torch.int32)
 
         self._fb_adj_overflow = 0
         self._compute_boundary_volumes()
         self._hoist()
 
+    def _bin_boundaries_sparse(self, sim, spec_f, spec_b, boundaries):
+        """Boundary side compact (walls/floors occupy few cells):
+        boundary-owner passes run over A_b occupied columns; the
+        fluid-owner fb hoist reads them through ``cell_to_active``."""
+        a_b = max(
+            64,
+            min(
+                spec_b.num_cells,
+                int(boundaries.capacity
+                    * sim.dense_active_ratio_boundary),
+            ),
+        )
+        self.binb = dg.bin_particles_active(
+            spec_b, a_b, boundaries.positions, boundaries.alive,
+            cap=spec_b.cap, drop_clamped=self.drop_b,
+            origin=self.origin_dyn,
+        )
+        self.sb = dg.ActiveSpec(a_b + 1, spec_b.cap)
+        nbb = dg.neighbor_table(
+            spec_f, self.binb.active_cells, self.binb.cell_to_active
+        ).long()
+        self.jbb = lambda arr, o: arr[..., nbb[:, o]]
+        C = spec_f.num_cells
+        shifts = torch.tensor(dg.flat_shifts(spec_f), dtype=torch.int64,
+                              device=self.device)
+        active = self.binb.active_cells.long()  # [A_b + 1], void = C
+        is_void = active >= C
+        self._b_active = active
+        self._b_is_void = is_void
+
+        def jbf(arr, o):
+            """Full-grid fluid column of each boundary active cell at
+            offset o (void columns read column 0; their boundary
+            slots are sentinel-masked)."""
+            cols = torch.where(is_void, 0, active + shifts[o])
+            return arr[..., torch.clamp(cols, 0, C - 1)]
+
+        self.jbf = jbf
+
     @property
     def bin_overflow(self):
-        return (self.binf.overflow + self.binb.overflow
-                + self.binb.active_overflow + self._fb_adj_overflow)
+        extra = self.binb.active_overflow if self.sparse_b else 0
+        return (self.binf.overflow + self.binb.overflow + extra
+                + self._fb_adj_overflow)
 
     # -- per-substep passes -------------------------------------------------
 
@@ -263,34 +257,6 @@ class DenseCtx:
             0.0,
         )
 
-    def _fb_body(self):
-        kd_w, kd_dw = self.kd
-        kg_w, kg_dw = self.kg
-        dim, h, need_s2 = self.dim, self.h, self.need_s2
-
-        def fb_body(acc, dpos, r2, within, j):
-            rho, gb, sq, s2, sb, cnt = acc
-            _, dwr = w_dwr(r2, h, dim, kg_w, kg_dw)
-            wd, _ = w_dwr(r2, h, dim, kd_w, kd_dw)
-            vj = torch.where(within, j["vol"][None, :, :], 0.0)
-            rho = rho + torch.sum(vj * wd, dim=1)
-            gsq = torch.zeros_like(r2)
-            vdotg = torch.zeros_like(r2)
-            gb_new = []
-            for d in range(dim):
-                g_d = dpos[d] * dwr
-                gb_new.append(gb[d] + torch.sum(g_d * vj, dim=1))
-                gsq = gsq + g_d * g_d
-                vdotg = vdotg + j["vb"][d][None, :, :] * g_d * vj
-            sq = sq + torch.sum(gsq * vj * vj, dim=1)
-            if need_s2:
-                s2 = s2 + torch.sum(gsq * vj, dim=1)
-            sb = sb + torch.sum(vdotg, dim=1)
-            cnt = cnt + torch.sum(within, dim=1, dtype=torch.int32)
-            return rho, torch.stack(gb_new), sq, s2, sb, cnt
-
-        return fb_body
-
     def _hoist(self):
         dim, h = self.dim, self.h
         rho_ff, Gf, sq_ff, s2_ff, cnt_ff = pair.hoist_ff(
@@ -298,25 +264,18 @@ class DenseCtx:
             self.sim.kernel_gradient, self.P, self.M, self.counts,
             need_s2=self.need_s2,
         )
-
-        fb_body = self._fb_body()
-        if self._fb_cols():
-            rho_fb, Gb_raw, sq_fb, s2_fb, Sb_raw, cnt_fb = (
-                self._hoist_fb_sparse(fb_body)
-            )
-        else:
-            # Roll-view fold over the compact boundary arrays
-            # rematerialized onto the full grid.
-            pb = self._to_full(self.Pb, dg.POS_SENTINEL)
-            maskb, volb = self._to_full(self.maskb), self._to_full(self.Volb)
-            vbvel = self._to_full(self.Vbvel)
-            z = torch.zeros_like(self.maskf)
-            rho_fb, Gb_raw, sq_fb, s2_fb, Sb_raw, cnt_fb = fold_pairs(
-                self.offsets, h, dim, self.P, self.maskf, pb, maskb,
-                self.jff, {"vol": volb, "vb": vbvel}, fb_body,
-                (z, torch.zeros_like(self.P), z, z, z,
-                 torch.zeros_like(self.maskf, dtype=torch.int32)),
-            )
+        # The fb hoist, one pass for the three branches of the reference:
+        # the sparse table (boundary-adjacent columns only), every column
+        # over the compact boundary table (near-dense adjacency or no
+        # boundaries), and the full-grid boundary binning (identity map).
+        rho_fb, Gb_raw, sq_fb, s2_fb, Sb_raw, cnt_fb = pair.hoist_fb(
+            self.spec_f, h, dim, self.sim.kernel_density,
+            self.sim.kernel_gradient, self.P, self.counts, self.Pb,
+            self.Volb, self.Vbvel, self.counts_b,
+            cell_to_col=self.binb.cell_to_active if self.sparse_b else None,
+            cols=self._fb_table() if self._fb_cols() else None,
+            need_s2=self.need_s2,
+        )
 
         R0 = self.R0
         self.rho = torch.where(self.live, rho_ff + R0 * rho_fb, R0)
@@ -335,87 +294,45 @@ class DenseCtx:
 
     def _fb_cols(self) -> int:
         """Static boundary-adjacency table size for the sparse fb hoist,
-        or 0 when the world set none (no boundaries) or the adjacency is
-        near-dense (gathered columns would not beat the roll fold)."""
+        or 0 when the world set none (no boundaries, or the full-grid
+        boundary binning) or the adjacency is near-dense (the table would
+        not save work)."""
         cols = getattr(self.sim, "dense_fb_columns", None)
-        if not cols:
+        if not cols or not self.sparse_b:
             return 0
         cols = min(int(cols), self.spec_f.num_cells)
         if cols * 2 >= self.spec_f.num_cells:
             return 0
         return cols
 
-    def _hoist_fb_sparse(self, fb_body):
-        """The fb hoist over boundary-ADJACENT fluid columns only:
+    def _fb_table(self):
+        """The fluid columns of the sparse fb hoist, [AFB] int32 (unused
+        entries = C):
 
         1. the boundary occupancy mask [C] is dilated by the 3^dim flat
            shifts;
         2. the adjacent cell ids compact into a static [AFB] table via
            ``topk`` (keys ``C - cell`` are unique, so the table order is
            ascending cell id, as ``lax.top_k`` gives it); overflow is
-           counted in ``bin_overflow``;
-        3. the pair fold runs over ``[cap_f, cap_b, AFB]`` gathered blocks;
-        4. the outputs scatter back into full-grid arrays (every other
-           column's fb sums are exactly zero).
+           counted in ``bin_overflow``, and the columns past the table
+           are dropped exactly as the reference drops them.
         """
         C = self.spec_f.num_cells
         dev = self.device
         AFB = self._fb_cols()
-        shifts = dg.flat_shifts(self.spec_f)
-
         occ = torch.zeros((C + 1,), dtype=torch.bool, device=dev)
         occ[torch.where(self._b_is_void, C, self._b_active)] = True
         occ = occ[:C]
         adj = occ
-        for s in shifts:
+        for s in dg.flat_shifts(self.spec_f):
             if s != 0:
                 adj = adj | torch.roll(occ, s)
         iota = torch.arange(C, dtype=torch.int32, device=dev)
         key = torch.where(adj, C - iota, 0)
         vals, af = torch.topk(key, AFB)
-        got = vals > 0
         n_adj = adj.sum(dtype=torch.int32)
         self._fb_adj_overflow = torch.clamp(n_adj - AFB, min=0)
-        af_g = torch.where(got, af, 0)
-
-        # i-side: gathered fluid columns (mask zeroed on unused slots).
-        Pi = self.P[..., af_g]
-        maski = torch.where(got[None, :], self.maskf[..., af_g], 0.0)
-
-        # j-side: boundary compact columns of each table cell's 3^dim
-        # neighbors (void column for inactive cells).
-        sh = torch.tensor(shifts, dtype=torch.int64, device=dev)
-        nfb = self.binb.cell_to_active[
-            torch.clamp(af_g[:, None] + sh[None, :], 0, C)
-        ].long()  # [AFB, 3^dim]
-
-        def jview(arr, o):
-            return arr[..., nfb[:, o]]
-
-        z = torch.zeros_like(maski)
-        rho, Gb, sq, s2, sb, cnt = fold_pairs(
-            self.offsets, self.h, self.dim, Pi, maski, self.Pb, self.maskb,
-            jview, {"vol": self.Volb, "vb": self.Vbvel}, fb_body,
-            (z, torch.zeros_like(Pi), z, z, z,
-             torch.zeros_like(maski, dtype=torch.int32)),
-        )
-
-        # Scatter back to the grid (unused table slots target the spare
-        # column C, which is cut off).
-        af_sc = torch.where(got, af, C)
-        packed = torch.cat(
-            [rho[None], Gb, sq[None], s2[None], sb[None]], dim=0
-        )
-        fullf = torch.zeros(packed.shape[:-1] + (C + 1,), dtype=packed.dtype,
-                            device=dev)
-        fullf[..., af_sc] = packed
-        fulli = torch.zeros(cnt.shape[:-1] + (C + 1,), dtype=cnt.dtype,
-                            device=dev)
-        fulli[..., af_sc] = cnt
-        fullf, fulli = fullf[..., :C], fulli[..., :C]
-        dim = self.dim
-        return (fullf[0], fullf[1:1 + dim], fullf[1 + dim],
-                fullf[2 + dim], fullf[3 + dim], fulli)
+        return torch.where(vals > 0, af, C).to(torch.int32)
 
     # -- per-iteration passes -----------------------------------------------
 
@@ -462,16 +379,6 @@ class DenseCtx:
         return self.Volb[None] * Fb
 
     # -- layout conversion ---------------------------------------------------
-
-    def _to_full(self, arr, fill=0.0):
-        """Compact boundary columns [..., A_b+1] -> full grid [..., C]
-        (the void column and unused slots land in a spare column)."""
-        C = self.spec_f.num_cells
-        cols = torch.where(self._b_is_void, C, self._b_active)
-        full = torch.full(arr.shape[:-1] + (C + 1,), fill, dtype=arr.dtype,
-                          device=arr.device)
-        full[..., cols] = arr
-        return full[..., :C]
 
     def to_f(self, values, fill=0.0):
         """Per-particle fluid values [N] / [N, D] -> grid layout."""

@@ -38,16 +38,22 @@ class StepDiagnostics:
         return dataclasses.replace(self, **kw)
 
 
-def init_solver_state(solver_cfg, capacity: int, dim: int, device="cpu"):
-    """Persistent solver scratch: DFSPH carries the velocity changes
-    (`dfsph_solver.rs:44,688-691`) plus the warm-start stiffness sums in
-    columns [dim] / [dim+1]; IISPH carries its pressures."""
+def solver_state_shape(solver_cfg, capacity: int, dim: int):
+    """Shape of the persistent solver scratch: DFSPH carries the velocity
+    changes (`dfsph_solver.rs:44,688-691`) plus the warm-start stiffness
+    sums in columns [dim] / [dim+1]; IISPH carries its pressures
+    (`iisph_solver.rs:35,673-677`)."""
     if solver_cfg.kind == "dfsph":
-        return torch.zeros((capacity, dim + 2), dtype=torch.float32,
-                           device=device)
+        return (capacity, dim + 2)
     if solver_cfg.kind == "iisph":
-        return torch.zeros((capacity,), dtype=torch.float32, device=device)
+        return (capacity,)
     raise ValueError(f"unknown solver kind {solver_cfg.kind!r}")
+
+
+def init_solver_state(solver_cfg, capacity: int, dim: int, device):
+    """Zeroed solver scratch of :func:`solver_state_shape` on ``device``."""
+    return torch.zeros(solver_state_shape(solver_cfg, capacity, dim),
+                       dtype=torch.float32, device=device)
 
 
 def _dense_config(sim: SimConfig, solver_cfg, forces: ForceSet):
@@ -97,12 +103,10 @@ def build_substep_fn(sim: SimConfig, solver_cfg, forces: ForceSet,
             "the gather layout is not ported to salva_tpu_torch: give the "
             "world a static `domain` (the dense layout)"
         )
-    if solver_cfg.kind != "dfsph":
-        raise NotImplementedError(
-            f"the dense {solver_cfg.kind!r} solver is not ported to "
-            "salva_tpu_torch"
-        )
-    from .solver.dfsph_dense import build_dense_substep
+    if solver_cfg.kind == "dfsph":
+        from .solver.dfsph_dense import build_dense_substep
+    else:
+        from .solver.iisph_dense import build_dense_substep
 
     spec_f, spec_b, dense_forces = dense
     return build_dense_substep(

@@ -6,12 +6,14 @@ growth and the auto-tuned dense layout (cap tier with overflow
 self-heal, fluid-tracking grid window, sparse fluid-boundary table);
 every per-step array operation runs on ``device`` as torch tensors.
 
-``device`` defaults to ``"cuda"`` when a GPU is present and ``"cpu"``
-otherwise. On CUDA the three hot pair passes run as the hand kernels of
-``ops/pair.py``; on the CPU as their plain versions.
+``device`` defaults to ``"cuda"``; without a GPU the world raises unless
+the caller asks for the CPU with ``device="cpu"``. On CUDA the four hot
+pair passes run as the hand kernels of ``ops/pair.py``; on the CPU as
+their plain versions.
 
-Not ported (raise ``NotImplementedError``): the gather layout and the
-brute tier, coupling, non-pressure forces, emitters and deletion.
+Solvers: DFSPH and IISPH on the dense layout. Not ported (raise
+``NotImplementedError``): the gather layout and the brute tier,
+coupling, non-pressure forces, emitters and deletion.
 """
 
 from __future__ import annotations
@@ -31,7 +33,12 @@ from .object.interaction_groups import InteractionGroups
 from .object.state import BoundariesState, FluidsState
 from .solver.dense_common import fold_pairs
 from .solver.nonpressure import ForceSet
-from .step import StepDiagnostics, build_step_fn, init_solver_state
+from .step import (
+    StepDiagnostics,
+    build_step_fn,
+    init_solver_state,
+    solver_state_shape,
+)
 from .timestep import TimestepManager
 
 
@@ -148,7 +155,13 @@ class LiquidWorld:
                 "salva_tpu_torch"
             )
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "LiquidWorld runs on a CUDA device by default and none "
+                    "is available; pass device=\"cpu\" to run the plain "
+                    "PyTorch passes on the CPU"
+                )
+            device = "cuda"
         self.device = torch.device(device)
         self.solver_config = solver if solver is not None else DFSPHConfig()
         # ``dense_cap(_boundary)=None`` auto-sizes the per-cell slot
@@ -405,7 +418,9 @@ class LiquidWorld:
     # -- stepping ----------------------------------------------------------
 
     def _prepare(self):
-        expected = (self.fluids_state.capacity, self.dim + 2)
+        expected = solver_state_shape(
+            self.solver_config, self.fluids_state.capacity, self.dim
+        )
         if self._solver_state is None or tuple(
             self._solver_state.shape
         ) != expected:

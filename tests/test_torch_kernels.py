@@ -1,5 +1,5 @@
-"""The hand CUDA kernels of ``salva_tpu_torch.ops.pair`` against their
-plain PyTorch versions, on the card.
+"""The four hand CUDA kernels of ``salva_tpu_torch.ops.pair`` against
+their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device (``gpu`` marker) and skips without
 one. The file imports torch and the port only (no JAX), so it runs on a
@@ -8,7 +8,9 @@ GPU machine without the JAX package's dependencies:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Fixture: a clustered random fluid binned by the port's dense grid, in 2D
-and 3D, with cells over 8 particles. Tolerances as in
+and 3D, with cells over 8 particles; for ``hoist_fb``, a moving boundary
+layer through it, binned both ways (full grid, compact table with the
+adjacency columns). Tolerances as in
 ``tests/test_torch_pair_passes.py`` (the kernels walk the full stencil,
 the plain versions the half stencil: float32 summation order only).
 """
@@ -90,6 +92,67 @@ def test_hoist_kernel_matches_plain(cuda, dim, need_s2):
     assert torch.equal(out[4], ref[4])  # pair counts exact
 
 
+def _boundary(spec, device, layout):
+    """A jittered moving boundary layer at y ~ 0.5 through the fluid of
+    :func:`_grid`, as ``hoist_fb`` takes it: ``"full"`` binned into the
+    fluid grid's cells (identity map, every column), ``"sparse"`` binned
+    into the compact occupied-cell table and visited through its
+    boundary-adjacency columns (with unused table entries)."""
+    dim = spec.dim
+    rng = np.random.default_rng(23 + dim)
+    ticks = np.arange(0.05, 1.6, 0.1)
+    grid = np.stack(np.meshgrid(*([ticks] * (dim - 1)), indexing="ij"),
+                    axis=-1).reshape(-1, dim - 1)
+    bpos = np.insert(grid, 1, 0.5, axis=1)
+    bpos = bpos + rng.uniform(-0.02, 0.02, size=bpos.shape)
+    nb = len(bpos)
+    bpos = torch.from_numpy(bpos.astype(np.float32)).to(device)
+    bvel = torch.from_numpy(
+        rng.normal(size=(nb, dim)).astype(np.float32)).to(device)
+    vol = torch.from_numpy(
+        rng.uniform(1e-3, 2e-3, size=nb).astype(np.float32)).to(device)
+    alive = torch.ones(nb, dtype=torch.bool, device=device)
+    bspec = spec.replace(cap=8)
+    if layout == "full":
+        binb = tdg.bin_particles(bspec, bpos, alive)
+        sb, cell_to_col, cols = bspec, None, None
+    else:
+        binb = tdg.bin_particles_active(bspec, 256, bpos, alive)
+        sb = tdg.ActiveSpec(257, bspec.cap)
+        cell_to_col = binb.cell_to_active
+        C = spec.num_cells
+        occ = torch.zeros(C + 1, dtype=torch.bool, device=device)
+        occ[binb.active_cells.long()] = True
+        adj = torch.zeros(C, dtype=torch.bool, device=device)
+        for s_ in tdg.flat_shifts(spec):
+            adj |= torch.roll(occ[:C], s_)
+        cols = torch.cat([torch.nonzero(adj)[:, 0],
+                          torch.full((7,), C, device=device)]).to(torch.int32)
+    Pb, Vb, Volb = tdg.to_grid_multi(sb, binb, [(bpos, tdg.POS_SENTINEL),
+                                                (bvel, 0.0), (vol, 0.0)])
+    counts_b = (binb.mask > 0).sum(dim=0, dtype=torch.int32)
+    assert int(counts_b.sum()) == nb
+    return (Pb, Volb, Vb, counts_b), dict(cell_to_col=cell_to_col, cols=cols)
+
+
+@pytest.mark.parametrize("layout", ["full", "sparse"])
+@pytest.mark.parametrize("need_s2", [False, True])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_hoist_fb_kernel_matches_plain(cuda, dim, need_s2, layout):
+    spec, P, M, V, K, counts = _grid(dim, cuda)
+    bnd, kw = _boundary(spec, cuda, layout)
+    args = (spec, H, dim, "cubic", "cubic", P, counts, *bnd)
+    before = pair.LAUNCHES["hoist_fb"]
+    out = pair.hoist_fb(*args, need_s2=need_s2, **kw)
+    assert pair.LAUNCHES["hoist_fb"] == before + 1
+    ref = pair.hoist_fb_plain(*args, need_s2=need_s2, **kw)
+    for o, r in zip(out[:5], ref[:5]):
+        _assert_close(o, r, HOIST_TOL)
+    assert torch.equal(out[5], ref[5])  # pair counts exact
+    assert int(out[5].sum()) > 0
+    assert bool((out[3] != 0).any()) == need_s2
+
+
 def test_kernels_are_bitwise_deterministic(cuda):
     spec, P, M, V, K, counts = _grid(3, cuda)
     args = (spec, H, 3, "cubic", P, M)
@@ -99,6 +162,11 @@ def test_kernels_are_bitwise_deterministic(cuda):
                        pair.t_pass(*args, V, counts))
     a = pair.hoist_ff(spec, H, 3, "cubic", "cubic", P, M, counts)
     b = pair.hoist_ff(spec, H, 3, "cubic", "cubic", P, M, counts)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    bnd, kw = _boundary(spec, cuda, "sparse")
+    fb = (spec, H, 3, "cubic", "cubic", P, counts, *bnd)
+    a = pair.hoist_fb(*fb, **kw)
+    b = pair.hoist_fb(*fb, **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 

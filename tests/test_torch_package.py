@@ -1,6 +1,7 @@
 """Package-level guarantees of the PyTorch port: it imports neither jax nor
-flax, CPU runs never launch a kernel, the kernel wrappers validate their
-operands, unported paths raise, and the state converters round-trip."""
+flax, the default device is the card (no silent CPU fallback), CPU runs
+never launch a kernel, the kernel wrappers validate their operands,
+unported paths raise, and the state converters round-trip."""
 
 import os
 import subprocess
@@ -41,8 +42,8 @@ def test_import_leaves_jax_and_flax_out():
     assert out.stdout.startswith("ok")
 
 
-def _tiny_world(dim=2):
-    w = st.LiquidWorld(particle_radius=0.05, dim=dim,
+def _tiny_world(dim=2, solver=None):
+    w = st.LiquidWorld(solver=solver, particle_radius=0.05, dim=dim,
                        domain=((-1.0, -0.4), (1.0, 1.5)), layout="dense",
                        device="cpu")
     xs = (np.arange(6) * 0.1).astype(np.float32)
@@ -61,18 +62,32 @@ def test_cpu_run_launches_no_kernel():
     for _ in range(3):
         w.step(1.0 / 200.0, (0.0, -9.81))
     assert w.device.type == "cpu"
-    assert pair.LAUNCHES == {"k_pass": 0, "t_pass": 0, "hoist_ff": 0}
+    assert pair.LAUNCHES == {"k_pass": 0, "t_pass": 0, "hoist_ff": 0,
+                             "hoist_fb": 0}
     pos = w.fluid_positions(0)
     assert pos.shape == (36, 2) and np.isfinite(pos).all()
     d = w.last_diagnostics
     assert d.solver.pressure_iters >= 1 and int(d.ncontacts_ff) > 0
 
 
-def test_default_device_follows_cuda_availability():
+def test_default_device_follows_cuda_availability(monkeypatch):
+    """The default device is the card; without one the world raises and
+    names ``device="cpu"`` instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        st.LiquidWorld(dim=3)
+    w = st.LiquidWorld(dim=3, device="cpu")
+    assert w.fluids_state.device.type == "cpu"
+    # With a card present the default resolves to it (states are not
+    # allocated on it here: only the device choice is checked).
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(st.world.FluidsState, "empty",
+                        staticmethod(lambda cap, dim, device: device))
+    monkeypatch.setattr(st.world.BoundariesState, "empty",
+                        staticmethod(lambda cap, dim, device: device))
     w = st.LiquidWorld(dim=3)
-    want = "cuda" if torch.cuda.is_available() else "cpu"
-    assert w.device.type == want
-    assert w.fluids_state.device.type == want
+    assert w.device == torch.device("cuda")
+    assert w.fluids_state == torch.device("cuda")
 
 
 def _operands(dim=3, cap=4):
@@ -101,6 +116,27 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(RuntimeError):
         pair.k_pass(spec, 0.2, 3, "cubic", P.to("meta"), M.to("meta"),
                     K.to("meta"), counts.to("meta"))
+    # hoist_fb: the full-grid form (no cell map) needs Cb == C; the map
+    # and the column list are int32.
+    C = spec.num_cells
+    Pb = torch.full((3, 2, C), tdg.POS_SENTINEL)
+    Volb, cb = torch.zeros((2, C)), torch.zeros((C,), dtype=torch.int32)
+    fb = (spec, 0.2, 3, "cubic", "cubic", P, counts)
+    pair.hoist_fb(*fb, Pb, Volb, Pb, cb)  # accepted
+    with pytest.raises(ValueError):
+        pair.hoist_fb(*fb, Pb[..., :-1], Volb[:, :-1], Pb[..., :-1], cb[:-1])
+    with pytest.raises(ValueError):
+        pair.hoist_fb(*fb, Pb, Volb, Pb, cb,
+                      cell_to_col=torch.zeros(C + 1, dtype=torch.int64))
+    with pytest.raises(ValueError):  # a column list needs the cell map
+        pair.hoist_fb(*fb, Pb, Volb, Pb, cb,
+                      cols=torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        pair.hoist_fb(*fb, Pb, Volb, Pb, cb,
+                      cell_to_col=torch.zeros(C + 1, dtype=torch.int32),
+                      cols=torch.zeros(4, dtype=torch.int64))
+    with pytest.raises(TypeError):
+        pair.hoist_fb(*fb, Pb, Volb.double(), Pb, cb)
 
 
 def test_unported_paths_raise():
@@ -115,10 +151,21 @@ def test_unported_paths_raise():
         )
     with pytest.raises(NotImplementedError):
         _tiny_world().step_with_coupling(0.01, (0.0, -9.81), object())
-    w = _tiny_world()
-    w.sim = w.sim.replace(dense_spill_columns=512)
-    with pytest.raises(NotImplementedError):
+    for flag in (dict(dense_spill_columns=512), dict(dense_compact=True),
+                 dict(dense_frozen_pairs=True),
+                 dict(dense_half_stencil=False)):
+        w = _tiny_world()
+        w.sim = w.sim.replace(**flag)
+        with pytest.raises(NotImplementedError):
+            w.step(0.01, (0.0, -9.81))
+    # Ported since the first slice: IISPH and the full-grid boundary
+    # binning step on the CPU.
+    w = _tiny_world(solver=st.IISPHConfig())
+    w.sim = w.sim.replace(dense_sparse_boundary=False)
+    for _ in range(2):
         w.step(0.01, (0.0, -9.81))
+    assert w._solver_state.shape == (w.fluids_state.capacity,)
+    assert int(w.last_diagnostics.ncontacts_fb) > 0
 
 
 def test_dense_ctx_layout_round_trips():
@@ -152,7 +199,7 @@ def test_state_numpy_round_trip():
     for state in (w.fluids_state, w.boundaries_state):
         arrays = state_to_numpy(state)
         assert arrays["memberships"].dtype == np.uint32
-        back = state_from_numpy(arrays)
+        back = state_from_numpy(arrays, device="cpu")
         assert type(back) is type(state)
         for name, arr in arrays.items():
             np.testing.assert_array_equal(
@@ -160,10 +207,13 @@ def test_state_numpy_round_trip():
             )
     solver = np.arange(12, dtype=np.float32).reshape(3, 4)
     np.testing.assert_array_equal(
-        state_to_numpy(state_from_numpy(solver)), solver
+        state_to_numpy(state_from_numpy(solver, device="cpu")), solver
     )
     with pytest.raises(ValueError):
-        state_from_numpy({"positions": np.zeros((1, 2), np.float32)})
+        state_from_numpy({"positions": np.zeros((1, 2), np.float32)},
+                         device="cpu")
+    with pytest.raises(TypeError):
+        state_from_numpy(solver)  # the caller names the device
 
 
 def test_kernel_build_is_keyed_by_source_hash():

@@ -1,18 +1,24 @@
-"""The three pair passes of the PyTorch port against the JAX package.
+"""The four pair passes of the PyTorch port against the JAX package.
 
 The plain PyTorch versions (``k_pass_plain``, ``t_pass_plain``,
-``hoist_ff_plain``) are held, on the same grid state, against
+``hoist_ff_plain``, ``hoist_fb_plain``) are held, on the same grid state,
+against
 
 - the JAX ``DenseCtx`` half-stencil folds (``_k_pass_half``,
   ``_t_pass_half``, ``_hoist_ff_half``), and
 - the Pallas v3 kernels in interpret mode (``k_pass_pallas3``,
   ``t_pass_pallas3``, ``hoist_ff_pallas3``: the v1 lo slice plus the hi
-  complement), as ``tests/test_pallas_ops.py`` runs them on the CPU,
+  complement; ``hoist_fb_pallas3`` on the full-grid boundary arrays), as
+  ``tests/test_pallas_ops.py`` runs them on the CPU,
 
-in 2D and 3D, on a clustered fixture that puts more than 8 particles in
-some cells (so the hi complement carries real blocks). Tolerances follow
-``tests/test_pallas_ops.py``: rtol 1e-4 / atol 1e-5 for k and t, 1e-3 for
-the hoist's float outputs, exact pair counts.
+in 2D and 3D, on a clustered fixture that puts more
+than 8 particles in some cells (so the hi complement carries real
+blocks), with a moving boundary layer through part of the fluid.
+Tolerances follow ``tests/test_pallas_ops.py``: rtol 1e-4 / atol 1e-5 for
+k and t, 1e-3 for the hoists' float outputs, exact pair counts. The
+fb hoist's three forms (full-grid boundary binning, the compact boundary
+table over every column, the compact table over the sparse hoist's
+adjacency columns) are held against each other.
 
 The CUDA kernels themselves are held against the plain versions on the
 card (``tests/test_torch_kernels.py``, ``gpu``-marked; ``chip_smoke.py``
@@ -29,6 +35,7 @@ from salva_tpu.config import SimConfig
 from salva_tpu.geometry import dense_grid as jdg
 from salva_tpu.object.state import BoundariesState, FluidsState
 from salva_tpu.ops.pallas_pair2 import (
+    hoist_fb_pallas3,
     hoist_ff_pallas3,
     k_pass_pallas3,
     t_pass_pallas3,
@@ -36,6 +43,12 @@ from salva_tpu.ops.pallas_pair2 import (
 from salva_tpu.solver.dense_common import DenseCtx
 from salva_tpu_torch.geometry import dense_grid as tdg
 from salva_tpu_torch.ops import pair
+
+# One intra-op thread: the parity tests run many tiny torch ops, and the
+# suite runs several test processes at once, where torch's spinning
+# thread pools oversubscribe the cores (one IISPH parity fixture took
+# over 800 s with the default pool under load, 89 s with one thread).
+torch.set_num_threads(1)
 
 H = 0.2
 KT_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -63,15 +76,27 @@ def _state(dim):
     n = len(pos)
     alive = np.arange(n) % 9 != 4
     vel = rng.normal(size=(n, dim)).astype(np.float32)
+    # Boundary: a jittered layer at y ~ 0.3 (a plane in 3D, a line in
+    # 2D), 0.1 apart, moving, so every fb channel is nonzero.
+    ticks = np.arange(0.05, hi, 0.1)
+    grid_b = np.stack(np.meshgrid(*([ticks] * (dim - 1)), indexing="ij"),
+                      axis=-1).reshape(-1, dim - 1)
+    bpos = np.insert(grid_b, 1, 0.3, axis=1)
+    bpos = (bpos + rng.uniform(-0.01, 0.01, size=bpos.shape)).astype(
+        np.float32)
+    nb = len(bpos)
+    bvel = rng.normal(size=(nb, dim)).astype(np.float32)
     sim = SimConfig(dim=dim, particle_radius=0.05, use_pallas=False,
                     dense_compact=False, dense_spill_auto=False,
+                    dense_sparse_boundary=False,
                     domain=((lo,) * dim, (hi,) * dim))
     spec = jdg.spec_for_aabb((lo,) * dim, (hi,) * dim, H, cap=16)
 
     @jax.jit
-    def reference(pos, vel, alive):
-        """Bin through the JAX DenseCtx and run its half-stencil folds
-        (one compiled program: far cheaper than eager op dispatch)."""
+    def reference(pos, vel, alive, bpos, bvel):
+        """Bin through the JAX DenseCtx (full-grid boundary binning) and
+        run its half-stencil folds (one compiled program: far cheaper
+        than eager op dispatch)."""
         fl = FluidsState.empty(n, dim).replace(
             positions=pos,
             velocities=vel,
@@ -79,23 +104,34 @@ def _state(dim):
             density0=jnp.full((n,), 1000.0, jnp.float32),
             alive=alive,
         )
-        ctx = DenseCtx(sim, spec, spec.replace(cap=4), fl,
-                       BoundariesState.empty(8, dim))
+        bd = BoundariesState.empty(nb, dim).replace(
+            positions=bpos, velocities=bvel,
+            alive=jnp.ones((nb,), bool),
+        )
+        ctx = DenseCtx(sim, spec, spec.replace(cap=8), fl, bd)
         K = ctx.rho * 1e-6
         return dict(
             P=ctx.P, M=ctx.M, V=ctx.V, K=K, mask=ctx.maskf,
-            overflow=ctx.binf.overflow, k=ctx._k_pass_half(K),
+            Pb=ctx.Pb, Volb=ctx.Volb, Vbvel=ctx.Vbvel, maskb=ctx.maskb,
+            overflow=ctx.binf.overflow + ctx.binb.overflow,
+            k=ctx._k_pass_half(K),
             t=ctx._t_pass_half(ctx.V), hoist=ctx._hoist_ff_half(),
         )
 
-    ref = reference(jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(alive))
+    ref = reference(jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(alive),
+                    jnp.asarray(bpos), jnp.asarray(bvel))
     counts = np.asarray(ref["mask"]).sum(axis=0).astype(np.int32)
     assert counts.max() > 8, counts.max()  # hi slot groups are live
     assert int(ref["overflow"]) == 0
     tspec = tdg.DenseGridSpec(spec.origin, spec.dims, spec.cap,
                               spec.cell_width)
-    t = {k: torch.from_numpy(np.array(ref[k])) for k in ("P", "M", "V", "K")}
+    t = {k: torch.from_numpy(np.array(ref[k]))
+         for k in ("P", "M", "V", "K", "Pb", "Volb", "Vbvel")}
     t["counts"] = torch.from_numpy(counts)
+    t["counts_b"] = torch.from_numpy(
+        np.asarray(ref["maskb"]).sum(axis=0).astype(np.int32))
+    t["bpos"], t["balive"] = torch.from_numpy(bpos), torch.ones(nb, dtype=bool)
+    t["bvel"] = torch.from_numpy(bvel)
     return spec, ref, tspec, t
 
 
@@ -167,4 +203,68 @@ def test_cpu_wrappers_run_the_plain_versions(state):
                             need_s2=False),
     ):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(
+        pair.hoist_fb(*_fb_args(tspec, dim, t), need_s2=False),
+        pair.hoist_fb_plain(*_fb_args(tspec, dim, t), need_s2=False),
+    ):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert pair.LAUNCHES == before
+
+
+def _fb_args(tspec, dim, t):
+    return (tspec, H, dim, "cubic", "cubic", t["P"], t["counts"], t["Pb"],
+            t["Volb"], t["Vbvel"], t["counts_b"])
+
+
+def test_hoist_fb_plain_matches(state):
+    """Full-grid boundary binning (identity cell map, every column)
+    against the interpret-mode Pallas kernel, with need_s2."""
+    dim, spec, ref, tspec, t = state
+    out = pair.hoist_fb_plain(*_fb_args(tspec, dim, t), need_s2=True)
+    want = hoist_fb_pallas3(
+        spec, t["Pb"].shape[1], H, dim, "cubic", "cubic", ref["P"], ref["M"],
+        ref["Pb"], ref["Volb"], ref["Vbvel"], need_s2=True, tile=TILE,
+        interpret=True,
+    )
+    for o, r in zip(out[:5], want[:5]):
+        assert float(np.abs(np.asarray(r)).max()) > 0  # channel exercised
+        _close(o.numpy(), r, HOIST_TOL)
+    np.testing.assert_array_equal(out[5].numpy(), np.asarray(want[5]))
+    assert int(out[5].sum()) > 0
+
+
+def test_hoist_fb_plain_forms_agree(state):
+    """The three forms of the fb hoist on one state: the boundaries
+    binned into the full grid (identity), the compact occupied-cell table
+    over every fluid column, and the compact table over the sparse
+    hoist's adjacency columns (with unused table entries). The per-pair
+    sums are the same, so the results are equal bitwise."""
+    dim, spec, ref, tspec, t = state
+    full = pair.hoist_fb_plain(*_fb_args(tspec, dim, t), need_s2=True)
+    bspec = tspec.replace(cap=8)
+    binb = tdg.bin_particles_active(bspec, 64, t["bpos"], t["balive"])
+    sb = tdg.ActiveSpec(65, bspec.cap)
+    Pb, Vb = tdg.to_grid_multi(sb, binb, [(t["bpos"], tdg.POS_SENTINEL),
+                                          (t["bvel"], 0.0)])
+    # Volumes of the full-grid binning, moved to the compact slots.
+    vol = tdg.from_grid(tspec, tdg.bin_particles(bspec, t["bpos"],
+                                                 t["balive"]), t["Volb"])
+    Volb = tdg.to_grid(sb, binb, vol)
+    counts_b = (binb.mask > 0).sum(dim=0, dtype=torch.int32)
+    C = tspec.num_cells
+    adj = torch.zeros(C, dtype=torch.bool)
+    occ = torch.zeros(C + 1, dtype=torch.bool)
+    occ[binb.active_cells.long()] = True
+    for s_ in tdg.flat_shifts(tspec):
+        adj |= torch.roll(occ[:C], s_)
+    table = torch.cat([torch.nonzero(adj)[:, 0],
+                       torch.full((5,), C)]).to(torch.int32)
+    compact = (tspec, H, dim, "cubic", "cubic", t["P"], t["counts"], Pb,
+               Volb, Vb, counts_b)
+    every = pair.hoist_fb_plain(*compact, cell_to_col=binb.cell_to_active,
+                                need_s2=True)
+    sparse = pair.hoist_fb_plain(*compact, cell_to_col=binb.cell_to_active,
+                                 cols=table, need_s2=True)
+    for a, b, c in zip(full, every, sparse):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert int(full[5].sum()) > 0
