@@ -14,12 +14,15 @@ one NVIDIA GPU, in these phases:
    pressure iterations;
 4. each kernel against its plain PyTorch version on identical tensors
    taken from the DFSPH world's state past impact (cells hold more than
-   8 particles), both hoists with their IISPH ``s2`` channel, the
+   8 particles), both hoists with their IISPH ``s2`` channel and
+   without it (the DFSPH setting: ``s2`` exactly zero), the
    fluid-boundary hoist on both boundary layouts (the sparse one the
    world resolves, and the same state binned into the full grid):
    per-output errors and tolerances, a bitwise rerun, CUDA-event times,
-   the least time the card could take (bound), and planted faults that
-   each output's tolerance must catch;
+   the least time the card could take (bound: the bytes of the live
+   slots the pass must read and of its outputs, or its float32
+   operations), and planted faults that each output's tolerance must
+   catch;
 5. the DFSPH and the IISPH world stepped 5 times through the kernels and
    5 times through the plain versions (substituted here, in the script),
    with identical iteration counts and matching positions required;
@@ -32,7 +35,8 @@ Exits non-zero without a result line when no CUDA device is present or
 any phase fails. The last line of stdout is one JSON object:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's name and power limit, and the line
-before that the kernels' JSON record.
+before that the kernels' JSON record (``launches``: the IISPH main
+path's count, this slice's path; ``launches_dfsph``: the DFSPH one's).
 """
 
 import json
@@ -48,7 +52,6 @@ import torch
 N_TARGET = 100_000  # bench.py's BENCH_N: 46^3 = 97,336 particles
 DT = 1.0 / 200.0
 GRAVITY = (0.0, -9.81, 0.0)
-DEVICE = "cuda"
 # Kernel vs plain: float32 summation order only (the kernels walk the
 # full stencil, the plain versions the half stencil or gathered blocks).
 # The numbers are the tolerances tests/test_pallas_ops.py holds the TPU
@@ -76,18 +79,23 @@ OUTPUTS = {
 # A wrong kernel the tolerance must catch: output scaled by this factor.
 FAULT_SCALE = 0.99
 # Kernel run vs plain run of the whole step after 5 steps (positions,
-# metres). Measured on an H100 (700 W) for DFSPH: 6.9e-6 after 5 steps,
-# growing to 1.9e-5 after 8, with identical iteration counts; the kernel
-# run is bitwise reproducible. The lattice start is far more sensitive
-# than that: a 1-ulp nudge of the initial positions moves the plain run
-# by 3.3e-3 after one step (pairs sit exactly at r = h, and the
-# divergence solve's neighbor-count gate flips on them). 5e-5 sits
-# between the two. IISPH is held to the same bound: its Jacobi update
-# divides by a_ii (a difference of near-equal terms) and so amplifies
-# summation-order differences into the velocities (3.1e-6 m/s between
-# the JAX package and the port on the CPU, tests/test_torch_iisph_
-# dam_break.py), but 5 steps of dt = 5 ms turn that into ~1e-7 m.
-PATH_POS_ATOL = 5e-5
+# metres), per solver. Both kernel runs are bitwise reproducible. The
+# lattice start is far more sensitive than either bound: a 1-ulp nudge
+# of the initial positions moves the plain DFSPH run by 3.3e-3 after one
+# step (pairs sit exactly at r = h, and the divergence solve's
+# neighbor-count gate flips on them).
+# - DFSPH: measured 6.9e-6 on an H100 (700 W) after 5 steps, growing to
+#   1.9e-5 after 8, with identical iteration counts; 5e-5 sits between
+#   that reading and the lattice sensitivity.
+# - IISPH: measured 2.4e-7 on an H100 (700 W) after 5 steps, with
+#   identical iteration counts. Its Jacobi update divides by a_ii (a
+#   difference of near-equal terms), which amplifies summation-order
+#   differences into the velocities (3.1e-6 m/s between the JAX package
+#   and the port on the CPU), but 5 steps of dt = 5 ms keep positions
+#   near 1e-7. 2e-6, the bound tests/test_torch_iisph_dam_break.py holds
+#   the port's positions to against the JAX package, sits 8x above the
+#   reading and three orders of magnitude below the lattice sensitivity.
+PATH_POS_ATOL = {"dfsph": 5e-5, "iisph": 2e-6}
 REPLACES = {
     "k_pass": "salva_tpu/ops/pallas_pair.py:707",
     "t_pass": "salva_tpu/ops/pallas_pair.py:225",
@@ -119,11 +127,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def sync():
-    if DEVICE == "cuda":
-        torch.cuda.synchronize()
 
 
 def dam_break_world(device, solver="dfsph", sparse_boundary=True):
@@ -225,31 +228,74 @@ def nbytes(tensors):
                if t is not None)
 
 
-def bound(name, dim, moved_bytes, candidates, within):
-    """(bound_ms, bound_by): the larger of the bytes the call must move
-    (each input read once, each output written once) over the HBM rate
-    and the float32 operations this state's pairs need over the float32
-    rate."""
+def live_bytes(planes, live):
+    """Bytes of ``live`` slots in every channel of the float32
+    [.., cap, C] planes: what a pass must read of them when it reads
+    only live slots."""
+    return sum(4 * live * (t.numel() // (t.shape[-2] * t.shape[-1]))
+               for t in planes)
+
+
+def shift_flat(x, s):
+    """``x[..., c + s]`` along the flat cell axis, zero where c + s lies
+    outside the grid: the neighbor cell the kernels read at stencil
+    shift ``s`` (``flat_shift`` in the CUDA source; a cell outside the
+    grid counts as empty)."""
+    out = torch.zeros_like(x)
+    C = x.shape[-1]
+    if s >= 0:
+        out[..., :C - s] = x[..., s:]
+    else:
+        out[..., -s:] = x[..., :C + s]
+    return out
+
+
+def bound(name, dim, read_bytes, written_bytes, candidates, within):
+    """(bound_ms, bound_by, ops): the larger of the bytes the call must
+    move over the HBM rate and the float32 operations this state's pairs
+    need over the float32 rate. ``read_bytes`` counts each input element
+    the function needs read once (live slots only, from this run's
+    counts); ``written_bytes`` the output tensors it returns, each
+    element written once."""
     ops = OPS_CANDIDATE[dim] * candidates + OPS_WITHIN[name] * within
-    t_bytes = moved_bytes / HBM_BYTES_PER_S
+    t_bytes = (read_bytes + written_bytes) / HBM_BYTES_PER_S
     t_ops = ops / FP32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", ops)
+
+
+def boundary_slots_within(cf, counts, visit, h, shifts):
+    """The boundary slots of the full-grid binning ``cf`` that lie within
+    h of a live fluid slot of a visited column: the only boundary slots
+    whose volume and velocity the fb hoist must read (a pair at exactly
+    r = h may round either way here and in the kernel; a slot is 16 B)."""
+    Pb, cb = cf.Pb, cf.counts_b
+    hit = torch.zeros(Pb.shape[1:], dtype=torch.bool, device="cuda")
+    live_f = counts * visit
+    for s in shifts:
+        # Boundary cell n pairs with fluid cell n - s.
+        cnt = shift_flat(live_f, -s)
+        Ps = shift_flat(cf.P, -s)
+        for j in range(int(cnt.max())):
+            d2 = ((Pb - Ps[:, j, None, :]) ** 2).sum(0)
+            hit |= (d2 <= h * h) & (j < cnt)[None, :]
+    rank = torch.arange(Pb.shape[1], device="cuda")[:, None]
+    return int((hit & (rank < cb[None, :])).sum())
 
 
 def phase_main_path(pair, solver):
     """Phase 2 / 3: the dam break through LiquidWorld on the card, with
     the launch counts of this run alone. Returns the world, past impact."""
     tag = f"[main {solver}]"
-    world = dam_break_world(DEVICE, solver)
-    assert world.device.type == DEVICE
-    assert world.fluids_state.positions.device.type == DEVICE
+    world = dam_break_world("cuda", solver)
+    assert world.device.type == "cuda"
+    assert world.fluids_state.positions.device.type == "cuda"
     n = int(world.fluids_state.alive.sum())
     pair.reset_launches()
     t0 = time.perf_counter()
     for _ in range(10):
         world.step(DT, GRAVITY)
-    sync()
+    torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     steps = 20
     iters = []
@@ -259,7 +305,7 @@ def phase_main_path(pair, solver):
         world.step(DT, GRAVITY)
         s = world.last_diagnostics.solver
         iters.append((s.pressure_iters, s.divergence_iters))
-    sync()
+    torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(pair.LAUNCHES)
 
@@ -332,6 +378,22 @@ def hold_kernel(name, label, kern, plain, tol, copy_back=None):
     return out, max(abs_errs)
 
 
+def hold_without_s2(label, names, out, ref, tol):
+    """The DFSPH setting (``need_s2=False``): every float output but s2
+    held to the plain version, s2 exactly zero in both, pair counts
+    exact. Returns the max abs err."""
+    i = names.index("s2")
+    assert int(torch.count_nonzero(out[i])) == 0, f"{label}: s2 not zero"
+    assert int(torch.count_nonzero(ref[i])) == 0, f"{label}: plain s2"
+    assert torch.equal(out[-1], ref[-1]), f"{label}: pair counts differ"
+    errs = {o: check_output(f"{label}.{o}", out[k], ref[k], tol)[0]
+            for k, o in enumerate(names) if o != "s2"}
+    log(f"[kernels] {label}: s2 exactly zero, pair counts exact; max abs "
+        f"err " + ", ".join(f"{o} {e:.4e}" for o, e in errs.items())
+        + f" (tol {tol})")
+    return max(errs.values())
+
+
 def phase_kernels(pair, world):
     """Phase 4: each kernel vs its plain version at the state of the
     DFSPH main path's world after its 30 steps (the shapes the main path
@@ -340,17 +402,18 @@ def phase_kernels(pair, world):
 
     ctx = step_ctx(world)
     spec, h, dim, counts = ctx.spec_f, ctx.h, ctx.dim, ctx.counts
+    C = spec.num_cells
     occ = int(counts.max())
+    n_live = int(counts.sum())
     log(f"[kernels] state after 30 steps: window dims {spec.dims} "
-        f"({spec.num_cells} cells), cap {spec.cap}, max cell occupancy "
-        f"{occ}, live slots {int(counts.sum())}")
+        f"({C} cells), cap {spec.cap}, max cell occupancy {occ}, live "
+        f"slots {n_live} of {spec.cap * C}")
     assert occ > 8, f"no cell above 8 particles (max {occ})"
     # Candidate pairs per fluid-fluid pass: each live slot visits every
-    # particle of its 3^dim neighbor cells (the ghost ring is empty, so a
-    # wrapping roll adds nothing).
+    # particle of its 3^dim neighbor cells.
     c64 = counts.long()
     shifts = tdg.flat_shifts(spec)
-    n_eval = sum(int((c64 * torch.roll(c64, -s)).sum()) for s in shifts)
+    n_eval = sum(int((c64 * shift_flat(c64, s)).sum()) for s in shifts)
     log(f"[kernels] fluid-fluid candidate pairs per pass: {n_eval}")
     # Planted fluid-side fault: the kernel is given one particle fewer in
     # the fullest cell (an off-by-one in the occupancy loop), and that
@@ -367,71 +430,93 @@ def phase_kernels(pair, world):
     P, M = ctx.P, ctx.M
     K = (ctx.rho * 1e-6 * ctx.maskf).contiguous()
     Q = ctx.V.contiguous()
+    # Each entry: kernel (planted fault or not), plain version, tolerance,
+    # the float input planes each live slot of which the pass must read.
     ff = {
         "k_pass": (
             lambda f: pair.k_pass(spec, h, dim, "cubic", P, M, K,
                                   short if f else counts),
             lambda: pair.k_pass_plain(spec, h, dim, "cubic", P, M, K,
                                       counts),
-            KT_TOL, [P, M, K, counts],
+            KT_TOL, [P, M, K],
         ),
         "t_pass": (
             lambda f: pair.t_pass(spec, h, dim, "cubic", P, M, Q,
                                   short if f else counts),
             lambda: pair.t_pass_plain(spec, h, dim, "cubic", P, M, Q,
                                       counts),
-            KT_TOL, [P, M, Q, counts],
+            KT_TOL, [P, M, Q],
         ),
         "hoist_ff": (
             lambda f: pair.hoist_ff(spec, h, dim, "cubic", "cubic", P, M,
                                     short if f else counts, need_s2=True),
             lambda: pair.hoist_ff_plain(spec, h, dim, "cubic", "cubic", P,
                                         M, counts, need_s2=True),
-            HOIST_TOL, [P, M, counts],
+            HOIST_TOL, [P, M],
         ),
     }
     results = {}
     ff_within = None
-    for name, (kern, plain, tol, inputs) in ff.items():
+    for name, (kern, plain, tol, planes) in ff.items():
         out, err = hold_kernel(name, name, kern, plain, tol, copy_ff)
         if name == "hoist_ff":
             ff_within = int(out[-1].sum())
+            # The DFSPH main path runs this hoist without s2.
+            err = max(err, hold_without_s2(
+                "hoist_ff (need_s2=False)", OUTPUTS[name],
+                pair.hoist_ff(spec, h, dim, "cubic", "cubic", P, M, counts,
+                              need_s2=False),
+                pair.hoist_ff_plain(spec, h, dim, "cubic", "cubic", P, M,
+                                    counts, need_s2=False), tol))
         ms = cuda_ms(lambda: kern(False), 50)
         plain_ms = cuda_ms(plain, 10)
+        # Reads: the live slots of each input plane and every column's
+        # count; writes: every output element once.
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             moved=nbytes(inputs + list(out)))
+                             read=live_bytes(planes, n_live) + 4 * C,
+                             written=nbytes(out))
         log(f"[kernels] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
             f"ms (median CUDA-event time); {n_eval / ms / 1e6:.4g} G "
             f"candidate pairs/s in the kernel")
     for name in ff:
         r = results[name]
-        r["bound_ms"], r["bound_by"], ops = bound(name, dim, r.pop("moved"),
+        read, written = r.pop("read"), r.pop("written")
+        r["bound_ms"], r["bound_by"], ops = bound(name, dim, read, written,
                                                   n_eval, ff_within)
         log(f"[kernels] {name}: bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']}; {ops:.4g} float32 operations over "
-            f"{n_eval} candidate / {ff_within} within-h pairs)")
+            f"({r['bound_by']}; {read} B read, {written} B written; "
+            f"{ops:.4g} float32 operations over {n_eval} candidate / "
+            f"{ff_within} within-h pairs); kernel / bound "
+            f"{r['ms'] / r['bound_ms']:.1f}")
 
     # hoist_fb on both boundary layouts. The dam-break floor is static
     # (boundary velocities 0, so Sb = 0); seeded random boundary
     # velocities on the live boundary slots exercise the Sb channel.
     ctx_full = step_ctx(world, dense_sparse_boundary=False)
-    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    # Boundary particles per fluid-grid cell (the full-grid binning), and
+    # per fluid column the boundary particles of its 3^dim neighbor cells.
+    cb_cell = ctx_full.counts_b.long()
+    around_f = sum(shift_flat(cb_cell, s) for s in shifts)
+    gen = torch.Generator(device="cuda").manual_seed(5)
     fb = {}
     for layout, c in (("sparse", ctx), ("full", ctx_full)):
         assert torch.equal(c.counts, counts) and torch.equal(c.P, P)
-        Vb = (torch.randn(c.Vbvel.shape, generator=gen, device=DEVICE)
+        Vb = (torch.randn(c.Vbvel.shape, generator=gen, device="cuda")
               * c.maskb[None]).contiguous()
         cell_to_col = c.binb.cell_to_active if c.sparse_b else None
         cols = c._fb_table() if c._fb_cols() else None
+        if c.sparse_b:
+            cb_map = c.counts_b.long()[cell_to_col.long()][:C]
+            assert torch.equal(cb_map, cb_cell), "the layouts disagree"
         # Planted boundary-side fault: one boundary particle fewer in the
         # boundary column with the most fluid particles around it.
         cb_cells = (c._b_active if c.sparse_b
-                    else torch.arange(spec.num_cells, device=DEVICE))
-        valid = cb_cells < spec.num_cells
+                    else torch.arange(C, device="cuda"))
+        valid = cb_cells < C
         around = torch.zeros(cb_cells.shape, dtype=torch.int64,
-                             device=DEVICE)
+                             device="cuda")
         for s in shifts:
-            nb = torch.clamp(cb_cells + s, 0, spec.num_cells - 1)
+            nb = torch.clamp(cb_cells + s, 0, C - 1)
             around += torch.where(valid, c64[nb], 0)
         around = torch.where(c.counts_b > 0, around, -1)
         col = int(torch.argmax(around))
@@ -446,42 +531,59 @@ def phase_kernels(pair, world):
         def plain(args=args, kw=kw, cb=c.counts_b):
             return pair.hoist_fb_plain(*args, cb, **kw)
 
-        n_cols = spec.num_cells if cols is None else int(
-            (cols < spec.num_cells).sum())
+        visit = torch.zeros(C, dtype=torch.int64, device="cuda")
+        if cols is None:
+            visit += 1
+        else:
+            visit[cols[cols < C].long()] = 1
+        n_cols = int(visit.sum())
         log(f"[kernels] hoist_fb ({layout}): boundary grid "
             f"{tuple(c.Pb.shape)}, {n_cols} fluid columns visited, planted "
             f"fault in boundary column {col} ({int(around[col])} fluid "
             f"particles around it, {int(c.counts_b[col])} boundary)")
         out, err = hold_kernel("hoist_fb", f"hoist_fb ({layout})", kern,
                                plain, HOIST_TOL)
+        # The DFSPH main path runs this hoist without s2.
+        kw0 = dict(kw, need_s2=False)
+        err = max(err, hold_without_s2(
+            f"hoist_fb ({layout}, need_s2=False)", OUTPUTS["hoist_fb"],
+            pair.hoist_fb(*args, c.counts_b, **kw0),
+            pair.hoist_fb_plain(*args, c.counts_b, **kw0), HOIST_TOL))
         # Candidate pairs: each live slot of a visited column times the
         # boundary particles of its 3^dim neighbor cells.
-        if c.sparse_b:
-            cb_full = c.counts_b.long()[c.binb.cell_to_active.long()]
-        else:
-            cb_full = torch.cat([c.counts_b.long(),
-                                 torch.zeros(1, dtype=torch.int64,
-                                             device=DEVICE)])
-        cb_full = cb_full[:spec.num_cells]
-        around_f = sum(torch.roll(cb_full, -s) for s in shifts)
-        visit = torch.zeros(spec.num_cells, dtype=torch.int64, device=DEVICE)
-        if cols is None:
-            visit += 1
-        else:
-            visit[cols[cols < spec.num_cells].long()] = 1
         cand = int((c64 * around_f * visit).sum())
         within = int(out[-1].sum())
+        # What the hoist must read: the positions of the fluid slots with
+        # at least one candidate; the entries of the column list and the
+        # counts of the visited columns; the map entry and boundary count
+        # of each neighbor cell of a visited live column; the positions of
+        # the boundary slots in those cells; the volume and velocity of
+        # the boundary slots within h of a visited live fluid slot.
+        n_pf = int((c64 * visit * (around_f > 0)).sum())
+        vl = visit * (c64 > 0)
+        need = sum(shift_flat(vl, -s) for s in shifts) > 0
+        n_need = int(need.sum())
+        n_pb = int((cb_cell * need).sum())
+        n_wb = boundary_slots_within(ctx_full, counts, visit, h, shifts)
+        idx = 4 * ((0 if cols is None else cols.numel()) + n_cols + n_need)
+        if cell_to_col is None:
+            idx += 4 * n_need  # boundary counts, indexed by cell
+        else:
+            idx += 4 * int(torch.unique(cell_to_col[:C][need]).numel())
+        read = 4 * (dim * n_pf + dim * n_pb + (1 + dim) * n_wb) + idx
+        written = nbytes(out)
         ms = cuda_ms(lambda: kern(False), 50)
         plain_ms = cuda_ms(plain, 10)
-        inputs = [P, counts, cols, c.Pb, c.Volb, Vb, c.counts_b, cell_to_col]
-        b_ms, b_by, ops = bound("hoist_fb", dim,
-                                nbytes(inputs + list(out)), cand, within)
+        b_ms, b_by, ops = bound("hoist_fb", dim, read, written, cand, within)
         fb[layout] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by)
         log(f"[kernels] hoist_fb ({layout}): kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms (median CUDA-event time); bound "
-            f"{b_ms:.5f} ms ({b_by}; {ops:.4g} float32 operations over "
-            f"{cand} candidate / {within} within-h pairs)")
+            f"{b_ms:.5f} ms ({b_by}; {read} B read: {n_pf} fluid slots, "
+            f"{n_pb} boundary slots, {n_wb} of them within h, {idx} B of "
+            f"index entries; {written} B written; {ops:.4g} float32 "
+            f"operations over {cand} candidate / {within} within-h "
+            f"pairs); kernel / bound {ms / b_ms:.1f}")
     # The main path runs the sparse layout: its numbers go in the record.
     results["hoist_fb"] = dict(
         fb["sparse"],
@@ -495,7 +597,7 @@ def phase_kernels(pair, world):
 def run_steps(solver, steps=5, sparse_boundary=True):
     """A fresh dam break stepped ``steps`` times: (iterations per step,
     live positions, last diagnostics)."""
-    world = dam_break_world(DEVICE, solver, sparse_boundary)
+    world = dam_break_world("cuda", solver, sparse_boundary)
     iters = []
     for _ in range(steps):
         world.step(DT, GRAVITY)
@@ -523,9 +625,9 @@ def phase_path_parity(pair, solver):
             setattr(pair, n, fn)
     dpos = float((pos_k - pos_p).abs().max())
     log(f"[parity {solver}] iterations kernels {it_k} vs plain {it_p}; "
-        f"max |dpos| {dpos:.3e} m (atol {PATH_POS_ATOL})")
+        f"max |dpos| {dpos:.3e} m (atol {PATH_POS_ATOL[solver]})")
     assert it_k == it_p, "iteration counts differ between kernels and plain"
-    assert dpos <= PATH_POS_ATOL, f"positions differ by {dpos}"
+    assert dpos <= PATH_POS_ATOL[solver], f"positions differ by {dpos}"
     return kernel_run
 
 
@@ -541,13 +643,13 @@ def phase_full_grid(pair, sparse_run):
         f"overflow {int(d.neighbor_overflow)}, contacts fb "
         f"{int(d.ncontacts_fb)}, max density ratio "
         f"{float(d.max_density_ratio):.4f}; max |dpos| vs the sparse "
-        f"binning {dpos:.3e} m (atol {PATH_POS_ATOL})")
+        f"binning {dpos:.3e} m (atol {PATH_POS_ATOL['dfsph']})")
     for name, count in launches.items():
         assert count > 0, f"{name} was never launched on the full grid"
     assert iters == sparse_run[0], "iterations differ from the sparse run"
     assert int(d.neighbor_overflow) < max(1, n // 1000)
     assert bool(torch.isfinite(pos).all())
-    assert dpos <= PATH_POS_ATOL, f"positions differ by {dpos}"
+    assert dpos <= PATH_POS_ATOL["dfsph"], f"positions differ by {dpos}"
 
 
 def main() -> int:
@@ -594,8 +696,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCE,
              replaces=REPLACES[name], launches=iisph["launches"][name],
-             launches_by_path={"dfsph": dfsph["launches"][name],
-                               "iisph": iisph["launches"][name]},
+             launches_path="iisph", launches_dfsph=dfsph["launches"][name],
              max_abs_err=k["max_abs_err"], ms=k["ms"],
              plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
              bound_by=k["bound_by"], library_ms=None,

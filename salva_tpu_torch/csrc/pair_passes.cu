@@ -272,9 +272,11 @@ __global__ void hoist_ff_kernel(const float* __restrict__ P,
 // live slot of a listed column. What bounds it on the H100: at the 97k
 // dam-break state the output planes (8 channels x cap x C x 4 B, ~17 MB
 // at cap 16 and a 32,768-cell window) are the only sizeable traffic,
-// ~5 us at 3.35 TB/s; the pair work (~10^7 candidate pairs near the
-// floor) is of the same order at the float32 rate, so like the other
-// passes it is latency-bound on the dependent count and position loads.
+// ~5 us at 3.35 TB/s; the inputs it must read (live slots next to the
+// floor) add well under 1 MB, and the pair work (~6 x 10^5 candidate
+// pairs) is far below the float32 rate. Like the other passes it runs
+// far above that bound, latency-bound on the dependent count and
+// position loads.
 template <int DIM>
 __global__ void hoist_fb_kernel(const float* __restrict__ P,
                                 const int* __restrict__ count,
@@ -361,13 +363,16 @@ dim3 grid_for(int cap, int C) {
 extern "C" {
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
-// (0 = success) so that the Python wrapper can raise on a refused launch.
+// (0 = success) so that the Python wrapper can raise on a refused launch,
+// or kNotLaunched when the grid is empty and there is nothing to launch
+// (the outputs are then complete as the wrapper allocated them).
+static const int kNotLaunched = -1;
 
 int salva_k_pass(const float* P, const float* M, const float* K,
                  const int* count, float* out, int dim, int cap, int C,
                  int ny, int nz, float inv_h2, float w_norm,
                  float dwr_scale, float h2, void* stream) {
-  if (cap <= 0 || C <= 0) return (int)cudaSuccess;
+  if (cap <= 0 || C <= 0) return kNotLaunched;
   const Cubic k{inv_h2, w_norm, dwr_scale, h2};
   cudaStream_t s = (cudaStream_t)stream;
   if (dim == 3) {
@@ -386,7 +391,7 @@ int salva_t_pass(const float* P, const float* M, const float* Q,
                  const int* count, float* out, int dim, int cap, int C,
                  int ny, int nz, float inv_h2, float w_norm,
                  float dwr_scale, float h2, void* stream) {
-  if (cap <= 0 || C <= 0) return (int)cudaSuccess;
+  if (cap <= 0 || C <= 0) return kNotLaunched;
   const Cubic k{inv_h2, w_norm, dwr_scale, h2};
   cudaStream_t s = (cudaStream_t)stream;
   if (dim == 3) {
@@ -406,7 +411,7 @@ int salva_hoist_ff(const float* P, const float* M, const int* count,
                    int dim, int cap, int C, int ny, int nz, int need_s2,
                    float inv_h2, float w_norm, float dwr_scale, float h2,
                    void* stream) {
-  if (cap <= 0 || C <= 0) return (int)cudaSuccess;
+  if (cap <= 0 || C <= 0) return kNotLaunched;
   const Cubic k{inv_h2, w_norm, dwr_scale, h2};
   cudaStream_t s = (cudaStream_t)stream;
   if (dim == 3) {
@@ -433,7 +438,7 @@ int salva_hoist_fb(const float* P, const int* count, const int* cols,
                    float inv_h2, float w_norm, float dwr_scale, float h2,
                    void* stream) {
   if (cap <= 0 || C <= 0 || n_cols <= 0 || cap_b <= 0 || Cb <= 0) {
-    return (int)cudaSuccess;
+    return kNotLaunched;
   }
   const Cubic k{inv_h2, w_norm, dwr_scale, h2};
   cudaStream_t s = (cudaStream_t)stream;

@@ -365,13 +365,21 @@ def _grid_args(spec, dim, P):
     return dim, P.shape[1], P.shape[2], dims[1], nz
 
 
+_NOT_LAUNCHED = -1  # csrc/pair_passes.cu kNotLaunched: an empty grid
+
+
 def _launch(name, fn, *args, device):
+    """Call the C entry ``fn`` on the current stream; count the launch
+    unless the entry had nothing to launch (an empty grid, column list or
+    boundary grid, whose outputs the wrapper already allocated complete)."""
     from . import _build
 
     lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, fn)(*args, stream)
+    if err == _NOT_LAUNCHED:
+        return
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed (error {err})")
     LAUNCHES[name] += 1

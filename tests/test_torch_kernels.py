@@ -179,3 +179,13 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                     .contiguous().transpose(1, 2), counts)
     with pytest.raises(ValueError):
         pair.k_pass(spec, H, 3, "cubic", P, M.cpu(), K, counts)
+
+
+def test_hoist_fb_with_no_columns_is_zero_and_not_counted(cuda):
+    spec, P, M, V, K, counts = _grid(3, cuda)
+    bnd, kw = _boundary(spec, cuda, "sparse")
+    kw["cols"] = kw["cols"][:0]
+    before = pair.LAUNCHES["hoist_fb"]
+    out = pair.hoist_fb(spec, H, 3, "cubic", "cubic", P, counts, *bnd, **kw)
+    assert pair.LAUNCHES["hoist_fb"] == before  # nothing was launched
+    assert all(int(torch.count_nonzero(o)) == 0 for o in out)
