@@ -1,42 +1,56 @@
 #!/usr/bin/env python3
 """GPU smoke run of salva_tpu_torch, the PyTorch + CUDA port.
 
-Drives the port's two main paths — the 3D dense dam break of
-``bench.py`` at 97,336 particles, solved with DFSPH and with IISPH — on
-one NVIDIA GPU, in these phases:
+Drives the port's main paths — the 3D dense dam break of ``bench.py``
+at 97,336 particles, solved with DFSPH and with IISPH, without and with
+the fluid's XSPH and artificial-viscosity forces — on one NVIDIA GPU,
+in these phases:
 
 1. setup: the card's name and power limit, and the build of the hand
-   CUDA kernels from ``salva_tpu_torch/csrc`` (nvcc, at first use);
+   CUDA kernels from ``salva_tpu_torch/csrc`` (one nvcc per source, all
+   at once, at first use);
 2. the DFSPH main path: ``LiquidWorld(..., device="cuda")``, 10 warm-up
    and 20 timed steps, with every kernel's launch count from that run;
 3. the IISPH main path: the same scene with ``solver=IISPHConfig()``,
    10 warm-up and 20 timed steps, its launch counts and per-step
    pressure iterations;
-4. each kernel against its plain PyTorch version on identical tensors
+4. the forces main paths: the same dam break whose fluid carries
+   ``ArtificialViscosity(1.0, 0.0)`` and ``XSPHViscosity(0.5, 1.0)``,
+   under DFSPH and under IISPH, 10 warm-up and 20 timed steps each;
+5. each kernel against its plain PyTorch version on identical tensors
    taken from the DFSPH world's state past impact (cells hold more than
    8 particles), both hoists with their IISPH ``s2`` channel and
    without it (the DFSPH setting: ``s2`` exactly zero), the
    fluid-boundary hoist on both boundary layouts (the sparse one the
-   world resolves, and the same state binned into the full grid):
+   world resolves, and the same state binned into the full grid), the
+   slot-group ``k_pass_v2`` against ``k_pass``'s plain version, and the
+   binning's ``expand`` on the fluid and the boundary binning (exact):
    per-output errors and tolerances, a bitwise rerun, CUDA-event times,
    the least time the card could take (bound: the bytes of the live
    slots the pass must read and of its outputs, or its float32
-   operations), and planted faults that each output's tolerance must
-   catch;
-5. the DFSPH and the IISPH world stepped 5 times through the kernels and
-   5 times through the plain versions (substituted here, in the script),
-   with identical iteration counts and matching positions required;
-6. the DFSPH dam break on the full-grid boundary binning
+   operations), the library call's time where one computes the same
+   function, and planted faults that each output's rule must catch;
+6. each main path (DFSPH and IISPH, without and with the forces)
+   stepped 5 times through the kernels and 5 times through the plain
+   versions (substituted here, in the script), with identical iteration
+   counts and matching positions required; the DFSPH path again with the
+   binning's packed gather in place of ``expand`` (bitwise equal);
+7. the DFSPH dam break on the full-grid boundary binning
    (``dense_sparse_boundary=False``) for 5 steps, through the kernels,
-   against the phase-5 kernel run on the sparse binning.
+   against the phase-6 kernel run on the sparse binning;
+8. the DFSPH dam break with ``pallas_variant="v2"`` (the solvers'
+   ``k_pass`` through ``k_pass_v2``) for 5 steps, against the same
+   kernel run.
 
 Usage, from the repository root:  python3 chip_smoke.py
 Exits non-zero without a result line when no CUDA device is present or
 any phase fails. The last line of stdout is one JSON object:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's name and power limit, and the line
-before that the kernels' JSON record (``launches``: the IISPH main
-path's count, this slice's path; ``launches_dfsph``: the DFSPH one's).
+before that the kernels' JSON record (``launches``: the count of the
+path named by ``launches_path`` — the DFSPH forces path, this slice's,
+and for ``k_pass_v2`` its own variant path; ``launches_by_path``: every
+path's).
 """
 
 import json
@@ -75,6 +89,7 @@ OUTPUTS = {
     "t_pass": ("T",),
     "hoist_ff": ("rho", "Gf", "sq", "s2"),
     "hoist_fb": ("rho", "Gb", "sq", "s2", "Sb"),
+    "k_pass_v2": ("K",),
 }
 # A wrong kernel the tolerance must catch: output scaled by this factor.
 FAULT_SCALE = 0.99
@@ -95,14 +110,26 @@ FAULT_SCALE = 0.99
 #   near 1e-7. 2e-6, the bound tests/test_torch_iisph_dam_break.py holds
 #   the port's positions to against the JAX package, sits 8x above the
 #   reading and three orders of magnitude below the lattice sensitivity.
+# The forces paths are held to the same bounds.
 PATH_POS_ATOL = {"dfsph": 5e-5, "iisph": 2e-6}
+# The fluid's non-pressure forces on the forces main paths: the basic3
+# scene's artificial viscosity and the elasticity scenes' XSPH (whose
+# nonzero boundary coefficient drives the fluid-boundary passes), as
+# (class name in salva_tpu_torch/forces.py, arguments).
+FORCES = (("ArtificialViscosity", (1.0, 0.0)), ("XSPHViscosity", (0.5, 1.0)))
 REPLACES = {
     "k_pass": "salva_tpu/ops/pallas_pair.py:707",
     "t_pass": "salva_tpu/ops/pallas_pair.py:225",
     "hoist_ff": "salva_tpu/ops/pallas_pair.py:382",
     "hoist_fb": "salva_tpu/ops/pallas_pair.py:562",
+    "k_pass_v2": "salva_tpu/ops/pallas_pair2.py:191",
+    "expand": "tools/exp_pallas_expand.py:37",
 }
-SOURCE = "salva_tpu_torch/csrc/pair_passes.cu"
+SOURCES = {name: "salva_tpu_torch/csrc/pair_passes.cu" for name in REPLACES}
+SOURCES["expand"] = "salva_tpu_torch/csrc/expand.cu"
+# The kernels every main path launches; k_pass_v2 runs on its own
+# variant path (SimConfig.pallas_variant = "v2").
+MAIN_PATH_KERNELS = ("k_pass", "t_pass", "hoist_ff", "hoist_fb", "expand")
 # The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): HBM3
 # bandwidth and float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -113,11 +140,33 @@ FP32_OPS_PER_S = 67e12
 # pair's arithmetic, needed only for pairs within h (cubic dW/dr / r: 14,
 # cubic W: 10, then each kernel's accumulations).
 OPS_CANDIDATE = {2: 5, 3: 8}
-OPS_WITHIN = {"k_pass": 22, "t_pass": 22, "hoist_ff": 48, "hoist_fb": 57}
+OPS_WITHIN = {"k_pass": 22, "t_pass": 22, "hoist_ff": 48, "hoist_fb": 57,
+              "k_pass_v2": 22}
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def reset_counts(pair):
+    """Set every kernel's launch count to 0 (pair passes and binning)."""
+    from salva_tpu_torch.ops import binning
+
+    pair.reset_launches()
+    binning.reset_launches()
+
+
+def read_counts(pair):
+    """Every kernel's launch count since the last ``reset_counts``."""
+    from salva_tpu_torch.ops import binning
+
+    return dict(pair.LAUNCHES, **binning.LAUNCHES)
+
+
+def path_name(solver, forces=False, sparse_boundary=True, variant=None):
+    return (solver + ("_forces" if forces else "")
+            + ("" if sparse_boundary else "_full_grid")
+            + (f"_{variant}" if variant else ""))
 
 
 def card_line() -> str:
@@ -129,10 +178,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def dam_break_world(device, solver="dfsph", sparse_boundary=True):
+def dam_break_world(device, solver="dfsph", sparse_boundary=True,
+                    forces=False, variant=None):
     """The bench.py dam break (``run_config``): a 46^3 cube one radius
     above a sampled Cuboid floor, moving down at 2 m/s, in a static
-    domain; caps, window and fb table auto-resolve."""
+    domain; caps, window and fb table auto-resolve. ``forces``: the
+    fluid carries FORCES; ``variant``: ``SimConfig.pallas_variant``."""
+    from salva_tpu_torch import forces as force_specs
     from salva_tpu_torch import shapes
     from salva_tpu_torch.config import DFSPHConfig, IISPHConfig
     from salva_tpu_torch.sampling import shape_surface_sample
@@ -154,11 +206,16 @@ def dam_break_world(device, solver="dfsph", sparse_boundary=True):
                         device=device)
     if not sparse_boundary:
         world.sim = world.sim.replace(dense_sparse_boundary=False)
+    if variant is not None:
+        world.sim = world.sim.replace(pallas_variant=variant)
     pos = cube_fluid((n_side, n_side, n_side), radius)
     pos[:, 1] += half + radius
     vel = np.zeros_like(pos)
     vel[:, 1] = -2.0
-    world.add_fluid(Fluid(pos, density0=1000.0, velocities=vel))
+    nonpressure = ([getattr(force_specs, name)(*args)
+                    for name, args in FORCES] if forces else [])
+    world.add_fluid(Fluid(pos, density0=1000.0, velocities=vel,
+                          nonpressure_forces=nonpressure))
     floor = shape_surface_sample(shapes.Cuboid((wall, 0.1, wall)), radius, 3)
     floor[:, 1] -= 0.1
     world.add_boundary(Boundary(floor))
@@ -181,8 +238,41 @@ def step_ctx(world, **sim_overrides):
 
 
 def cuda_ms(fn, reps):
-    """Median device time of ``fn()`` over ``reps`` runs (CUDA events),
-    after two warm-up runs."""
+    """Mean time of ``fn()`` over ``reps`` runs issued back to back (CUDA
+    events around the batch, elapsed time over the count), after two
+    warm-up runs. The batch is queued behind a spin kernel
+    (``torch.cuda._sleep``) sized to its host-side cost, so that a pass of
+    one launch (a hand kernel) is timed on the device alone, without the
+    host's launch cost between runs. A pass of many small launches (a
+    plain version) fills CUDA's launch queue before the spin ends; its
+    time is then that of whichever of the host and the device is
+    slower."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    # Cycles at ~2 GHz for 1.5x the host-and-device time of the runs,
+    # at most ~2 s.
+    cycles = min(int((time.perf_counter() - t0) * reps * 3.0e9) + 10**6,
+                 4 * 10**9)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(cycles)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def call_ms(fn, reps):
+    """Median time of one ``fn()`` call as a caller sees it: CUDA events
+    around a single call, so the host's launch cost is included when it
+    exceeds the device's work (the device idles between the events until
+    the launch arrives)."""
     for _ in range(2):
         fn()
     times = []
@@ -283,15 +373,15 @@ def boundary_slots_within(cf, counts, visit, h, shifts):
     return int((hit & (rank < cb[None, :])).sum())
 
 
-def phase_main_path(pair, solver):
-    """Phase 2 / 3: the dam break through LiquidWorld on the card, with
+def phase_main_path(pair, solver, forces=False):
+    """Phases 2-4: the dam break through LiquidWorld on the card, with
     the launch counts of this run alone. Returns the world, past impact."""
-    tag = f"[main {solver}]"
-    world = dam_break_world("cuda", solver)
+    tag = f"[main {path_name(solver, forces)}]"
+    world = dam_break_world("cuda", solver, forces=forces)
     assert world.device.type == "cuda"
     assert world.fluids_state.positions.device.type == "cuda"
     n = int(world.fluids_state.alive.sum())
-    pair.reset_launches()
+    reset_counts(pair)
     t0 = time.perf_counter()
     for _ in range(10):
         world.step(DT, GRAVITY)
@@ -307,7 +397,7 @@ def phase_main_path(pair, solver):
         iters.append((s.pressure_iters, s.divergence_iters))
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(pair.LAUNCHES)
+    launches = read_counts(pair)
 
     d = world.last_diagnostics
     overflow = int(d.neighbor_overflow)
@@ -329,8 +419,11 @@ def phase_main_path(pair, solver):
         f"{int(d.candidate_overflow)}, contacts ff {int(d.ncontacts_ff)} "
         f"fb {int(d.ncontacts_fb)}, max density ratio {max_rho:.4f}")
     log(f"{tag} kernel launches in this run (30 steps): {launches}")
-    for name, count in launches.items():
-        assert count > 0, f"{name} was never launched on the {solver} path"
+    if forces:
+        log(f"{tag} non-pressure forces: {world._force_set}")
+        assert len(world._force_set.forces) == len(FORCES)
+    for name in MAIN_PATH_KERNELS:
+        assert launches[name] > 0, f"{name} was never launched on {tag}"
     assert overflow < max(1, n // 1000), f"overflow {overflow} at N={n}"
     assert finite, "non-finite fluid positions"
     assert 0.9 < max_rho < 2.0, f"max density ratio {max_rho}"
@@ -469,16 +562,50 @@ def phase_kernels(pair, world):
                 pair.hoist_ff_plain(spec, h, dim, "cubic", "cubic", P, M,
                                     counts, need_s2=False), tol))
         ms = cuda_ms(lambda: kern(False), 50)
+        one = call_ms(lambda: kern(False), 20)
         plain_ms = cuda_ms(plain, 10)
         # Reads: the live slots of each input plane and every column's
         # count; writes: every output element once.
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        results[name] = dict(max_abs_err=err, ms=ms, call_ms=one,
+                             plain_ms=plain_ms,
                              read=live_bytes(planes, n_live) + 4 * C,
                              written=nbytes(out))
-        log(f"[kernels] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms (median CUDA-event time); {n_eval / ms / 1e6:.4g} G "
-            f"candidate pairs/s in the kernel")
-    for name in ff:
+        log(f"[kernels] {name}: kernel {ms:.4f} ms device time ({one:.4f} "
+            f"ms a call with its launch), plain {plain_ms:.4f} ms; "
+            f"{n_eval / ms / 1e6:.4g} G candidate pairs/s in the kernel")
+    # k_pass_v2 computes k_pass's function by live 8-slot groups, so its
+    # planted fluid-side fault drops the one particle of a group: the
+    # fullest cell of 8 g + 1 particles is given 8 g (its last group dies).
+    # Its plain version is k_pass's; it shares k_pass's bound.
+    ones = torch.nonzero(counts % 8 == 1)[:, 0]
+    assert ones.numel() > 0, "no cell of 8 g + 1 particles"
+    cell_v2 = int(ones[torch.argmax(counts[ones])])
+    rank_v2 = int(counts[cell_v2]) - 1
+    short_v2 = counts.clone()
+    short_v2[cell_v2] -= 1
+
+    def copy_v2(wrong, ref):
+        wrong[..., rank_v2, cell_v2] = ref[..., rank_v2, cell_v2]
+
+    def kern_v2(f):
+        return pair.k_pass_v2(spec, h, dim, "cubic", P, M, K,
+                              short_v2 if f else counts)
+
+    log(f"[kernels] k_pass_v2: planted fault drops the last particle of "
+        f"cell {cell_v2} ({rank_v2 + 1} particles)")
+    out, err = hold_kernel("k_pass_v2", "k_pass_v2", kern_v2, ff["k_pass"][1],
+                           KT_TOL, copy_v2)
+    ms = cuda_ms(lambda: kern_v2(False), 50)
+    one = call_ms(lambda: kern_v2(False), 20)
+    plain_ms = cuda_ms(ff["k_pass"][1], 10)
+    results["k_pass_v2"] = dict(max_abs_err=err, ms=ms, call_ms=one,
+                                plain_ms=plain_ms,
+                                read=live_bytes([P, M, K], n_live) + 4 * C,
+                                written=nbytes(out))
+    log(f"[kernels] k_pass_v2: kernel {ms:.4f} ms device time ({one:.4f} ms "
+        f"a call; k_pass {results['k_pass']['ms']:.4f} ms), plain "
+        f"{plain_ms:.4f} ms; {n_eval / ms / 1e6:.4g} G candidate pairs/s")
+    for name in results:
         r = results[name]
         read, written = r.pop("read"), r.pop("written")
         r["bound_ms"], r["bound_by"], ops = bound(name, dim, read, written,
@@ -573,12 +700,13 @@ def phase_kernels(pair, world):
         read = 4 * (dim * n_pf + dim * n_pb + (1 + dim) * n_wb) + idx
         written = nbytes(out)
         ms = cuda_ms(lambda: kern(False), 50)
+        one = call_ms(lambda: kern(False), 20)
         plain_ms = cuda_ms(plain, 10)
         b_ms, b_by, ops = bound("hoist_fb", dim, read, written, cand, within)
-        fb[layout] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by)
-        log(f"[kernels] hoist_fb ({layout}): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms (median CUDA-event time); bound "
+        fb[layout] = dict(max_abs_err=err, ms=ms, call_ms=one,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"[kernels] hoist_fb ({layout}): kernel {ms:.4f} ms device time "
+            f"({one:.4f} ms a call), plain {plain_ms:.4f} ms; bound "
             f"{b_ms:.5f} ms ({b_by}; {read} B read: {n_pf} fluid slots, "
             f"{n_pb} boundary slots, {n_wb} of them within h, {idx} B of "
             f"index entries; {written} B written; {ops:.4g} float32 "
@@ -591,13 +719,88 @@ def phase_kernels(pair, world):
                         fb["full"]["max_abs_err"]),
         full_grid=fb["full"],
     )
+    results["expand"] = phase_expand(world, ctx)
     return results
 
 
-def run_steps(solver, steps=5, sparse_boundary=True):
+def phase_expand(world, ctx):
+    """Phase 5, the binning's ``expand``: the kernel against
+    ``expand_plain`` on the fluid binning (the positions and velocities,
+    the main path's first call) and on the compact boundary binning, at
+    the world's state. Exact equality (it moves data only), a bitwise
+    rerun, and two planted faults that must break it: a column's start
+    off by one, and one row dropped from a column's count. The library
+    call: the packed row gather ``to_grid_multi_gather`` (``packed[
+    grid_src]``, the JAX package's formulation). Bound: bytes (the live
+    slots' channels and sort-order entry read once, the run table read
+    once, the output planes written once)."""
+    from salva_tpu_torch.geometry import dense_grid as tdg
+    from salva_tpu_torch.ops import binning
+
+    fl, bd = world.fluids_state, world.boundaries_state
+    calls = {
+        "fluid": (ctx.binf, [(fl.positions, tdg.POS_SENTINEL),
+                             (fl.velocities, 0.0)]),
+        "boundary": (ctx.binb, [(bd.positions, tdg.POS_SENTINEL),
+                                (bd.velocities, 0.0)]),
+    }
+    rec = {}
+    for label, (binned, items) in calls.items():
+        cap, C = binned.mask.shape
+        out = binning.expand(binned, items)
+        ref = binning.expand_plain(binned, items)
+        again = binning.expand(binned, items)
+        for o, r, a in zip(out, ref, again):
+            assert torch.equal(o, r), f"expand ({label}) differs from plain"
+            assert torch.equal(o, a), f"expand ({label}): not deterministic"
+        for o, g in zip(out, tdg.to_grid_multi_gather(None, binned, items)):
+            assert torch.equal(o, g), f"expand ({label}) differs from gather"
+        # Planted faults, in the column with the most rows up to the cap
+        # (a row dropped past the cap would change nothing).
+        cnt = binned.count
+        col = int(torch.argmax(torch.where(cnt <= cap, cnt, 0)))
+        assert int(cnt[col]) >= 2
+        start_bad = binned.start.clone()
+        start_bad[col] += 1
+        count_bad = cnt.clone()
+        count_bad[col] -= 1
+        for fault, bad in (("start off by one", binned._replace(
+                start=start_bad)), ("one row dropped", binned._replace(
+                count=count_bad))):
+            wrong = binning.expand(bad, items)
+            assert not all(torch.equal(w, r) for w, r in zip(wrong, ref)), \
+                f"planted fault {fault} passed"
+            log(f"[kernels] expand ({label}): planted fault '{fault}' in "
+                f"column {col} ({int(cnt[col])} rows) caught")
+        nch = sum(1 if v.ndim == 1 else v.shape[1] for v, _ in items)
+        n_live = int(torch.clamp(cnt, max=cap).sum())
+        read = n_live * 4 * (nch + 1) + 8 * C
+        written = 4 * nch * cap * C
+        b_ms = (read + written) / HBM_BYTES_PER_S * 1e3
+        ms = cuda_ms(lambda: binning.expand(binned, items), 50)
+        one = call_ms(lambda: binning.expand(binned, items), 20)
+        plain_ms = cuda_ms(lambda: binning.expand_plain(binned, items), 10)
+        lib_ms = cuda_ms(
+            lambda: tdg.to_grid_multi_gather(None, binned, items), 20)
+        rec[label] = dict(max_abs_err=0.0, ms=ms, call_ms=one,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by="bytes")
+        log(f"[kernels] expand ({label}): [{nch}, {cap}, {C}] planes, "
+            f"{n_live} live slots; equal to plain and to the gather "
+            f"bitwise; kernel {ms:.4f} ms device time ({one:.4f} ms a "
+            f"call), plain {plain_ms:.4f} ms, library (packed gather) "
+            f"{lib_ms:.4f} ms; "
+            f"bound {b_ms:.5f} ms (bytes; {read} B read, {written} B "
+            f"written); kernel / bound {ms / b_ms:.1f}")
+    return dict(rec["fluid"], boundary=rec["boundary"])
+
+
+def run_steps(solver, steps=5, sparse_boundary=True, forces=False,
+              variant=None):
     """A fresh dam break stepped ``steps`` times: (iterations per step,
     live positions, last diagnostics)."""
-    world = dam_break_world("cuda", solver, sparse_boundary)
+    world = dam_break_world("cuda", solver, sparse_boundary, forces=forces,
+                            variant=variant)
     iters = []
     for _ in range(steps):
         world.step(DT, GRAVITY)
@@ -608,35 +811,94 @@ def run_steps(solver, steps=5, sparse_boundary=True):
             world.last_diagnostics)
 
 
-def phase_path_parity(pair, solver):
-    """Phase 5: 5 steps through the kernels vs 5 through the plain
-    versions (substituted for the wrappers here, in the script). Returns
-    the kernel run."""
+class substituted:
+    """Context: the module attributes ``{(module, name): replacement}``
+    replaced, and put back on exit."""
+
+    def __init__(self, subs):
+        self.subs = subs
+
+    def __enter__(self):
+        self.saved = {k: getattr(*k) for k in self.subs}
+        for (mod, name), fn in self.subs.items():
+            setattr(mod, name, fn)
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self.saved.items():
+            setattr(mod, name, fn)
+
+
+def phase_path_parity(pair, solver, forces=False):
+    """Phase 6: 5 steps through the kernels vs 5 through the plain
+    versions (substituted for the wrappers here, in the script: the pair
+    passes' ``*_plain`` and the binning's ``expand_plain``). Returns the
+    kernel run."""
+    from salva_tpu_torch.ops import binning
+
+    tag = f"[parity {path_name(solver, forces)}]"
     names = ("k_pass", "t_pass", "hoist_ff", "hoist_fb")
-    kernel_run = run_steps(solver)
+    kernel_run = run_steps(solver, forces=forces)
     it_k, pos_k, _ = kernel_run
-    wrappers = {n: getattr(pair, n) for n in names}
-    for n in names:
-        setattr(pair, n, getattr(pair, n + "_plain"))
-    try:
-        it_p, pos_p, _ = run_steps(solver)
-    finally:
-        for n, fn in wrappers.items():
-            setattr(pair, n, fn)
+    subs = {(pair, n): getattr(pair, n + "_plain") for n in names}
+    subs[(binning, "expand")] = binning.expand_plain
+    reset_counts(pair)
+    with substituted(subs):
+        it_p, pos_p, _ = run_steps(solver, forces=forces)
+    assert not any(read_counts(pair).values()), "the plain run launched"
     dpos = float((pos_k - pos_p).abs().max())
-    log(f"[parity {solver}] iterations kernels {it_k} vs plain {it_p}; "
+    log(f"{tag} iterations kernels {it_k} vs plain {it_p}; "
         f"max |dpos| {dpos:.3e} m (atol {PATH_POS_ATOL[solver]})")
     assert it_k == it_p, "iteration counts differ between kernels and plain"
     assert dpos <= PATH_POS_ATOL[solver], f"positions differ by {dpos}"
     return kernel_run
 
 
+def phase_expand_vs_gather(pair, kernel_run):
+    """Phase 6: the DFSPH path with the binning's packed row gather (the
+    JAX package's formulation, ``to_grid_multi_gather``) substituted for
+    the ``expand`` kernel: bitwise equal positions after 5 steps."""
+    from salva_tpu_torch.geometry import dense_grid as tdg
+    from salva_tpu_torch.ops import binning
+
+    def gather(binned, items):
+        return tdg.to_grid_multi_gather(None, binned, items)
+
+    reset_counts(pair)
+    with substituted({(binning, "expand"): gather}):
+        iters, pos, _ = run_steps("dfsph")
+    assert read_counts(pair)["expand"] == 0
+    dpos = float((pos - kernel_run[1]).abs().max())
+    log(f"[expand vs gather] DFSPH 5 steps, iterations {iters}; max |dpos| "
+        f"between the expand and the gather path {dpos:.3e} m (must be 0)")
+    assert iters == kernel_run[0], "iterations differ"
+    assert torch.equal(pos, kernel_run[1]), "positions differ"
+
+
+def phase_variant_v2(pair, kernel_run):
+    """Phase 8: the DFSPH dam break with ``pallas_variant="v2"``: every
+    ``k_pass`` of the solvers runs as ``k_pass_v2``. Returns its launch
+    counts."""
+    reset_counts(pair)
+    iters, pos, d = run_steps("dfsph", variant="v2")
+    launches = read_counts(pair)
+    dpos = float((pos - kernel_run[1]).abs().max())
+    log(f"[v2] DFSPH 5 steps with pallas_variant='v2': iterations {iters}, "
+        f"launches {launches}; max |dpos| vs the k_pass run {dpos:.3e} m "
+        f"(atol {PATH_POS_ATOL['dfsph']})")
+    assert launches["k_pass_v2"] > 0 and launches["k_pass"] == 0
+    assert iters == kernel_run[0], "iterations differ from the k_pass run"
+    assert bool(torch.isfinite(pos).all())
+    assert dpos <= PATH_POS_ATOL["dfsph"], f"positions differ by {dpos}"
+    return launches
+
+
 def phase_full_grid(pair, sparse_run):
-    """Phase 6: the DFSPH dam break on the full-grid boundary binning,
-    through the kernels, against the sparse binning's kernel run."""
-    pair.reset_launches()
+    """Phase 7: the DFSPH dam break on the full-grid boundary binning,
+    through the kernels, against the sparse binning's kernel run. Returns
+    its launch counts."""
+    reset_counts(pair)
     iters, pos, d = run_steps("dfsph", sparse_boundary=False)
-    launches = dict(pair.LAUNCHES)
+    launches = read_counts(pair)
     n = pos.shape[0]
     dpos = float((pos - sparse_run[1]).abs().max())
     log(f"[full grid] 5 steps, iterations {iters}, launches {launches}, "
@@ -644,12 +906,13 @@ def phase_full_grid(pair, sparse_run):
         f"{int(d.ncontacts_fb)}, max density ratio "
         f"{float(d.max_density_ratio):.4f}; max |dpos| vs the sparse "
         f"binning {dpos:.3e} m (atol {PATH_POS_ATOL['dfsph']})")
-    for name, count in launches.items():
-        assert count > 0, f"{name} was never launched on the full grid"
+    for name in MAIN_PATH_KERNELS:
+        assert launches[name] > 0, f"{name} was never launched on the full grid"
     assert iters == sparse_run[0], "iterations differ from the sparse run"
     assert int(d.neighbor_overflow) < max(1, n // 1000)
     assert bool(torch.isfinite(pos).all())
     assert dpos <= PATH_POS_ATOL["dfsph"], f"positions differ by {dpos}"
+    return launches
 
 
 def main() -> int:
@@ -664,22 +927,24 @@ def main() -> int:
     log(f"[setup] python {sys.version.split()[0]}, torch {torch.__version__}"
         f", CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    lib = _build.library_path()
+    libs = _build.library_paths()
     _build.load()
     log(f"[setup] kernels built and loaded in {time.perf_counter() - t0:.2f}"
-        f" s: {lib}")
+        f" s: {', '.join(map(str, libs))}")
 
+    paths = {}
     t0 = time.perf_counter()
     world, dfsph = phase_main_path(pair, "dfsph")
-    log(f"[main dfsph] {dfsph['ms']:.3f} ms/step with hoist_fb as a kernel;"
-        f" recorded before it (plain torch fb hoist, same script on an "
-        f"H100 80GB HBM3 at 700 W): 78.927 ms/step, 63.431-88.778 over "
-        f"five calls. No claim: another call, another host")
+    paths["dfsph"] = dfsph["launches"]
     log(f"[main dfsph] phase took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    iisph_world, iisph = phase_main_path(pair, "iisph")
-    del iisph_world
-    log(f"[main iisph] phase took {time.perf_counter() - t0:.1f} s")
+    for solver, forces in (("iisph", False), ("dfsph", True),
+                           ("iisph", True)):
+        t0 = time.perf_counter()
+        other, run = phase_main_path(pair, solver, forces)
+        del other
+        paths[path_name(solver, forces)] = run["launches"]
+        log(f"[main {path_name(solver, forces)}] phase took "
+            f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels = phase_kernels(pair, world)
     del world
@@ -687,22 +952,33 @@ def main() -> int:
     log(f"[kernels] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     sparse_run = phase_path_parity(pair, "dfsph")
+    phase_expand_vs_gather(pair, sparse_run)
     phase_path_parity(pair, "iisph")
+    phase_path_parity(pair, "dfsph", forces=True)
+    phase_path_parity(pair, "iisph", forces=True)
     log(f"[parity] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_full_grid(pair, sparse_run)
+    paths["dfsph_full_grid"] = phase_full_grid(pair, sparse_run)
     log(f"[full grid] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["dfsph_v2"] = phase_variant_v2(pair, sparse_run)
+    log(f"[v2] phase took {time.perf_counter() - t0:.1f} s")
 
-    print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=SOURCE,
-             replaces=REPLACES[name], launches=iisph["launches"][name],
-             launches_path="iisph", launches_dfsph=dfsph["launches"][name],
-             max_abs_err=k["max_abs_err"], ms=k["ms"],
-             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-             bound_by=k["bound_by"], library_ms=None,
-             **({"full_grid": k["full_grid"]} if "full_grid" in k else {}))
-        for name, k in kernels.items()
-    ]}))
+    records = []
+    for name, k in kernels.items():
+        on = "dfsph_v2" if name == "k_pass_v2" else "dfsph_forces"
+        extra = {key: k[key] for key in ("full_grid", "boundary") if key in k}
+        records.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=paths[on][name],
+            launches_path=on,
+            launches_by_path={p: c[name] for p, c in paths.items()},
+            max_abs_err=k["max_abs_err"], ms=k["ms"], call_ms=k["call_ms"],
+            plain_ms=k["plain_ms"],
+            bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+            library_ms=k.get("library_ms"), **extra))
+    assert sorted(r["name"] for r in records) == sorted(REPLACES)
+    print(json.dumps({"kernels": records}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -92,7 +92,12 @@ class Binned(NamedTuple):
     - ``overflow``: [] int32 particles dropped by full cells;
     - ``clamped``: [] int32 particles clamped into the interior box;
     - ``grid_src``: [cap, C] int32 particle index feeding each slot
-      (N = empty).
+      (N = empty);
+    - the run table the expansion kernel reads (``ops/binning.py``):
+      ``order`` [N] int32, the stable sort of the particles by cell, and
+      per column ``start`` [C] (first sorted index; 0 for an empty cell)
+      and ``count`` [C] (particles in the cell, also past ``cap``), both
+      int32.
     """
 
     slot_of: torch.Tensor
@@ -101,6 +106,9 @@ class Binned(NamedTuple):
     overflow: torch.Tensor
     clamped: torch.Tensor
     grid_src: torch.Tensor
+    order: Optional[torch.Tensor] = None
+    start: Optional[torch.Tensor] = None
+    count: Optional[torch.Tensor] = None
 
 
 def _scatter_drop(size: int, fill, idx, values):
@@ -202,6 +210,9 @@ def bin_particles(spec: DenseGridSpec, positions, alive,
         overflow=overflow,
         clamped=clamped,
         grid_src=grid_src,
+        order=order,
+        start=starts,
+        count=counts,
     )
 
 
@@ -221,9 +232,24 @@ def to_grid(spec, binned, values, fill=0.0):
 
 
 def to_grid_multi(spec, binned, items):
-    """Bring SEVERAL float32 per-particle arrays into grid layout with ONE
-    packed row gather. ``items``: list of ``(values, fill)`` with values
-    [N] or [N, D]; returns contiguous [cap, C'] / [D, cap, C'] grids."""
+    """Bring SEVERAL float32 per-particle arrays into grid layout in one
+    pass. ``items``: list of ``(values, fill)`` with values [N] or [N, D];
+    returns contiguous [cap, C'] / [D, cap, C'] grids.
+
+    CUDA tensors go through the expansion kernel (``ops.binning.expand``,
+    one launch for every channel, reading the binning's run table); CPU
+    tensors through :func:`to_grid_multi_gather`. Both give the same
+    values bitwise."""
+    if items[0][0].device.type == "cuda":
+        from ..ops import binning
+
+        return binning.expand(binned, items)
+    return to_grid_multi_gather(spec, binned, items)
+
+
+def to_grid_multi_gather(spec, binned, items):
+    """:func:`to_grid_multi` as ONE packed row gather through
+    ``grid_src`` (the JAX package's formulation)."""
     src = binned.grid_src.long()
     chans = []
     layout = []
@@ -316,6 +342,11 @@ class ActiveBinned(NamedTuple):
     clamped: torch.Tensor
     active_overflow: torch.Tensor
     grid_src: Optional[torch.Tensor] = None
+    # The run table, as ``Binned``'s: ``order`` [N]; ``start`` / ``count``
+    # [A+1] per column (the void column: 0, 0).
+    order: Optional[torch.Tensor] = None
+    start: Optional[torch.Tensor] = None
+    count: Optional[torch.Tensor] = None
 
 
 class ActiveSpec(NamedTuple):
@@ -401,6 +432,9 @@ def bin_particles_active(spec: DenseGridSpec, max_active: int, positions,
         clamped=clamped,
         active_overflow=active_overflow,
         grid_src=grid_src,
+        order=order,
+        start=col_start,
+        count=counts,
     )
 
 

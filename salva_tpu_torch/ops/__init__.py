@@ -1,6 +1,7 @@
-"""Hand-written CUDA kernels for the hot dense pair passes, with their
-plain PyTorch versions (``pair``). Importing this package builds nothing:
-the kernels compile at their first launch (``_build``)."""
+"""Hand-written CUDA kernels for the hot dense pair passes (``pair``) and
+the binning's sorted-to-slot expansion (``binning``), with their plain
+PyTorch versions. Importing this package builds nothing: the kernels
+compile at their first launch (``_build``)."""
 
 from .pair import (
     LAUNCHES,
@@ -8,6 +9,7 @@ from .pair import (
     hoist_ff_plain,
     k_pass,
     k_pass_plain,
+    k_pass_v2,
     reset_launches,
     t_pass,
     t_pass_plain,
@@ -18,6 +20,7 @@ __all__ = [
     "reset_launches",
     "k_pass",
     "k_pass_plain",
+    "k_pass_v2",
     "t_pass",
     "t_pass_plain",
     "hoist_ff",

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` into a shared library with a plain C
-interface, loaded with ``ctypes``. The build runs at first use — never
-at import, so the package imports on machines without a GPU or a CUDA
-toolkit — into ``build/salva_tpu_torch/<hash>/`` beside the package
-(a git-ignored directory), keyed by a hash of the sources and the flags:
-an edited source builds anew, an unchanged one loads the cached library.
+Each source compiles with ``nvcc`` into a shared library of its own with
+a plain C interface, loaded with ``ctypes``; the ``nvcc`` processes of
+all sources run at once. The build runs at first use — never at import,
+so the package imports on machines without a GPU or a CUDA toolkit —
+into ``build/salva_tpu_torch/<hash>/`` beside the package (a git-ignored
+directory), keyed by a hash of the source and the flags: an edited
+source builds anew, an unchanged one loads the cached library.
 The port is meant to run from a source checkout, where that directory
 is ``build/`` at the checkout's root; an installed copy (which ships
 ``csrc/*.cu`` as package data) builds beside its install directory,
@@ -24,12 +25,17 @@ import tempfile
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG_DIR / "csrc" / "pair_passes.cu",)
+_SOURCES = (
+    _PKG_DIR / "csrc" / "pair_passes.cu",
+    _PKG_DIR / "csrc" / "expand.cu",
+)
 _BUILD_ROOT = _PKG_DIR.parent / "build" / "salva_tpu_torch"
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+_NOT_LAUNCHED = -1  # the C entries' kNotLaunched: nothing to launch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +53,9 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I,
                        _F, _F, _F, _F, _P],
+    "salva_k_pass_v2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _F, _F, _F, _F, _P],
+    "salva_expand": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 
@@ -66,52 +75,100 @@ def _nvcc() -> str:
     )
 
 
-def _source_hash() -> str:
+def _source_hash(src: Path) -> str:
     h = hashlib.sha256()
-    for src in _SOURCES:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return _BUILD_ROOT / _source_hash() / "libsalva_pair_passes.so"
+def library_path(src: Path) -> Path:
+    return _BUILD_ROOT / _source_hash(src) / f"libsalva_{src.stem}.so"
 
 
-def build() -> Path:
-    """Compile the sources if the hashed library is missing; returns its
-    path. The library is written to a temporary name and renamed into
-    place, so a concurrent or interrupted build never leaves a partial
-    file under the final name."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *_FLAGS, "-o", tmp, *map(str, _SOURCES)]
+def library_paths():
+    return [library_path(src) for src in _SOURCES]
+
+
+def build():
+    """Compile every source whose hashed library is missing, all ``nvcc``
+    processes at once; returns the library paths. Each library is written
+    to a temporary name and renamed into place, so a concurrent or
+    interrupted build never leaves a partial file under the final name."""
+    jobs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
+        for src in _SOURCES:
+            out = library_path(src)
+            if out.exists():
+                continue
+            out.parent.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+            os.close(fd)
+            cmd = [_nvcc(), *_FLAGS, "-o", tmp, str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((cmd, proc, tmp, out))
+        failed = []
+        for cmd, proc, tmp, out in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(" ".join(cmd) + "\n" + log)
+            else:
+                os.replace(tmp, out)
+        if failed:
             raise RuntimeError(
                 "nvcc failed building the salva_tpu_torch kernels:\n"
-                + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+                + "\n".join(failed)
             )
-        os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for cmd, proc, tmp, out in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return library_paths()
+
+
+class _Kernels:
+    """The C entry points of every kernel library, by name."""
+
+    def __init__(self, libs):
+        for lib in libs:
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name, None)
+                if fn is None:
+                    continue
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                setattr(self, name, fn)
+        missing = [n for n in _SIGNATURES if not hasattr(self, n)]
+        if missing:
+            raise RuntimeError(f"kernel entry points not built: {missing}")
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
+def load() -> _Kernels:
     """Build if needed, load once per process, and declare every entry
     point's argument and return types."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return _Kernels([ctypes.CDLL(str(p)) for p in build()])
+
+
+def launch(launches, name, fn, *args, device):
+    """Call the C entry ``fn`` on ``device``'s current stream; add one to
+    ``launches[name]`` unless the entry had nothing to launch (an empty
+    grid or column list, whose outputs the wrapper already allocated
+    complete). Raises if the launch was refused."""
+    import torch
+
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err == _NOT_LAUNCHED:
+        return
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed (error {err})")
+    launches[name] += 1
+

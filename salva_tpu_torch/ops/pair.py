@@ -3,16 +3,24 @@
 Each pass has a hand-written CUDA kernel (``csrc/pair_passes.cu``) and a
 plain PyTorch version beside it:
 
-============  ==========================================  ===============
-wrapper       computes, per live slot i of the [cap, C] grid  plain version
-============  ==========================================  ===============
-``k_pass``    K_i = sum_j (m k)_j grad_ij       [dim,cap,C]  ``k_pass_plain``
-``t_pass``    T_i = sum_j m_j (Q_j . grad_ij)   [cap, C]     ``t_pass_plain``
-``hoist_ff``  rho, Gf, sq, s2, pair count (j fluid)          ``hoist_ff_plain``
-``hoist_fb``  rho, Gb, sq, s2, Sb, pair count (j boundary)   ``hoist_fb_plain``
-============  ==========================================  ===============
+=============  ==========================================  ===============
+wrapper        computes, per live slot i of the [cap, C] grid  plain version
+=============  ==========================================  ===============
+``k_pass``     K_i = sum_j (m k)_j grad_ij       [dim,cap,C]  ``k_pass_plain``
+``t_pass``     T_i = sum_j m_j (Q_j . grad_ij)   [cap, C]     ``t_pass_plain``
+``hoist_ff``   rho, Gf, sq, s2, pair count (j fluid)          ``hoist_ff_plain``
+``hoist_fb``   rho, Gb, sq, s2, Sb, pair count (j boundary)   ``hoist_fb_plain``
+``k_pass_v2``  ``k_pass`` in 8-slot groups (see below)        ``k_pass_plain``
+=============  ==========================================  ===============
 
 (grad_ij = (p_i - p_j) dW/dr / r, summed over the 3^dim cell stencil.)
+
+``k_pass_v2`` computes what ``k_pass`` computes, in the slot-group
+formulation of ``salva_tpu.ops.pallas_pair2.k_pass_pallas2``: a pair block
+runs only where both 8-slot groups are live (group g of cell c is live iff
+``counts[c] > 8 g``); the dead slots inside a live group must hold the
+sentinel position and zero mass, as every binned grid does. The solvers
+run it instead of ``k_pass`` when ``SimConfig.pallas_variant == "v2"``.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback. Every launch adds
@@ -43,7 +51,8 @@ import torch
 from ..geometry import dense_grid as dg
 from ..kernels.sph import _cubic_normalizer, get_kernel, w_dwr
 
-LAUNCHES = {"k_pass": 0, "t_pass": 0, "hoist_ff": 0, "hoist_fb": 0}
+LAUNCHES = {"k_pass": 0, "t_pass": 0, "hoist_ff": 0, "hoist_fb": 0,
+            "k_pass_v2": 0}
 
 
 def reset_launches():
@@ -365,24 +374,12 @@ def _grid_args(spec, dim, P):
     return dim, P.shape[1], P.shape[2], dims[1], nz
 
 
-_NOT_LAUNCHED = -1  # csrc/pair_passes.cu kNotLaunched: an empty grid
-
-
 def _launch(name, fn, *args, device):
-    """Call the C entry ``fn`` on the current stream; count the launch
-    unless the entry had nothing to launch (an empty grid, column list or
-    boundary grid, whose outputs the wrapper already allocated complete)."""
+    """Launch the C entry ``fn``, counting it under ``LAUNCHES[name]``
+    unless there was nothing to launch (``_build.launch``)."""
     from . import _build
 
-    lib = _build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
-    if err == _NOT_LAUNCHED:
-        return
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed (error {err})")
-    LAUNCHES[name] += 1
+    _build.launch(LAUNCHES, name, fn, *args, device=device)
 
 
 def k_pass(spec, h, dim, kernel_gradient, P, M, K, counts):
@@ -392,6 +389,19 @@ def k_pass(spec, h, dim, kernel_gradient, P, M, K, counts):
         return k_pass_plain(spec, h, dim, kernel_gradient, P, M, K, counts)
     out = torch.empty_like(P)
     _launch("k_pass", "salva_k_pass", P.data_ptr(), M.data_ptr(),
+            K.data_ptr(), counts.data_ptr(), out.data_ptr(),
+            *_grid_args(spec, dim, P), *_cubic_args(h, dim), device=P.device)
+    return out
+
+
+def k_pass_v2(spec, h, dim, kernel_gradient, P, M, K, counts):
+    """``k_pass`` by live 8-slot groups (``k_pass_pallas2``) -> [dim, cap,
+    C]; dead slots of a live group must hold the sentinel and zero mass."""
+    if _check("k_pass_v2", spec, dim, (kernel_gradient,),
+              [(P, _vec), (M, _scl), (K, _scl)], counts):
+        return k_pass_plain(spec, h, dim, kernel_gradient, P, M, K, counts)
+    out = torch.empty_like(P)
+    _launch("k_pass_v2", "salva_k_pass_v2", P.data_ptr(), M.data_ptr(),
             K.data_ptr(), counts.data_ptr(), out.data_ptr(),
             *_grid_args(spec, dim, P), *_cubic_args(h, dim), device=P.device)
     return out

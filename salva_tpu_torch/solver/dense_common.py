@@ -11,8 +11,10 @@ fluid-boundary hoist over boundary-adjacent fluid columns) or full-grid
 (``False``: the boundaries bin into the fluid grid's cells).
 
 The four hot passes (``k_pass``, ``t_pass``, the ff hoist and the fb
-hoist) go through ``ops.pair``: hand kernels for CUDA tensors, the plain
-folds for CPU tensors. Everything else is plain torch.
+hoist) go through ``ops.pair``, and the binning's layout shuffle
+(``to_grid_multi``) through ``ops.binning``: hand kernels for CUDA
+tensors, the plain versions for CPU tensors. Everything else, the
+non-pressure forces included, is plain torch.
 
 Not ported (each raises ``NotImplementedError`` naming its flag): the
 dense+spill structure (``dense_spill_columns``), the compact layout
@@ -132,6 +134,11 @@ class DenseCtx:
         self.sf = spec_f
         offs = self.offsets
         self.jff = lambda arr, o: dg.shift_j(spec_f, arr, offs[o])
+        # Fluid-owner / boundary-j view of the non-pressure forces: a roll
+        # on both boundary binnings (under the sparse one the forces read
+        # the boundary arrays rematerialized onto the full grid, see
+        # ``force_field_views``).
+        self.jfb = self.jff
         self.sparse_b = bool(sim.dense_sparse_boundary)
         if self.sparse_b:
             self._bin_boundaries_sparse(sim, spec_f, spec_b, boundaries)
@@ -181,6 +188,7 @@ class DenseCtx:
         self.counts_b = (self.maskb > 0).sum(dim=0, dtype=torch.int32)
 
         self._fb_adj_overflow = 0
+        self._full_b = None  # force_field_views' full-grid boundary arrays
         self._compute_boundary_volumes()
         self._hoist()
 
@@ -344,8 +352,11 @@ class DenseCtx:
         )
 
     def k_pass(self, K):
-        """K_i = sum_ff k_j m_j grad_ij for a per-slot scalar k."""
-        return pair.k_pass(
+        """K_i = sum_ff k_j m_j grad_ij for a per-slot scalar k (the
+        slot-group formulation ``pair.k_pass_v2`` when
+        ``sim.pallas_variant == "v2"``)."""
+        fn = pair.k_pass_v2 if self.sim.pallas_variant == "v2" else pair.k_pass
+        return fn(
             self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
             self.P, self.M, K, self.counts,
         )
@@ -377,6 +388,76 @@ class DenseCtx:
             self.jbf, {"coef": coef}, body, torch.zeros_like(self.Pb),
         )
         return self.Volb[None] * Fb
+
+    # -- force-facing views ---------------------------------------------------
+
+    def force_field_views(self):
+        """(jfb, jbf, Pb, Vbvel, Volb, maskb) as the non-pressure force
+        passes (``forces_dense``) consume them.
+
+        Under the sparse boundary binning the compact boundary arrays are
+        rematerialized onto the full grid here, at the first call of a
+        substep (only a pair force asks for them), so that the force
+        passes run as plain roll-view blocks, as in the JAX package."""
+        if not self.sparse_b:
+            return (self.jfb, self.jbf, self.Pb, self.Vbvel, self.Volb,
+                    self.maskb)
+        if self._full_b is None:
+            C = self.spec_f.num_cells
+            cols = torch.where(self._b_is_void, C, self._b_active)
+
+            def to_full(arr, fill=0.0):
+                full = torch.full(arr.shape[:-1] + (C + 1,), fill,
+                                  dtype=arr.dtype, device=arr.device)
+                full[..., cols] = arr  # void columns land in the spare C
+                return full[..., :C]
+
+            self._full_b = (to_full(self.Pb, dg.POS_SENTINEL),
+                            to_full(self.Vbvel), to_full(self.Volb),
+                            to_full(self.maskb))
+        return (self.jff, self.jff) + self._full_b
+
+    def np_fb_to_native(self, fb_full):
+        """Bring a force boundary-feedback grid back to the native
+        boundary layout (full grid -> compact columns in sparse mode)."""
+        if not self.sparse_b:
+            return fb_full
+        gather_cols = torch.where(self._b_is_void, 0, self._b_active)
+        out = fb_full[..., gather_cols]
+        return out * self.maskb[None] if out.ndim == 3 else out * self.maskb
+
+    def vol_grid(self, fluids):
+        """Particle volumes in grid layout (mask-derived when uniform)."""
+        if self.uniform is not None:
+            _fid, m0, rho0 = self.uniform
+            return self.maskf * torch.tensor(m0 / rho0, dtype=torch.float32,
+                                             device=self.device)
+        return self.to_f(fluids.volumes)
+
+    def apply_forces(self, dense_forces, fluids, V, dt, inv_dt, A):
+        """The non-pressure stage of predict_advection: ``A`` plus each
+        dense force's acceleration on the live slots, in order, and the
+        summed boundary feedback of the forces in the native boundary
+        layout (None when no force feeds back). ``V``: the velocities the
+        forces read (DFSPH: after the divergence solve)."""
+        from .forces_dense import DenseFields
+
+        jfb, jbf, Pb, Vbvel, Volb, maskb = self.force_field_views()
+        fields = DenseFields(
+            jff=self.jff, jfb=jfb, jbf=jbf, n_offsets=len(self.offsets),
+            P=self.P, V=V, M=self.M, VOL=self.vol_grid(fluids), R0=self.R0,
+            RHO=self.rho, FID=self.FID, maskf=self.maskf, Pb=Pb,
+            Vbvel=Vbvel, Volb=Volb, maskb=maskb, h=self.h, dim=self.dim,
+            dt=dt, inv_dt=inv_dt, kernel_density=self.sim.kernel_density,
+            kernel_gradient=self.sim.kernel_gradient,
+        )
+        fb = None
+        for force in dense_forces:
+            a_d, fb_d = force.apply(fields)
+            A = A + a_d * self.maskf[None]
+            if fb_d is not None:
+                fb = fb_d if fb is None else fb + fb_d
+        return A, (None if fb is None else self.np_fb_to_native(fb))
 
     # -- layout conversion ---------------------------------------------------
 

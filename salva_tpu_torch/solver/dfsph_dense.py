@@ -33,9 +33,11 @@ def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
                         spec_f: dg.DenseGridSpec, spec_b: dg.DenseGridSpec,
                         dense_forces=()):
     """Build the dense-layout DFSPH substep
-    ``substep(fluids, boundaries, solver_state, dt, gravity)``."""
-    if dense_forces:
-        raise NotImplementedError("dense non-pressure forces are not ported")
+    ``substep(fluids, boundaries, solver_state, dt, gravity)``.
+
+    ``dense_forces``: tuple of dense non-pressure forces
+    (``forces_dense.py``), each ``apply(fields) -> (accel, bforces|None)``,
+    applied in predict_advection."""
     dim = sim.dim
     min_nb = cfg.min_neighbors(dim)
     warm = float(getattr(cfg, "warm_start", 0.0))
@@ -89,9 +91,12 @@ def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
         # Commit velocities; reset velocity changes (`:688-691`).
         V2 = ctx.V + DV * maskf[None]
 
-        # predict_advection: gravity (`:565-604`); the main path attaches
-        # no non-pressure force.
+        # predict_advection: gravity + non-pressure forces (`:565-604`).
         A = gravity.reshape(dim, 1, 1) * maskf[None]
+        np_Fb = None
+        if dense_forces:
+            A, np_Fb = ctx.apply_forces(dense_forces, fluids, V2, dt, inv_dt,
+                                        A)
         DV = A * dt
 
         # --- pressure solve (`dfsph_solver.rs:432-464`)
@@ -124,6 +129,8 @@ def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
         # (ksum_div + inv_dt * ksum_p).
         coef = R0 * ctx.M * inv_dt * (ksum_d + inv_dt * ksum_p)
         Fb = ctx.boundary_forces(coef)
+        if np_Fb is not None:
+            Fb = Fb + np_Fb
 
         # --- unbin back to particle arrays (one packed row gather)
         new_pos, new_vel, new_dv, new_kd, new_kp = ctx.unbin_f_multi([

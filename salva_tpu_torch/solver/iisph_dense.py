@@ -21,8 +21,10 @@ iteration count follows the JAX loop exactly: the counter increments on
 every iteration, including the one that finds convergence, and that
 iteration's pressures are kept.
 
-Not ported: the dense non-pressure forces and precomputed particle-wise
-accelerations (``dense_forces``, ``a_pw``) and the multi-device halo path.
+The dense non-pressure forces (``dense_forces``: XSPH and artificial
+viscosity) act in predict_advection on the substep's start velocities.
+Not ported: precomputed particle-wise accelerations (``a_pw``, the
+elasticity path) and the multi-device halo path.
 """
 
 from __future__ import annotations
@@ -42,14 +44,13 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
                         dense_forces=()):
     """Build the dense-layout IISPH substep
     ``substep(fluids, boundaries, pressures, dt, gravity)``."""
-    if dense_forces:
-        raise NotImplementedError("dense non-pressure forces are not ported")
     dim = sim.dim
 
     def substep(fluids: FluidsState, boundaries: BoundariesState,
                 pressures, dt, gravity):
         dev = fluids.positions.device
         dt = torch.as_tensor(dt, dtype=torch.float32, device=dev)
+        inv_dt = torch.where(dt > 0, 1.0 / dt, 0.0)
         dt2 = dt * dt
         boundaries = boundaries.clear_forces()
 
@@ -57,9 +58,12 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
         maskf, live, R0 = ctx.maskf, ctx.live, ctx.R0
         P_grid = ctx.to_f(pressures)
 
-        # predict_advection: gravity; the main path attaches no
-        # non-pressure force.
+        # predict_advection: gravity + non-pressure forces.
         A = gravity.reshape(dim, 1, 1) * maskf[None]
+        np_Fb = None
+        if dense_forces:
+            A, np_Fb = ctx.apply_forces(dense_forces, fluids, ctx.V, dt,
+                                        inv_dt, A)
         DV = A * dt
 
         rho_safe = torch.clamp(ctx.rho, min=1e-12)
@@ -117,6 +121,8 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
         # m_i (`:393-400`).
         coef = R0 * ctx.M * p_over_rho2
         Fb = ctx.boundary_forces(coef)
+        if np_Fb is not None:
+            Fb = Fb + np_Fb
 
         # Semi-implicit integration (`:406-420`).
         V2 = ctx.V + DV * maskf[None]

@@ -1,13 +1,27 @@
-"""Non-pressure force bundle.
+"""Non-pressure force framework.
 
-Only the container is ported: the dam break of the main path attaches no
-non-pressure force, and the world refuses fluids that carry one.
+Each force *type* is applied once, vectorized across all fluids:
+per-fluid coefficients are stored in static tuples (one slot per fluid,
+0 for fluids that don't carry the force), as in
+``salva_tpu.solver.nonpressure``. For every built-in force a zero
+coefficient is exactly a no-op. ``CustomForce`` is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+
+def merge_per_fluid(instances, num_fluids: int, attr: str, default=0.0):
+    """Build the per-fluid coefficient tuple for one force type.
+
+    ``instances``: dict fluid_index -> force instance.
+    """
+    return tuple(
+        float(getattr(instances[i], attr)) if i in instances else float(default)
+        for i in range(num_fluids)
+    )
 
 
 @dataclasses.dataclass(frozen=True)

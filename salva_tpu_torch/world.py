@@ -11,20 +11,22 @@ the caller asks for the CPU with ``device="cpu"``. On CUDA the four hot
 pair passes run as the hand kernels of ``ops/pair.py``; on the CPU as
 their plain versions.
 
-Solvers: DFSPH and IISPH on the dense layout. Not ported (raise
+Solvers: DFSPH and IISPH on the dense layout, with the XSPH and
+artificial-viscosity non-pressure forces. Not ported (raise
 ``NotImplementedError``): the gather layout and the brute tier,
-coupling, non-pressure forces, emitters and deletion.
+coupling, the other non-pressure forces, emitters and deletion.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from . import forces as force_specs
 from .config import DFSPHConfig, NeighborConfig, SimConfig, particle_volume
 from .counters import Counters
 from .geometry import dense_grid as dg
@@ -32,7 +34,8 @@ from .kernels import get_kernel
 from .object.interaction_groups import InteractionGroups
 from .object.state import BoundariesState, FluidsState
 from .solver.dense_common import fold_pairs
-from .solver.nonpressure import ForceSet
+from .solver.nonpressure import ForceSet, merge_per_fluid
+from .solver.viscosity import ArtificialViscosityForce, XSPHViscosityForce
 from .step import (
     StepDiagnostics,
     build_step_fn,
@@ -98,6 +101,11 @@ class _FluidRecord:
 @dataclasses.dataclass
 class _BoundaryRecord:
     groups: InteractionGroups
+
+
+# The non-pressure forces a fluid may carry (``forces.py``): the dense
+# layout runs these two; the others raise in ``add_fluid``.
+_PORTED_FORCES = (force_specs.XSPHViscosity, force_specs.ArtificialViscosity)
 
 
 def _next_capacity(needed: int, minimum: int = 64) -> int:
@@ -212,6 +220,7 @@ class LiquidWorld:
 
         self._fluid_records: List[_FluidRecord] = []
         self._boundary_records: List[_BoundaryRecord] = []
+        self._force_set: Optional[ForceSet] = None
 
         # Boundary volumes must be recomputed after any boundary change.
         self._boundary_dirty = True
@@ -304,10 +313,13 @@ class LiquidWorld:
     # -- object management -------------------------------------------------
 
     def add_fluid(self, fluid: Fluid) -> int:
-        if fluid.nonpressure_forces:
-            raise NotImplementedError(
-                "non-pressure forces are not ported to salva_tpu_torch yet"
-            )
+        for force in fluid.nonpressure_forces:
+            if not isinstance(force, _PORTED_FORCES):
+                raise NotImplementedError(
+                    f"{type(force).__name__} is not ported to "
+                    "salva_tpu_torch: fluids may carry XSPHViscosity and "
+                    "ArtificialViscosity"
+                )
         handle = len(self._fluid_records)
         self._fluid_records.append(
             _FluidRecord(
@@ -321,6 +333,7 @@ class LiquidWorld:
                 ),
             )
         )
+        self._force_set = None
         if fluid.num_particles:
             self._write_fluid_particles(
                 handle, fluid.positions, fluid.velocities
@@ -415,9 +428,47 @@ class LiquidWorld:
             self.fluid_slots(handle)
         ]
 
+    # -- force-set assembly -------------------------------------------------
+
+    def _build_force_set(self) -> ForceSet:
+        """Merge the fluids' force instances into one configuration per
+        force type, one coefficient per fluid (``salva_tpu.world``'s
+        ``_build_force_set``, for the forces the port runs)."""
+        nf = self.num_fluids
+        by_type: Dict[type, Dict[int, object]] = {}
+        for fid, rec in enumerate(self._fluid_records):
+            for inst in rec.nonpressure_forces:
+                by_type.setdefault(type(inst), {})[fid] = inst
+
+        merged: List = []
+        for ftype, inst in by_type.items():
+            def col(attr, default=0.0):
+                return merge_per_fluid(inst, nf, attr, default)
+
+            if ftype is force_specs.XSPHViscosity:
+                merged.append(
+                    XSPHViscosityForce(
+                        col("fluid_viscosity_coefficient"),
+                        col("boundary_viscosity_coefficient"),
+                    )
+                )
+            elif ftype is force_specs.ArtificialViscosity:
+                merged.append(
+                    ArtificialViscosityForce(
+                        col("fluid_viscosity_coefficient"),
+                        col("boundary_viscosity_coefficient"),
+                        col("alpha", 1.0),
+                        col("beta", 0.0),
+                        col("speed_of_sound", 10.0),
+                    )
+                )
+        return ForceSet(tuple(merged))
+
     # -- stepping ----------------------------------------------------------
 
     def _prepare(self):
+        if self._force_set is None:
+            self._force_set = self._build_force_set()
         expected = solver_state_shape(
             self.solver_config, self.fluids_state.capacity, self.dim
         )
@@ -786,7 +837,7 @@ class LiquidWorld:
             self._refresh_full_boundary_volumes()
             self._full_bvol_stale = False
         # Building the step is cheap (closures over the static config).
-        step_fn = build_step_fn(sim_eff, self.solver_config, ForceSet(),
+        step_fn = build_step_fn(sim_eff, self.solver_config, self._force_set,
                                 num_fluids)
 
         tm = self.timestep_manager

@@ -59,7 +59,14 @@ def _scene(shapes, shape_surface_sample, cube_fluid):
     return domain, pos, vel, floor
 
 
-def _jax_world(solver="dfsph", sparse_boundary=True):
+def _forces(module, forces):
+    """The force instances of ``forces`` ((class name, kwargs) pairs) from
+    one package's ``forces`` module."""
+    return [getattr(module, name)(**kw) for name, kw in forces]
+
+
+def _jax_world(solver="dfsph", sparse_boundary=True, forces=()):
+    from salva_tpu import forces as force_specs
     from salva_tpu import shapes
     from salva_tpu.config import DFSPHConfig, IISPHConfig
     from salva_tpu.sampling import shape_surface_sample
@@ -73,12 +80,14 @@ def _jax_world(solver="dfsph", sparse_boundary=True):
     w.sim = w.sim.replace(use_pallas=False, dense_spill_auto=False,
                           dense_compact=False,
                           dense_sparse_boundary=sparse_boundary)
-    w.add_fluid(Fluid(pos, density0=1000.0, velocities=vel))
+    w.add_fluid(Fluid(pos, density0=1000.0, velocities=vel,
+                      nonpressure_forces=_forces(force_specs, forces)))
     w.add_boundary(Boundary(floor))
     return w, floor
 
 
-def _torch_world(solver="dfsph", sparse_boundary=True):
+def _torch_world(solver="dfsph", sparse_boundary=True, forces=()):
+    from salva_tpu_torch import forces as force_specs
     from salva_tpu_torch import shapes
     from salva_tpu_torch.sampling import shape_surface_sample
     from salva_tpu_torch.scenes import cube_fluid
@@ -88,7 +97,8 @@ def _torch_world(solver="dfsph", sparse_boundary=True):
     w = st.LiquidWorld(solver=cfg, particle_radius=RADIUS,
                        dim=3, domain=domain, layout="dense", device="cpu")
     w.sim = w.sim.replace(dense_sparse_boundary=sparse_boundary)
-    w.add_fluid(st.Fluid(pos, density0=1000.0, velocities=vel))
+    w.add_fluid(st.Fluid(pos, density0=1000.0, velocities=vel,
+                         nonpressure_forces=_forces(force_specs, forces)))
     w.add_boundary(st.Boundary(floor))
     return w, floor
 
@@ -121,11 +131,12 @@ def _snapshot(w, jax_side):
     )
 
 
-def run_both(solver="dfsph", sparse_boundary=True):
+def run_both(solver="dfsph", sparse_boundary=True, forces=()):
     """Step the JAX and the port's world side by side; per-step
-    snapshots of both."""
-    wj, floor_j = _jax_world(solver, sparse_boundary)
-    wt, floor_t = _torch_world(solver, sparse_boundary)
+    snapshots of both. ``forces``: the fluid's non-pressure forces, as
+    (class name in ``forces.py``, kwargs) pairs."""
+    wj, floor_j = _jax_world(solver, sparse_boundary, forces)
+    wt, floor_t = _torch_world(solver, sparse_boundary, forces)
     init = (_jax_fields(wj.fluids_state), _jax_fields(wj.boundaries_state),
             wt.fluids_state, wt.boundaries_state)
     jax_steps, torch_steps = [], []

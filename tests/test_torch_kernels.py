@@ -1,5 +1,6 @@
-"""The four hand CUDA kernels of ``salva_tpu_torch.ops.pair`` against
-their plain PyTorch versions, on the card.
+"""The hand CUDA kernels of ``salva_tpu_torch.ops.pair`` (the pair
+passes) and ``salva_tpu_torch.ops.binning`` (the sorted-to-slot
+expansion) against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device (``gpu`` marker) and skips without
 one. The file imports torch and the port only (no JAX), so it runs on a
@@ -12,7 +13,8 @@ and 3D, with cells over 8 particles; for ``hoist_fb``, a moving boundary
 layer through it, binned both ways (full grid, compact table with the
 adjacency columns). Tolerances as in
 ``tests/test_torch_pair_passes.py`` (the kernels walk the full stencil,
-the plain versions the half stencil: float32 summation order only).
+the plain versions the half stencil: float32 summation order only);
+``expand`` moves data only and must equal ``expand_plain`` bitwise.
 """
 
 import numpy as np
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 from salva_tpu_torch.geometry import dense_grid as tdg
-from salva_tpu_torch.ops import pair
+from salva_tpu_torch.ops import binning, pair
 
 pytestmark = pytest.mark.gpu
 
@@ -153,6 +155,68 @@ def test_hoist_fb_kernel_matches_plain(cuda, dim, need_s2, layout):
     assert bool((out[3] != 0).any()) == need_s2
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+def test_k_pass_v2_kernel_matches_plain(cuda, dim):
+    spec, P, M, V, K, counts = _grid(dim, cuda)
+    args = (spec, H, dim, "cubic", P, M, K, counts)
+    before = pair.LAUNCHES["k_pass_v2"]
+    out = pair.k_pass_v2(*args)
+    assert pair.LAUNCHES["k_pass_v2"] == before + 1
+    _assert_close(out, pair.k_pass_plain(*args), KT_TOL)
+    # Slots of dead groups are written (zeros), not left uninitialized.
+    dead = torch.arange(P.shape[1], device=cuda)[:, None] >= (
+        (counts[None, :] + 7) // 8 * 8)
+    assert not bool(out[:, dead].any())
+
+
+def _expand_case(dim, device, layout):
+    """A clustered fluid with over-cap cells, dead particles and escapees,
+    binned into the full grid or the compact occupied-cell table (with
+    dropped cells), and the channels of ``DenseCtx``'s calls (a strided
+    [N, D] solver state among them)."""
+    rng = np.random.default_rng(41 + dim)
+    n = 900 if dim == 3 else 300
+    pos = rng.uniform(-0.2, 1.8, size=(n, dim))
+    pos[: n // 3] = 0.8 + rng.uniform(-0.05, 0.05, size=(n // 3, dim))
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    pos = t(pos)
+    alive = torch.from_numpy(rng.random(n) > 0.15).to(device)
+    spec = tdg.spec_for_aabb((0.0,) * dim, (1.6,) * dim, H, cap=16)
+    if layout == "full":
+        binned = tdg.bin_particles(spec, pos, alive)
+        assert int(binned.overflow) > 0
+    else:
+        binned = tdg.bin_particles_active(spec, 48, pos, alive)
+        assert int(binned.active_overflow) > 0
+    items = [(pos, tdg.POS_SENTINEL), (t(rng.normal(size=(n, dim))), 0.0),
+             (t(rng.uniform(size=n)), 1.0),
+             (t(rng.normal(size=(n, dim + 2))), 0.0)]
+    return binned, items
+
+
+@pytest.mark.parametrize("layout", ["full", "active"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_expand_kernel_equals_plain(cuda, dim, layout):
+    binned, items = _expand_case(dim, cuda, layout)
+    before = binning.LAUNCHES["expand"]
+    out = binning.expand(binned, items)
+    assert binning.LAUNCHES["expand"] == before + 1  # one launch, 4 items
+    ref = binning.expand_plain(binned, items)
+    gather = tdg.to_grid_multi_gather(None, binned, items)
+    for o, r, g in zip(out, ref, gather):
+        assert o.is_contiguous() and o.shape == r.shape
+        assert torch.equal(o, r) and torch.equal(o, g)
+
+
+def test_expand_with_an_empty_grid_launches_nothing(cuda):
+    binned, items = _expand_case(3, cuda, "full")
+    empty = binned._replace(mask=binned.mask[:0])  # cap 0: no slot at all
+    before = binning.LAUNCHES["expand"]
+    out = binning.expand(empty, items)
+    assert binning.LAUNCHES["expand"] == before
+    assert [tuple(o.shape[-2:]) for o in out] == [(0, binned.mask.shape[1])] * 4
+
+
 def test_kernels_are_bitwise_deterministic(cuda):
     spec, P, M, V, K, counts = _grid(3, cuda)
     args = (spec, H, 3, "cubic", P, M)
@@ -168,6 +232,8 @@ def test_kernels_are_bitwise_deterministic(cuda):
     a = pair.hoist_fb(*fb, **kw)
     b = pair.hoist_fb(*fb, **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(pair.k_pass_v2(*args, K, counts),
+                       pair.k_pass_v2(*args, K, counts))
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):

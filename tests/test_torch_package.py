@@ -12,9 +12,10 @@ import pytest
 import torch
 
 import salva_tpu_torch as st
+from salva_tpu_torch import forces
 from salva_tpu_torch.geometry import dense_grid as tdg
 from salva_tpu_torch.object.state import state_from_numpy, state_to_numpy
-from salva_tpu_torch.ops import pair
+from salva_tpu_torch.ops import binning, pair
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -58,12 +59,15 @@ def _tiny_world(dim=2, solver=None):
 
 def test_cpu_run_launches_no_kernel():
     pair.reset_launches()
+    binning.reset_launches()
     w = _tiny_world()
+    w.sim = w.sim.replace(pallas_variant="v2")  # k_pass_v2 on the path too
     for _ in range(3):
         w.step(1.0 / 200.0, (0.0, -9.81))
     assert w.device.type == "cpu"
     assert pair.LAUNCHES == {"k_pass": 0, "t_pass": 0, "hoist_ff": 0,
-                             "hoist_fb": 0}
+                             "hoist_fb": 0, "k_pass_v2": 0}
+    assert binning.LAUNCHES == {"expand": 0}
     pos = w.fluid_positions(0)
     assert pos.shape == (36, 2) and np.isfinite(pos).all()
     d = w.last_diagnostics
@@ -149,6 +153,12 @@ def test_unported_paths_raise():
             st.Fluid(np.zeros((4, 2), np.float32),
                      nonpressure_forces=[object()])
         )
+    # The forces the port does not run yet are refused by name.
+    with pytest.raises(NotImplementedError, match="DFSPHViscosity"):
+        _tiny_world().add_fluid(
+            st.Fluid(np.zeros((4, 2), np.float32),
+                     nonpressure_forces=[forces.DFSPHViscosity(0.5)])
+        )
     with pytest.raises(NotImplementedError):
         _tiny_world().step_with_coupling(0.01, (0.0, -9.81), object())
     for flag in (dict(dense_spill_columns=512), dict(dense_compact=True),
@@ -219,7 +229,10 @@ def test_state_numpy_round_trip():
 def test_kernel_build_is_keyed_by_source_hash():
     from salva_tpu_torch.ops import _build
 
-    path = _build.library_path()
-    assert path.parent.parent.name == "salva_tpu_torch"
-    assert path.parent.parent.parent.name == "build"
-    assert len(path.parent.name) == 16
+    paths = _build.library_paths()
+    assert len(paths) == len(_build._SOURCES) == 2  # one library a source
+    assert len({p.parent.name for p in paths}) == len(paths)
+    for path in paths:
+        assert path.parent.parent.name == "salva_tpu_torch"
+        assert path.parent.parent.parent.name == "build"
+        assert len(path.parent.name) == 16

@@ -1,14 +1,16 @@
 """The four pair passes of the PyTorch port against the JAX package.
 
 The plain PyTorch versions (``k_pass_plain``, ``t_pass_plain``,
-``hoist_ff_plain``, ``hoist_fb_plain``) are held, on the same grid state,
-against
+``hoist_ff_plain``, ``hoist_fb_plain``; ``k_pass_plain`` also stands for
+``k_pass_v2``, the slot-group formulation) are held, on the same grid
+state, against
 
 - the JAX ``DenseCtx`` half-stencil folds (``_k_pass_half``,
   ``_t_pass_half``, ``_hoist_ff_half``), and
 - the Pallas v3 kernels in interpret mode (``k_pass_pallas3``,
   ``t_pass_pallas3``, ``hoist_ff_pallas3``: the v1 lo slice plus the hi
-  complement; ``hoist_fb_pallas3`` on the full-grid boundary arrays), as
+  complement; ``hoist_fb_pallas3`` on the full-grid boundary arrays; the
+  v2 slot-group kernel ``k_pass_pallas2`` for ``k_pass_v2``), as
   ``tests/test_pallas_ops.py`` runs them on the CPU,
 
 in 2D and 3D, on a clustered fixture that puts more
@@ -37,6 +39,7 @@ from salva_tpu.object.state import BoundariesState, FluidsState
 from salva_tpu.ops.pallas_pair2 import (
     hoist_fb_pallas3,
     hoist_ff_pallas3,
+    k_pass_pallas2,
     k_pass_pallas3,
     t_pass_pallas3,
 )
@@ -150,6 +153,22 @@ def test_k_pass_plain_matches(state):
                             t["counts"])
     _close(out.numpy(), ref["k"], KT_TOL)
     _close(out.numpy(), k_pass_pallas3(
+        spec, H, dim, "cubic", ref["P"], ref["M"], ref["K"], tile=TILE,
+        interpret=True), KT_TOL)
+
+
+def test_k_pass_v2_matches_pallas2(state):
+    """``k_pass_v2`` on CPU tensors (its plain version, ``k_pass_plain``)
+    against the interpret-mode v2 kernel, whose slot-group gating skips
+    the dead groups of cells under 9 particles and runs the live hi
+    groups of the clustered cells."""
+    dim, spec, ref, tspec, t = state
+    out = pair.k_pass_v2(tspec, H, dim, "cubic", t["P"], t["M"], t["K"],
+                         t["counts"])
+    torch.testing.assert_close(
+        out, pair.k_pass_plain(tspec, H, dim, "cubic", t["P"], t["M"],
+                               t["K"], t["counts"]), rtol=0, atol=0)
+    _close(out.numpy(), k_pass_pallas2(
         spec, H, dim, "cubic", ref["P"], ref["M"], ref["K"], tile=TILE,
         interpret=True), KT_TOL)
 

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of one salva_tpu_torch step goes, on one CUDA device.
 
-Runs the 97k dam break of ``chip_smoke.py`` (DFSPH or IISPH) for 10
+Runs the 97k dam break of ``chip_smoke.py`` (DFSPH or IISPH; with
+``--forces`` the fluid carries its XSPH and artificial viscosity) for 10
 warm-up steps, then:
 
 1. stage timing: each leaf stage of the step (binning, layout shuffles,
-   the four pair passes, boundary volumes and forces, the convergence
-   reductions and host syncs) is wrapped in ``torch.cuda.synchronize()``
+   the pair passes, boundary volumes and forces, the non-pressure
+   forces, the convergence reductions and host syncs) is wrapped in
+   ``torch.cuda.synchronize()``
    and a host clock over ``--steps`` steps; "everything else" is the
    synchronized step time minus the stages. The synchronizes add their
    own cost, so the total is above the unsynchronized ms/step;
@@ -19,6 +21,7 @@ Usage, from the repository root on a machine with a CUDA device:
 
     python3 tools/torch_step_profile.py --solver dfsph
     python3 tools/torch_step_profile.py --solver iisph --json out.json
+    python3 tools/torch_step_profile.py --solver dfsph --forces
 
 Prints one table per part and, with ``--json``, writes the numbers.
 """
@@ -76,7 +79,7 @@ def _instrument():
         (dg, "bin_particles", "binning, full grid (fluid; boundary on the "
          "full-grid layout)"),
         (dg, "bin_particles_active", "binning, compact (boundary)"),
-        (dg, "to_grid_multi", "to_grid_multi"),
+        (dg, "to_grid_multi", "to_grid_multi (expand kernel)"),
         (dg, "from_grid_multi", "from_grid_multi (unbin)"),
         (pair, "hoist_ff", "hoist_ff kernel"),
         (pair, "hoist_fb", "hoist_fb kernel"),
@@ -93,6 +96,7 @@ def _instrument():
         ("boundary_forces", "boundary forces (plain torch fold)"),
         ("_compute_boundary_volumes", "boundary volumes (plain torch fold)"),
         ("_fb_table", "fb adjacency table (topk)"),
+        ("apply_forces", "non-pressure forces (plain torch passes)"),
     ):
         setattr(ctx, name, _timed(label, getattr(ctx, name)))
 
@@ -108,6 +112,8 @@ def _card():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--solver", choices=("dfsph", "iisph"), default="dfsph")
+    ap.add_argument("--forces", action="store_true",
+                    help="the fluid carries chip_smoke.FORCES")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
@@ -116,7 +122,9 @@ def main() -> int:
         return 2
     card = _card()
     print(f"card: {card}", flush=True)
-    world = chip_smoke.dam_break_world("cuda", args.solver)
+    world = chip_smoke.dam_break_world("cuda", args.solver,
+                                       forces=args.forces)
+    path = chip_smoke.path_name(args.solver, args.forces)
     for _ in range(10):
         world.step(chip_smoke.DT, chip_smoke.GRAVITY)
     torch.cuda.synchronize()
@@ -142,7 +150,7 @@ def main() -> int:
     stages = sorted(((label, t / args.steps * 1e3, _CALLS[label] / args.steps)
                      for label, t in _TIMES.items()), key=lambda r: -r[1])
     rest = sync_ms - sum(ms for _, ms, _ in stages)
-    print(f"\n{args.solver}: {plain_ms:.3f} ms/step unsynchronized, "
+    print(f"\n{path}: {plain_ms:.3f} ms/step unsynchronized, "
           f"{sync_ms:.3f} ms/step with a synchronize around each stage "
           f"({args.steps} steps each; iterations per step {iters})")
     print(f"{'stage':<62} {'ms/step':>9} {'calls/step':>10}")
@@ -187,7 +195,7 @@ def main() -> int:
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(
-                card=card, solver=args.solver, steps=args.steps,
+                card=card, solver=args.solver, path=path, steps=args.steps,
                 iters=iters, ms_per_step=plain_ms, sync_ms_per_step=sync_ms,
                 stages=[dict(stage=l, ms=m, calls=c) for l, m, c in stages],
                 rest_ms=rest, profiler_device_ms_3_steps=device_ms,
