@@ -23,8 +23,9 @@ in these phases:
    without it (the DFSPH setting: ``s2`` exactly zero), the
    fluid-boundary hoist on both boundary layouts (the sparse one the
    world resolves, and the same state binned into the full grid), the
-   slot-group ``k_pass_v2`` against ``k_pass``'s plain version, and the
-   binning's ``expand`` on the fluid and the boundary binning (exact):
+   slot-group ``k_pass_v2`` (which no main path runs, as in the JAX
+   package) against ``k_pass``'s plain version, and the binning's
+   ``expand`` on the fluid and the boundary binning (exact):
    per-output errors and tolerances, a bitwise rerun, CUDA-event times,
    the least time the card could take (bound: the bytes of the live
    slots the pass must read and of its outputs, or its float32
@@ -34,13 +35,11 @@ in these phases:
    stepped 5 times through the kernels and 5 times through the plain
    versions (substituted here, in the script), with identical iteration
    counts and matching positions required; the DFSPH path again with the
-   binning's packed gather in place of ``expand`` (bitwise equal);
+   JAX package's packed gather ``packed[grid_src]`` in place of
+   ``expand`` (bitwise equal);
 7. the DFSPH dam break on the full-grid boundary binning
    (``dense_sparse_boundary=False``) for 5 steps, through the kernels,
-   against the phase-6 kernel run on the sparse binning;
-8. the DFSPH dam break with ``pallas_variant="v2"`` (the solvers'
-   ``k_pass`` through ``k_pass_v2``) for 5 steps, against the same
-   kernel run.
+   against the phase-6 kernel run on the sparse binning.
 
 Usage, from the repository root:  python3 chip_smoke.py
 Exits non-zero without a result line when no CUDA device is present or
@@ -48,9 +47,9 @@ any phase fails. The last line of stdout is one JSON object:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's name and power limit, and the line
 before that the kernels' JSON record (``launches``: the count of the
-path named by ``launches_path`` — the DFSPH forces path, this slice's,
-and for ``k_pass_v2`` its own variant path; ``launches_by_path``: every
-path's).
+run named by ``launches_path`` — the DFSPH forces path, this slice's,
+and for ``k_pass_v2``, which no main path launches, its phase-5 checks
+and timing; ``launches_by_path``: every main path's).
 """
 
 import json
@@ -127,8 +126,8 @@ REPLACES = {
 }
 SOURCES = {name: "salva_tpu_torch/csrc/pair_passes.cu" for name in REPLACES}
 SOURCES["expand"] = "salva_tpu_torch/csrc/expand.cu"
-# The kernels every main path launches; k_pass_v2 runs on its own
-# variant path (SimConfig.pallas_variant = "v2").
+# The kernels every main path launches; k_pass_v2 runs on none (as in
+# the JAX package, no solver calls it): phase 5 holds and times it.
 MAIN_PATH_KERNELS = ("k_pass", "t_pass", "hoist_ff", "hoist_fb", "expand")
 # The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): HBM3
 # bandwidth and float32 rate outside the tensor cores.
@@ -163,10 +162,9 @@ def read_counts(pair):
     return dict(pair.LAUNCHES, **binning.LAUNCHES)
 
 
-def path_name(solver, forces=False, sparse_boundary=True, variant=None):
+def path_name(solver, forces=False, sparse_boundary=True):
     return (solver + ("_forces" if forces else "")
-            + ("" if sparse_boundary else "_full_grid")
-            + (f"_{variant}" if variant else ""))
+            + ("" if sparse_boundary else "_full_grid"))
 
 
 def card_line() -> str:
@@ -179,11 +177,11 @@ def card_line() -> str:
 
 
 def dam_break_world(device, solver="dfsph", sparse_boundary=True,
-                    forces=False, variant=None):
+                    forces=False):
     """The bench.py dam break (``run_config``): a 46^3 cube one radius
     above a sampled Cuboid floor, moving down at 2 m/s, in a static
     domain; caps, window and fb table auto-resolve. ``forces``: the
-    fluid carries FORCES; ``variant``: ``SimConfig.pallas_variant``."""
+    fluid carries FORCES."""
     from salva_tpu_torch import forces as force_specs
     from salva_tpu_torch import shapes
     from salva_tpu_torch.config import DFSPHConfig, IISPHConfig
@@ -206,8 +204,6 @@ def dam_break_world(device, solver="dfsph", sparse_boundary=True,
                         device=device)
     if not sparse_boundary:
         world.sim = world.sim.replace(dense_sparse_boundary=False)
-    if variant is not None:
-        world.sim = world.sim.replace(pallas_variant=variant)
     pos = cube_fluid((n_side, n_side, n_side), radius)
     pos[:, 1] += half + radius
     vel = np.zeros_like(pos)
@@ -488,7 +484,7 @@ def hold_without_s2(label, names, out, ref, tol):
 
 
 def phase_kernels(pair, world):
-    """Phase 4: each kernel vs its plain version at the state of the
+    """Phase 5: each kernel vs its plain version at the state of the
     DFSPH main path's world after its 30 steps (the shapes the main path
     gives it)."""
     from salva_tpu_torch.geometry import dense_grid as tdg
@@ -593,18 +589,23 @@ def phase_kernels(pair, world):
 
     log(f"[kernels] k_pass_v2: planted fault drops the last particle of "
         f"cell {cell_v2} ({rank_v2 + 1} particles)")
+    # No main path launches k_pass_v2: its launches are this check's.
+    reset_counts(pair)
     out, err = hold_kernel("k_pass_v2", "k_pass_v2", kern_v2, ff["k_pass"][1],
                            KT_TOL, copy_v2)
     ms = cuda_ms(lambda: kern_v2(False), 50)
     one = call_ms(lambda: kern_v2(False), 20)
+    check_launches = read_counts(pair)["k_pass_v2"]
     plain_ms = cuda_ms(ff["k_pass"][1], 10)
     results["k_pass_v2"] = dict(max_abs_err=err, ms=ms, call_ms=one,
                                 plain_ms=plain_ms,
+                                check_launches=check_launches,
                                 read=live_bytes([P, M, K], n_live) + 4 * C,
                                 written=nbytes(out))
     log(f"[kernels] k_pass_v2: kernel {ms:.4f} ms device time ({one:.4f} ms "
         f"a call; k_pass {results['k_pass']['ms']:.4f} ms), plain "
-        f"{plain_ms:.4f} ms; {n_eval / ms / 1e6:.4g} G candidate pairs/s")
+        f"{plain_ms:.4f} ms; {n_eval / ms / 1e6:.4g} G candidate pairs/s; "
+        f"{check_launches} launches in this check and its timing")
     for name in results:
         r = results[name]
         read, written = r.pop("read"), r.pop("written")
@@ -723,6 +724,42 @@ def phase_kernels(pair, world):
     return results
 
 
+def slot_sources(binned):
+    """The particle index feeding each slot of a binning, [cap, C] int64
+    (N = an empty slot): the JAX package's ``grid_src``, made from the run
+    table as the JAX binning makes it."""
+    cap, C = binned.mask.shape
+    n = binned.order.shape[0]
+    dev = binned.order.device
+    r = torch.arange(cap, device=dev)[:, None]
+    valid = r < torch.clamp(binned.count, max=cap)[None, :]
+    order_ext = torch.cat([binned.order.long(),
+                           torch.full((1,), n, device=dev)])
+    return order_ext[torch.where(valid, binned.start[None, :] + r, n)]
+
+
+def gather(src, items):
+    """The JAX package's ``to_grid_multi``: ONE packed row gather
+    ``packed[grid_src]`` of every channel (``src``: :func:`slot_sources`),
+    then a fill and a contiguous copy per channel; the library call
+    ``expand`` is timed against."""
+    chans = []
+    for vals, _fill in items:
+        chans += [vals] if vals.ndim == 1 else list(vals.unbind(1))
+    packed = torch.stack(chans, dim=-1)
+    packed = torch.cat([packed, packed.new_zeros((1, len(chans)))])
+    g = packed[src]  # [cap, C, ch]
+    empty = src >= packed.shape[0] - 1
+    out, col = [], 0
+    for vals, fill in items:
+        d = 1 if vals.ndim == 1 else vals.shape[1]
+        comps = [(torch.where(empty, fill, g[..., col + k]) if fill != 0.0
+                  else g[..., col + k]).contiguous() for k in range(d)]
+        out.append(comps[0] if vals.ndim == 1 else torch.stack(comps))
+        col += d
+    return out
+
+
 def phase_expand(world, ctx):
     """Phase 5, the binning's ``expand``: the kernel against
     ``expand_plain`` on the fluid binning (the positions and velocities,
@@ -730,8 +767,8 @@ def phase_expand(world, ctx):
     the world's state. Exact equality (it moves data only), a bitwise
     rerun, and two planted faults that must break it: a column's start
     off by one, and one row dropped from a column's count. The library
-    call: the packed row gather ``to_grid_multi_gather`` (``packed[
-    grid_src]``, the JAX package's formulation). Bound: bytes (the live
+    call: the JAX package's packed row gather ``packed[grid_src]``
+    (:func:`gather`, ``grid_src`` made once beforehand). Bound: bytes (the live
     slots' channels and sort-order entry read once, the run table read
     once, the output planes written once)."""
     from salva_tpu_torch.geometry import dense_grid as tdg
@@ -747,13 +784,15 @@ def phase_expand(world, ctx):
     rec = {}
     for label, (binned, items) in calls.items():
         cap, C = binned.mask.shape
+        src = slot_sources(binned)
         out = binning.expand(binned, items)
         ref = binning.expand_plain(binned, items)
         again = binning.expand(binned, items)
+        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
         for o, r, a in zip(out, ref, again):
             assert torch.equal(o, r), f"expand ({label}) differs from plain"
             assert torch.equal(o, a), f"expand ({label}): not deterministic"
-        for o, g in zip(out, tdg.to_grid_multi_gather(None, binned, items)):
+        for o, g in zip(out, gather(src, items)):
             assert torch.equal(o, g), f"expand ({label}) differs from gather"
         # Planted faults, in the column with the most rows up to the cap
         # (a row dropped past the cap would change nothing).
@@ -780,14 +819,13 @@ def phase_expand(world, ctx):
         ms = cuda_ms(lambda: binning.expand(binned, items), 50)
         one = call_ms(lambda: binning.expand(binned, items), 20)
         plain_ms = cuda_ms(lambda: binning.expand_plain(binned, items), 10)
-        lib_ms = cuda_ms(
-            lambda: tdg.to_grid_multi_gather(None, binned, items), 20)
-        rec[label] = dict(max_abs_err=0.0, ms=ms, call_ms=one,
+        lib_ms = cuda_ms(lambda: gather(src, items), 20)
+        rec[label] = dict(max_abs_err=err, ms=ms, call_ms=one,
                           plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=b_ms, bound_by="bytes")
         log(f"[kernels] expand ({label}): [{nch}, {cap}, {C}] planes, "
             f"{n_live} live slots; equal to plain and to the gather "
-            f"bitwise; kernel {ms:.4f} ms device time ({one:.4f} ms a "
+            f"bitwise (max abs err {err}); kernel {ms:.4f} ms device time ({one:.4f} ms a "
             f"call), plain {plain_ms:.4f} ms, library (packed gather) "
             f"{lib_ms:.4f} ms; "
             f"bound {b_ms:.5f} ms (bytes; {read} B read, {written} B "
@@ -795,12 +833,10 @@ def phase_expand(world, ctx):
     return dict(rec["fluid"], boundary=rec["boundary"])
 
 
-def run_steps(solver, steps=5, sparse_boundary=True, forces=False,
-              variant=None):
+def run_steps(solver, steps=5, sparse_boundary=True, forces=False):
     """A fresh dam break stepped ``steps`` times: (iterations per step,
     live positions, last diagnostics)."""
-    world = dam_break_world("cuda", solver, sparse_boundary, forces=forces,
-                            variant=variant)
+    world = dam_break_world("cuda", solver, sparse_boundary, forces=forces)
     iters = []
     for _ in range(steps):
         world.step(DT, GRAVITY)
@@ -854,17 +890,16 @@ def phase_path_parity(pair, solver, forces=False):
 
 
 def phase_expand_vs_gather(pair, kernel_run):
-    """Phase 6: the DFSPH path with the binning's packed row gather (the
-    JAX package's formulation, ``to_grid_multi_gather``) substituted for
-    the ``expand`` kernel: bitwise equal positions after 5 steps."""
-    from salva_tpu_torch.geometry import dense_grid as tdg
+    """Phase 6: the DFSPH path with the JAX package's packed row gather
+    (:func:`gather` through :func:`slot_sources`) substituted for the
+    ``expand`` kernel: bitwise equal positions after 5 steps."""
     from salva_tpu_torch.ops import binning
 
-    def gather(binned, items):
-        return tdg.to_grid_multi_gather(None, binned, items)
+    def by_gather(binned, items):
+        return gather(slot_sources(binned), items)
 
     reset_counts(pair)
-    with substituted({(binning, "expand"): gather}):
+    with substituted({(binning, "expand"): by_gather}):
         iters, pos, _ = run_steps("dfsph")
     assert read_counts(pair)["expand"] == 0
     dpos = float((pos - kernel_run[1]).abs().max())
@@ -872,24 +907,6 @@ def phase_expand_vs_gather(pair, kernel_run):
         f"between the expand and the gather path {dpos:.3e} m (must be 0)")
     assert iters == kernel_run[0], "iterations differ"
     assert torch.equal(pos, kernel_run[1]), "positions differ"
-
-
-def phase_variant_v2(pair, kernel_run):
-    """Phase 8: the DFSPH dam break with ``pallas_variant="v2"``: every
-    ``k_pass`` of the solvers runs as ``k_pass_v2``. Returns its launch
-    counts."""
-    reset_counts(pair)
-    iters, pos, d = run_steps("dfsph", variant="v2")
-    launches = read_counts(pair)
-    dpos = float((pos - kernel_run[1]).abs().max())
-    log(f"[v2] DFSPH 5 steps with pallas_variant='v2': iterations {iters}, "
-        f"launches {launches}; max |dpos| vs the k_pass run {dpos:.3e} m "
-        f"(atol {PATH_POS_ATOL['dfsph']})")
-    assert launches["k_pass_v2"] > 0 and launches["k_pass"] == 0
-    assert iters == kernel_run[0], "iterations differ from the k_pass run"
-    assert bool(torch.isfinite(pos).all())
-    assert dpos <= PATH_POS_ATOL["dfsph"], f"positions differ by {dpos}"
-    return launches
 
 
 def phase_full_grid(pair, sparse_run):
@@ -960,17 +977,18 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["dfsph_full_grid"] = phase_full_grid(pair, sparse_run)
     log(f"[full grid] phase took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    paths["dfsph_v2"] = phase_variant_v2(pair, sparse_run)
-    log(f"[v2] phase took {time.perf_counter() - t0:.1f} s")
 
     records = []
     for name, k in kernels.items():
-        on = "dfsph_v2" if name == "k_pass_v2" else "dfsph_forces"
+        if name == "k_pass_v2":
+            on, launches = "phase 5 checks (no main path runs it)", \
+                k["check_launches"]
+        else:
+            on, launches = "dfsph_forces", paths["dfsph_forces"][name]
         extra = {key: k[key] for key in ("full_grid", "boundary") if key in k}
         records.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=paths[on][name],
+            replaces=REPLACES[name], launches=launches,
             launches_path=on,
             launches_by_path={p: c[name] for p, c in paths.items()},
             max_abs_err=k["max_abs_err"], ms=k["ms"], call_ms=k["call_ms"],

@@ -10,10 +10,9 @@ and public solver fields (``src/solver/pressure/dfsph_solver.rs:21-38``).
 Several defaults below were chosen in the JAX package from TPU
 measurements (the cap tiers, ``dense_spill_auto``, ``pallas_auto_cells``,
 the brute-tier ceilings). In this package each of them is a hypothesis
-until it is measured on the GPU; the port does not read ``use_pallas`` /
-``pallas_auto_cells`` at all — the hand kernels run whenever the tensors
-live on a CUDA device — and reads ``pallas_variant`` only to pick the
-slot-group ``k_pass`` ("v2").
+until it is measured on the GPU; the port does not read
+``use_pallas`` / ``pallas_variant`` / ``pallas_auto_cells`` at all — the
+hand kernels run whenever the tensors live on a CUDA device.
 """
 
 from __future__ import annotations
@@ -159,9 +158,6 @@ class SimConfig:
     # Kept for API parity with the JAX package; not read here (the kernel
     # choice depends on the tensors' device alone).
     use_pallas: bool = None
-    # "v2": the solvers' k_pass runs as the slot-group formulation
-    # (``ops.pair.k_pass_v2``, the port of ``k_pass_pallas2``); any other
-    # value (the JAX package's "v1" / "v3") runs ``ops.pair.k_pass``.
     pallas_variant: str = "v3"
     pallas_auto_cells: int = 100_000
     # Number of solver substeps per `step` call

@@ -19,7 +19,7 @@ indices to one extra slot that is cut off afterwards.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -91,9 +91,8 @@ class Binned(NamedTuple):
     - ``mask``: [cap, C] f32 slot occupancy;
     - ``overflow``: [] int32 particles dropped by full cells;
     - ``clamped``: [] int32 particles clamped into the interior box;
-    - ``grid_src``: [cap, C] int32 particle index feeding each slot
-      (N = empty);
-    - the run table the expansion kernel reads (``ops/binning.py``):
+    - the run table every layout shuffle into the grid reads
+      (:func:`to_grid`, :func:`to_grid_multi`, ``ops/binning.py``):
       ``order`` [N] int32, the stable sort of the particles by cell, and
       per column ``start`` [C] (first sorted index; 0 for an empty cell)
       and ``count`` [C] (particles in the cell, also past ``cap``), both
@@ -105,10 +104,9 @@ class Binned(NamedTuple):
     mask: torch.Tensor
     overflow: torch.Tensor
     clamped: torch.Tensor
-    grid_src: torch.Tensor
-    order: Optional[torch.Tensor] = None
-    start: Optional[torch.Tensor] = None
-    count: Optional[torch.Tensor] = None
+    order: torch.Tensor
+    start: torch.Tensor
+    count: torch.Tensor
 
 
 def _scatter_drop(size: int, fill, idx, values):
@@ -178,7 +176,7 @@ def bin_particles(spec: DenseGridSpec, positions, alive,
     rank[order.long()] = rank_sorted
 
     # Per-cell sorted-run starts/ends: slot (c, r) is fed by sorted
-    # position starts[c] + r, so every channel bins through one row gather.
+    # position starts[c] + r (the run table of ``ops/binning.expand``).
     iota = torch.arange(n, dtype=torch.int32, device=dev)
     live_sorted = sk < C
     first_live = is_first & live_sorted
@@ -191,13 +189,8 @@ def bin_particles(spec: DenseGridSpec, positions, alive,
                          iota + 1)[:C]
     counts = ends - starts
     r = torch.arange(cap, dtype=torch.int32, device=dev)
-    valid = r[None, :] < torch.clamp(counts, max=cap)[:, None]  # [C, cap]
-    src_sorted = torch.where(valid, starts[:, None] + r[None, :], n)
-    order_ext = torch.cat(
-        [order, torch.full((1,), n, dtype=torch.int32, device=dev)]
-    )
-    grid_src = order_ext[src_sorted.long()].T.contiguous()  # [cap, C]
-    mask = valid.T.to(torch.float32).contiguous()
+    valid = r[:, None] < torch.clamp(counts, max=cap)[None, :]  # [cap, C]
+    mask = valid.to(torch.float32)
 
     fits = alive & (rank < cap)
     clamped = (alive & clamped_mask).sum(dtype=torch.int32)
@@ -209,7 +202,6 @@ def bin_particles(spec: DenseGridSpec, positions, alive,
         mask=mask,
         overflow=overflow,
         clamped=clamped,
-        grid_src=grid_src,
         order=order,
         start=starts,
         count=counts,
@@ -217,69 +209,30 @@ def bin_particles(spec: DenseGridSpec, positions, alive,
 
 
 def to_grid(spec, binned, values, fill=0.0):
-    """Bring per-particle values into grid layout by a row gather of the
-    slot table: [N] -> [cap, C]; [N, D] -> [D, cap, C]."""
-    if values.ndim == 2:
-        return torch.stack(
-            [to_grid(spec, binned, values[:, d], fill)
-             for d in range(values.shape[1])]
-        )
-    ext = torch.cat(
-        [values, torch.full((1,), fill, dtype=values.dtype,
-                            device=values.device)]
-    )
-    return ext[binned.grid_src.long()]
+    """Bring per-particle values into grid layout: [N] -> [cap, C];
+    [N, D] -> [D, cap, C]. One call of the binning's expansion
+    (``ops.binning.expand``). Integer and bool values (ids, interaction
+    bitmasks) expand exactly as two float32 channels, their low 16 bits
+    and the rest."""
+    from ..ops import binning
+
+    if values.dtype == torch.float32:
+        return binning.expand(binned, [(values, fill)])[0]
+    v, f = values.long(), int(fill)
+    lo, hi = binning.expand(binned, [((v & 0xFFFF).float(), f & 0xFFFF),
+                                     ((v >> 16).float(), f >> 16)])
+    return ((hi.long() << 16) | lo.long()).to(values.dtype)
 
 
 def to_grid_multi(spec, binned, items):
-    """Bring SEVERAL float32 per-particle arrays into grid layout in one
-    pass. ``items``: list of ``(values, fill)`` with values [N] or [N, D];
-    returns contiguous [cap, C'] / [D, cap, C'] grids.
+    """Bring SEVERAL float32 per-particle arrays into grid layout with one
+    call of the binning's expansion (``ops.binning.expand``: the kernel for
+    CUDA tensors, one launch for every channel; its plain version for CPU
+    tensors). ``items``: list of ``(values, fill)`` with values [N] or
+    [N, D]; returns contiguous [cap, C'] / [D, cap, C'] grids."""
+    from ..ops import binning
 
-    CUDA tensors go through the expansion kernel (``ops.binning.expand``,
-    one launch for every channel, reading the binning's run table); CPU
-    tensors through :func:`to_grid_multi_gather`. Both give the same
-    values bitwise."""
-    if items[0][0].device.type == "cuda":
-        from ..ops import binning
-
-        return binning.expand(binned, items)
-    return to_grid_multi_gather(spec, binned, items)
-
-
-def to_grid_multi_gather(spec, binned, items):
-    """:func:`to_grid_multi` as ONE packed row gather through
-    ``grid_src`` (the JAX package's formulation)."""
-    src = binned.grid_src.long()
-    chans = []
-    layout = []
-    for vals, _fill in items:
-        if vals.ndim == 1:
-            chans.append(vals)
-            layout.append(1)
-        else:
-            for d in range(vals.shape[1]):
-                chans.append(vals[:, d])
-            layout.append(vals.shape[1])
-    packed = torch.stack(chans, dim=-1)
-    packed = torch.cat(
-        [packed, torch.zeros((1, len(chans)), dtype=packed.dtype,
-                             device=packed.device)]
-    )
-    g = packed[src]  # [cap, C', ch]
-    empty = src >= packed.shape[0] - 1
-    out = []
-    col = 0
-    for (vals, fill), d in zip(items, layout):
-        comps = []
-        for k in range(d):
-            arr = g[..., col + k]
-            if fill != 0.0:
-                arr = torch.where(empty, fill, arr)
-            comps.append(arr.contiguous())
-        out.append(comps[0] if vals.ndim == 1 else torch.stack(comps))
-        col += d
-    return out
+    return binning.expand(binned, items)
 
 
 def from_grid_multi(spec, binned, grids):
@@ -341,12 +294,11 @@ class ActiveBinned(NamedTuple):
     overflow: torch.Tensor
     clamped: torch.Tensor
     active_overflow: torch.Tensor
-    grid_src: Optional[torch.Tensor] = None
     # The run table, as ``Binned``'s: ``order`` [N]; ``start`` / ``count``
     # [A+1] per column (the void column: 0, 0).
-    order: Optional[torch.Tensor] = None
-    start: Optional[torch.Tensor] = None
-    count: Optional[torch.Tensor] = None
+    order: torch.Tensor
+    start: torch.Tensor
+    count: torch.Tensor
 
 
 class ActiveSpec(NamedTuple):
@@ -398,13 +350,8 @@ def bin_particles_active(spec: DenseGridSpec, max_active: int, positions,
     r = torch.arange(cap, dtype=torch.int32, device=dev)
     col_start = torch.zeros((A + 1,), dtype=torch.int32, device=dev)
     col_start[:A] = starts[:A]
-    valid = r[None, :] < torch.clamp(counts, max=cap)[:, None]  # [A+1, cap]
-    src_sorted = torch.where(valid, col_start[:, None] + r[None, :], n)
-    order_ext = torch.cat(
-        [order, torch.full((1,), n, dtype=torch.int32, device=dev)]
-    )
-    grid_src = order_ext[torch.clamp(src_sorted, max=n).long()].T.contiguous()
-    mask = valid.T.to(torch.float32).contiguous()
+    valid = r[:, None] < torch.clamp(counts, max=cap)[None, :]  # [cap, A+1]
+    mask = valid.to(torch.float32)
 
     fits_sorted = (
         live_sorted & (rank_sorted < cap) & (act_sorted >= 0)
@@ -431,7 +378,6 @@ def bin_particles_active(spec: DenseGridSpec, max_active: int, positions,
         overflow=overflow,
         clamped=clamped,
         active_overflow=active_overflow,
-        grid_src=grid_src,
         order=order,
         start=col_start,
         count=counts,

@@ -10,9 +10,11 @@ with its fill value, go in; for every slot (r, c) and channel k
 
 from the binning's run table (``order``: the stable sort of the particles
 by cell; ``start`` / ``count``: each column's first sorted index and
-particle count). This is ``geometry.dense_grid.to_grid_multi``'s result,
-bitwise: ``[N]`` values give a ``[cap, C]`` plane, ``[N, D]`` values a
-``[D, cap, C]`` stack, every one a contiguous view of one output buffer.
+particle count). It is every layout shuffle of the binnings into the
+grid (``geometry.dense_grid.to_grid`` / ``to_grid_multi``), bitwise the
+JAX package's ``packed[grid_src]`` gather: ``[N]`` values give a
+``[cap, C]`` plane, ``[N, D]`` values a ``[D, cap, C]`` stack, every one a
+contiguous view of one output buffer.
 
 ``expand`` launches the hand-written CUDA kernel (``csrc/expand.cu``,
 the port of the Pallas prototype ``tools/exp_pallas_expand.py``) for CUDA

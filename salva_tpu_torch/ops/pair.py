@@ -19,8 +19,8 @@ wrapper        computes, per live slot i of the [cap, C] grid  plain version
 formulation of ``salva_tpu.ops.pallas_pair2.k_pass_pallas2``: a pair block
 runs only where both 8-slot groups are live (group g of cell c is live iff
 ``counts[c] > 8 g``); the dead slots inside a live group must hold the
-sentinel position and zero mass, as every binned grid does. The solvers
-run it instead of ``k_pass`` when ``SimConfig.pallas_variant == "v2"``.
+sentinel position and zero mass, as every binned grid does. As in the
+JAX package, no solver calls it.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback. Every launch adds

@@ -11,10 +11,10 @@ fluid-boundary hoist over boundary-adjacent fluid columns) or full-grid
 (``False``: the boundaries bin into the fluid grid's cells).
 
 The four hot passes (``k_pass``, ``t_pass``, the ff hoist and the fb
-hoist) go through ``ops.pair``, and the binning's layout shuffle
-(``to_grid_multi``) through ``ops.binning``: hand kernels for CUDA
-tensors, the plain versions for CPU tensors. Everything else, the
-non-pressure forces included, is plain torch.
+hoist) go through ``ops.pair``, and the binning's layout shuffles
+(``to_grid`` / ``to_grid_multi``) through ``ops.binning``: hand kernels
+for CUDA tensors, the plain versions for CPU tensors. Everything else,
+the non-pressure forces included, is plain torch.
 
 Not ported (each raises ``NotImplementedError`` naming its flag): the
 dense+spill structure (``dense_spill_columns``), the compact layout
@@ -352,11 +352,8 @@ class DenseCtx:
         )
 
     def k_pass(self, K):
-        """K_i = sum_ff k_j m_j grad_ij for a per-slot scalar k (the
-        slot-group formulation ``pair.k_pass_v2`` when
-        ``sim.pallas_variant == "v2"``)."""
-        fn = pair.k_pass_v2 if self.sim.pallas_variant == "v2" else pair.k_pass
-        return fn(
+        """K_i = sum_ff k_j m_j grad_ij for a per-slot scalar k."""
+        return pair.k_pass(
             self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
             self.P, self.M, K, self.counts,
         )

@@ -1,8 +1,9 @@
 """Dense-grid binning of the PyTorch port against
 ``salva_tpu.geometry.dense_grid``: identical slot assignment (``slot_of``,
-``mask``, ``grid_src``), exact overflow / clamp counts, identical active
-tables and neighbor tables, on a clustered random fixture whose clusters
-overflow the cell cap."""
+``mask``, and the JAX binning's ``grid_src`` as the port's run table
+expands it), exact overflow / clamp counts, identical active tables and
+neighbor tables, on a clustered random fixture whose clusters overflow
+the cell cap."""
 
 import functools
 
@@ -57,9 +58,17 @@ def _both(pos, alive):
 
 
 def _assert_same(jb, tb, fields):
+    """``grid_src`` (the particle feeding each slot, N = empty) has no
+    field in the port: it is the particle index expanded through the
+    run table (``to_grid``, an int32 channel)."""
     for f in fields:
         j = np.asarray(getattr(jb, f))
-        t = getattr(tb, f).numpy()
+        if f == "grid_src":
+            n = tb.order.shape[0]
+            iota = torch.arange(n, dtype=torch.int32)
+            t = tdg.to_grid(None, tb, iota, fill=n).numpy()
+        else:
+            t = getattr(tb, f).numpy()
         assert j.shape == t.shape, f
         np.testing.assert_array_equal(t, j, err_msg=f)
 

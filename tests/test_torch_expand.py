@@ -17,7 +17,9 @@ against the JAX package.
   tables come from its own binning of the same inputs.
 
 On the CPU the wrapper ``expand`` runs ``expand_plain`` and launches
-nothing, and ``to_grid_multi`` (the packed gather) equals both bitwise.
+nothing; the port's ``to_grid_multi`` and ``to_grid`` call it, and
+``to_grid`` expands integer values (ids, u32 interaction bitmasks) exactly
+as JAX ``to_grid`` gathers them.
 The kernel itself is held against ``expand_plain`` on the card
 (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
 """
@@ -150,13 +152,50 @@ def test_expand_plain_matches_jax_to_grid_multi(dim, layout):
     for g, w in zip(got, want):
         assert g.is_contiguous()
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    # The CPU wrapper and the packed gather give the same bits and launch
-    # no kernel.
+    # The CPU wrapper and to_grid_multi (which calls it) give the same
+    # bits and launch no kernel.
     before = dict(binning.LAUNCHES)
     for a, b, c in zip(got, binning.expand(tb, t_items),
                        tdg.to_grid_multi(tspec, tb, t_items)):
         assert torch.equal(a, b) and torch.equal(a, c)
     assert binning.LAUNCHES == before
+
+
+@pytest.mark.parametrize("layout", ["full", "active"])
+def test_to_grid_of_integer_values_matches_jax(layout):
+    """Ids with fill -1, u32 bitmasks (high bits set) and bools expand
+    through two float32 channels each, bitwise as JAX gathers them."""
+    spec, pos, alive, _ = _fixture(3)
+    tspec = tdg.DenseGridSpec(spec.origin, spec.dims, spec.cap,
+                              spec.cell_width)
+    jpos, jalive = jnp.asarray(pos), jnp.asarray(alive)
+    tpos, talive = torch.from_numpy(pos), torch.from_numpy(alive)
+    if layout == "full":
+        jb = _jit(jdg.bin_particles, "spec")(spec=spec, positions=jpos,
+                                             alive=jalive)
+        tb = tdg.bin_particles(tspec, tpos, talive)
+        js = spec
+    else:
+        jb = _jit(jdg.bin_particles_active, "spec", "max_active")(
+            spec=spec, max_active=24, positions=jpos, alive=jalive)
+        tb = tdg.bin_particles_active(tspec, 24, tpos, talive)
+        js = jdg.ActiveSpec(25, spec.cap)
+    rng = np.random.default_rng(7)
+    n = len(pos)
+    ids = rng.integers(0, 5, n).astype(np.int32)
+    masks = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    masks[:3] = (0xFFFFFFFF, 0x80000000, 0x0001FFFF)
+    flags = rng.random(n) > 0.5
+    for vals, t_vals, fill in (
+        (ids, torch.from_numpy(ids), -1),
+        (masks, torch.from_numpy(masks.astype(np.int64)), 0),
+        (flags, torch.from_numpy(flags), False),
+    ):
+        want = np.asarray(jdg.to_grid(js, jb, jnp.asarray(vals), fill=fill))
+        got = tdg.to_grid(tspec, tb, t_vals, fill=fill)
+        assert got.dtype == t_vals.dtype
+        np.testing.assert_array_equal(got.numpy(), want.astype(
+            got.numpy().dtype))
 
 
 def test_expand_refuses_bad_operands():

@@ -61,7 +61,6 @@ def test_cpu_run_launches_no_kernel():
     pair.reset_launches()
     binning.reset_launches()
     w = _tiny_world()
-    w.sim = w.sim.replace(pallas_variant="v2")  # k_pass_v2 on the path too
     for _ in range(3):
         w.step(1.0 / 200.0, (0.0, -9.81))
     assert w.device.type == "cpu"

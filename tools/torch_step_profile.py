@@ -42,7 +42,7 @@ sys.path.insert(0, _ROOT)
 
 import chip_smoke  # noqa: E402  (the dam-break scene)
 from salva_tpu_torch.geometry import dense_grid as dg  # noqa: E402
-from salva_tpu_torch.ops import pair  # noqa: E402
+from salva_tpu_torch.ops import binning, pair  # noqa: E402
 from salva_tpu_torch.solver import dense_common, dfsph_dense, iisph_dense  # noqa: E402,E501
 
 _TIMES = collections.defaultdict(float)
@@ -79,7 +79,7 @@ def _instrument():
         (dg, "bin_particles", "binning, full grid (fluid; boundary on the "
          "full-grid layout)"),
         (dg, "bin_particles_active", "binning, compact (boundary)"),
-        (dg, "to_grid_multi", "to_grid_multi (expand kernel)"),
+        (binning, "expand", "expand kernel (to_grid, to_grid_multi)"),
         (dg, "from_grid_multi", "from_grid_multi (unbin)"),
         (pair, "hoist_ff", "hoist_ff kernel"),
         (pair, "hoist_fb", "hoist_fb kernel"),
