@@ -30,7 +30,9 @@ in these phases:
    the least time the card could take (bound: the bytes of the live
    slots the pass must read and of its outputs, or its float32
    operations), the library call's time where one computes the same
-   function, and planted faults that each output's rule must catch;
+   function, and planted faults that each output's rule must catch (for
+   the tiled ``k_pass`` and ``t_pass``, whose tiling is logged, in the
+   fullest cell on a tile's edge);
 6. each main path (DFSPH and IISPH, without and with the forces)
    stepped 5 times through the kernels and 5 times through the plain
    versions (substituted here, in the script), with identical iteration
@@ -426,6 +428,22 @@ def phase_main_path(pair, solver, forces=False):
     return world, dict(n=n, ms=ms, launches=launches, iters=iters)
 
 
+def drop_last(counts, cells):
+    """A planted fluid-side fault: ``counts`` with one particle fewer in
+    the fullest of ``cells`` (a 1-D index tensor). Returns (the short
+    counts, ``copy_back(wrong, ref)`` restoring the dropped slot, which
+    the fault legitimately changes, the cell)."""
+    cell = int(cells[torch.argmax(counts[cells])])
+    rank = int(counts[cell]) - 1
+    short = counts.clone()
+    short[cell] -= 1
+
+    def copy_back(wrong, ref):
+        wrong[..., rank, cell] = ref[..., rank, cell]
+
+    return short, copy_back, cell
+
+
 def hold_kernel(name, label, kern, plain, tol, copy_back=None):
     """Hold ``kern(False)`` to ``plain()`` output by output, check a
     bitwise rerun, and check that the planted fault ``kern(True)`` (one
@@ -504,50 +522,63 @@ def phase_kernels(pair, world):
     shifts = tdg.flat_shifts(spec)
     n_eval = sum(int((c64 * shift_flat(c64, s)).sum()) for s in shifts)
     log(f"[kernels] fluid-fluid candidate pairs per pass: {n_eval}")
-    # Planted fluid-side fault: the kernel is given one particle fewer in
-    # the fullest cell (an off-by-one in the occupancy loop), and that
-    # slot itself is then copied from the plain result, so only the
-    # neighbors' sums, each short of one pair term, carry the fault.
-    cell = int(torch.argmax(counts))
-    rank = int(counts[cell]) - 1
-    short = counts.clone()
-    short[cell] -= 1
-
-    def copy_ff(wrong, ref):
-        wrong[..., rank, cell] = ref[..., rank, cell]
+    # The tiled k_pass / t_pass kernels: blocks of `tile` consecutive cells.
+    edge = {}
+    cidx = torch.arange(C, device="cuda")
+    for name in ("k_pass", "t_pass"):
+        t = pair.tiling(name, dim, spec.cap, C)
+        edge[name] = torch.nonzero((cidx % t["tile"] == 0)
+                                   | (cidx % t["tile"] == t["tile"] - 1))[:, 0]
+        log(f"[kernels] {name}: tiles of {t['tile']} cells, {t['smem']} B of "
+            f"shared memory a block, {t['blocks']} blocks a launch, "
+            f"{t['per_sm']} blocks resident per SM")
+    # Planted fluid-side faults: the kernel is given one particle fewer in
+    # one cell (an off-by-one in the occupancy loop), and that slot itself
+    # is then copied from the plain result, so only the neighbors' sums,
+    # each short of one pair term, carry the fault. The hoist's cell is
+    # the fullest one; k_pass's and t_pass's the fullest on a tile's first
+    # or last cell, so that the missing term crosses a tile boundary.
+    short_ff, copy_ff, cell = drop_last(counts, cidx)
+    short_k, copy_k, cell_k = drop_last(counts, edge["k_pass"])
+    short_t, copy_t, cell_t = drop_last(counts, edge["t_pass"])
+    log(f"[kernels] planted faults drop the last particle of cell {cell} "
+        f"(hoist_ff), {cell_k} (k_pass) and {cell_t} (t_pass), of "
+        f"{int(counts[cell])}, {int(counts[cell_k])} and "
+        f"{int(counts[cell_t])} particles")
 
     P, M = ctx.P, ctx.M
     K = (ctx.rho * 1e-6 * ctx.maskf).contiguous()
     Q = ctx.V.contiguous()
     # Each entry: kernel (planted fault or not), plain version, tolerance,
-    # the float input planes each live slot of which the pass must read.
+    # the float input planes each live slot of which the pass must read,
+    # the planted fault's slot to restore.
     ff = {
         "k_pass": (
             lambda f: pair.k_pass(spec, h, dim, "cubic", P, M, K,
-                                  short if f else counts),
+                                  short_k if f else counts),
             lambda: pair.k_pass_plain(spec, h, dim, "cubic", P, M, K,
                                       counts),
-            KT_TOL, [P, M, K],
+            KT_TOL, [P, M, K], copy_k,
         ),
         "t_pass": (
             lambda f: pair.t_pass(spec, h, dim, "cubic", P, M, Q,
-                                  short if f else counts),
+                                  short_t if f else counts),
             lambda: pair.t_pass_plain(spec, h, dim, "cubic", P, M, Q,
                                       counts),
-            KT_TOL, [P, M, Q],
+            KT_TOL, [P, M, Q], copy_t,
         ),
         "hoist_ff": (
             lambda f: pair.hoist_ff(spec, h, dim, "cubic", "cubic", P, M,
-                                    short if f else counts, need_s2=True),
+                                    short_ff if f else counts, need_s2=True),
             lambda: pair.hoist_ff_plain(spec, h, dim, "cubic", "cubic", P,
                                         M, counts, need_s2=True),
-            HOIST_TOL, [P, M],
+            HOIST_TOL, [P, M], copy_ff,
         ),
     }
     results = {}
     ff_within = None
-    for name, (kern, plain, tol, planes) in ff.items():
-        out, err = hold_kernel(name, name, kern, plain, tol, copy_ff)
+    for name, (kern, plain, tol, planes, copy) in ff.items():
+        out, err = hold_kernel(name, name, kern, plain, tol, copy)
         if name == "hoist_ff":
             ff_within = int(out[-1].sum())
             # The DFSPH main path runs this hoist without s2.
@@ -575,20 +606,14 @@ def phase_kernels(pair, world):
     # Its plain version is k_pass's; it shares k_pass's bound.
     ones = torch.nonzero(counts % 8 == 1)[:, 0]
     assert ones.numel() > 0, "no cell of 8 g + 1 particles"
-    cell_v2 = int(ones[torch.argmax(counts[ones])])
-    rank_v2 = int(counts[cell_v2]) - 1
-    short_v2 = counts.clone()
-    short_v2[cell_v2] -= 1
-
-    def copy_v2(wrong, ref):
-        wrong[..., rank_v2, cell_v2] = ref[..., rank_v2, cell_v2]
+    short_v2, copy_v2, cell_v2 = drop_last(counts, ones)
 
     def kern_v2(f):
         return pair.k_pass_v2(spec, h, dim, "cubic", P, M, K,
                               short_v2 if f else counts)
 
     log(f"[kernels] k_pass_v2: planted fault drops the last particle of "
-        f"cell {cell_v2} ({rank_v2 + 1} particles)")
+        f"cell {cell_v2} ({int(counts[cell_v2])} particles)")
     # No main path launches k_pass_v2: its launches are this check's.
     reset_counts(pair)
     out, err = hold_kernel("k_pass_v2", "k_pass_v2", kern_v2, ff["k_pass"][1],

@@ -10,9 +10,9 @@
 // Replaces (salva_tpu/ops):
 //   k_pass   <- pallas_pair.py k_pass_pallas / _build_k_kernel, as run by
 //               pallas_pair2.py k_pass_pallas3 (v1 lo slice + the
-//               _pallas_hi.py hi_complement)
+//               _pallas_hi.py hi_complement); tile_pass_kernel<KPass>
 //   t_pass   <- pallas_pair.py t_pass_pallas / _build_t_kernel, via
-//               t_pass_pallas3 (+ hi_complement)
+//               t_pass_pallas3 (+ hi_complement); tile_pass_kernel<TPass>
 //   hoist_ff <- pallas_pair.py hoist_ff_pallas / _build_hoist_kernel, via
 //               hoist_ff_pallas3 (+ hi_complement)
 //   hoist_fb <- pallas_pair.py hoist_fb_pallas / _build_fb_hoist_kernel,
@@ -23,24 +23,81 @@
 //               slot-group-predicated formulation); see k_pass_v2_kernel
 // The TPU kernels split each pass into an ungated 8-row slice plus a
 // gated complement over 8-row slot groups, because the TPU computes in
-// (8, 128) tiles. Here one thread owns one output slot and walks the
-// true occupancy of each neighbour cell (count[n]), so the slot-group
-// split, its gating flags and the air-tile skip all disappear: a dead
-// slot (r >= count[c]) writes zeros and does no pair work.
+// (8, 128) tiles. Here every kernel walks the true occupancy of each
+// neighbour cell (count[n]), so the slot-group split and its gating flags
+// disappear: a dead slot (r >= count[c]) writes zeros and does no pair
+// work.
 //
-// What bounds these kernels on the H100: not HBM bandwidth. Each live
-// slot visits 3^dim neighbour cells and every particle in them
-// (~27 x 8 pairs in a resting 3D fluid); the neighbour positions are
-// gathered through L1/L2 with a dependent count[n] load before each cell,
-// so the latency of those gathers and the special-function throughput
-// of sqrtf / rsqrtf per pair (SFU: 1/8 of the FP32 rate) set the time.
-// The design keeps loads coalesced (c on threadIdx.x: neighbouring lanes
-// read neighbouring cells of the same row), keeps the accumulators in
-// registers, and writes each output once. Staging the neighbour window
-// in shared memory and warp-per-cell scheduling are later work.
+// The hoists (one thread per output slot). What bounds them on the H100:
+// not HBM bandwidth. Each live slot visits 3^dim neighbour cells and every
+// particle in them (~27 x 8 pairs in a resting 3D fluid); the neighbour
+// positions are gathered through L1/L2 with a dependent count[n] load
+// before each cell, so the latency of those gathers and the
+// special-function throughput of sqrtf / rsqrtf per pair (SFU: 1/8 of the
+// FP32 rate) set the time. The design keeps loads coalesced (c on
+// threadIdx.x: neighbouring lanes read neighbouring cells of the same
+// row), keeps the accumulators in registers, and writes each output once.
 //
-// Determinism: each thread accumulates only its own slot, in a fixed
-// order (stencil offsets, then rank); there are no atomics, so results
+// k_pass and t_pass (tile_pass_kernel), the passes every solver iteration
+// runs. What bounds them is the same pair work, and three costs of the
+// thread-per-slot design: (1) a (cap, C) grid of threads for ~1/5 live
+// slots, whose lanes loop over different counts; (2) every candidate
+// pair's neighbour data fetched again from L1/L2 by each of up to 27 x 8
+// consumer slots, behind a dependent count load; (3) the full spline
+// (one sqrtf, one rsqrtf, both branches) for every candidate pair,
+// although only ~15% of them lie within h. The design:
+//  - Tiles: a block owns `tile` consecutive cells of the flat index. With
+//    the cell axis z innermost, their 3^dim neighbour cells are 3^(dim-1)
+//    runs of tile + 2 consecutive cells (one per stencil row, Rows::shift
+//    plus -1 .. tile): whatever the tile's place in the grid, a run is
+//    exactly the cells flat_shift gives, cells outside [0, C) empty. A
+//    stencil that crosses the end of a z row therefore reads what the
+//    thread-per-slot kernels and the plain versions read; with the ghost
+//    ring of dense_grid (a one-cell empty layer at every face) no live
+//    cell's stencil crosses one, so nothing checks for it.
+//  - Shared memory: the block stages the live slots of those runs once
+//    (k_pass: (p_j, (m k)_j) as one float4, premultiplied; t_pass:
+//    (p_j, m_j) and Q_j), so each neighbour cell's data crosses L2 once
+//    per tile instead of once per consumer slot. Each row is packed cell
+//    after cell (offsets from a scan of the counts), so a cell's three
+//    neighbours in a row are one run of slots. A tile of only air cells
+//    stages nothing and writes its zeros. Several blocks are resident on
+//    an SM, so one block's staging overlaps another's pair work. The
+//    staged slot is a transposed, premultiplied record, built by a plain
+//    load and store: 4-byte cp.async copies would need k_j beside the
+//    record (20 bytes a slot, so shorter tiles) and were not faster when
+//    tried, and a TMA box needs a row stride that is a multiple of 16
+//    bytes, which C * 4 is not in general.
+//  - Lanes on live work: a warp per live (cell, 8-slot group) item of the
+//    tile, lane = 4 il + jl as in k_pass_v2_kernel: i-slot 8 g + il, and
+//    j-lane jl takes entries jl, jl + 4, ... of each row's run. Every
+//    branch on liveness and counts is warp-uniform (counts come from
+//    shared memory); the 4 partial sums of an i-slot meet in a fixed
+//    butterfly of shuffles.
+//  - The spline only within h: a lane first runs over its candidate pairs
+//    computing r^2 only, and queues (in shared memory) those with
+//    q2 = r^2 * inv_h2 <= 1, q2 exactly as cubic_dwr computes it; it
+//    then adds the queued pairs in the order it found them, all lanes of
+//    the warp together, so the warp runs the spline about once per pair
+//    within h instead of once per candidate. The skip is exact: for
+//    q2 > 1, sqrtf (correctly rounded, monotone) gives q >= 1, so
+//    cubic_dwr returns +-0 (the cut branch, or the far branch with
+//    1 - q = 0), the pair term is +-0, and adding +-0 leaves a sum that
+//    started at +0 bitwise unchanged (a float sum is -0 only when both
+//    addends are -0). The skipped loop therefore returns bitwise the
+//    unskipped loop's sums; on an H100 both passes of the skipped and the
+//    unskipped loop were bitwise equal at the 97k dam break's state.
+//  - Every output slot of a tile is written once, from a shared-memory
+//    tile, in runs of consecutive cells; dead slots get zeros.
+// What bounds them as built, at the 97k dam break: not HBM. About three
+// fifths of each pass is the pair loops (instruction throughput: every
+// candidate still costs a shared load and its distance), the rest each
+// block's counts, staging and writes, whose latency other resident blocks
+// hide only in part (tools/torch_tile_pass_probe.py; PERF.md).
+//
+// Determinism: each output slot is summed by its own thread (hoists) or
+// its own four lanes (k_pass, t_pass, k_pass_v2) in a fixed order
+// (stencil offsets or rows, then rank); there are no atomics, so results
 // are bitwise identical from run to run.
 //
 // Pair math: the fused cubic spline of salva_tpu (dense_common.w_dwr,
@@ -50,6 +107,8 @@
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -96,94 +155,6 @@ template <int DIM>
 struct Stencil {
   static constexpr int kOffsets = DIM == 3 ? 27 : 9;
 };
-
-// K_i = sum_j (m k)_j (p_i - p_j) dW/dr / r over the 3^dim stencil.
-// Replaces salva_tpu/ops/pallas_pair.py k_pass_pallas (+ the hi
-// complement of pallas_pair2.k_pass_pallas3); bound and design: see the
-// file note.
-template <int DIM>
-__global__ void k_pass_kernel(const float* __restrict__ P,
-                              const float* __restrict__ M,
-                              const float* __restrict__ K,
-                              const int* __restrict__ count,
-                              float* __restrict__ out, int cap, int C,
-                              int ny, int nz, Cubic k) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (c >= C) return;
-  const size_t plane = (size_t)cap * C;
-  const size_t slot = (size_t)r * C + c;
-  float acc[DIM];
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) acc[d] = 0.0f;
-  if (r < min(count[c], cap)) {
-    float pi[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) pi[d] = P[d * plane + slot];
-    for (int o = 0; o < Stencil<DIM>::kOffsets; ++o) {
-      const int n = c + flat_shift<DIM>(o, ny, nz);
-      if (n < 0 || n >= C) continue;  // outside the grid: an empty cell
-      const int cnt = min(count[n], cap);
-      for (int j = 0; j < cnt; ++j) {
-        const size_t js = (size_t)j * C + n;
-        float dp[DIM];
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) dp[d] = pi[d] - P[d * plane + js];
-        float r2 = dp[0] * dp[0];
-#pragma unroll
-        for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
-        const float coeff = (M[js] * K[js]) * cubic_dwr(r2, k);
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) acc[d] += dp[d] * coeff;
-      }
-    }
-  }
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) out[d * plane + slot] = acc[d];
-}
-
-// T_i = sum_j m_j (Q_j . (p_i - p_j)) dW/dr / r over the 3^dim stencil.
-// Replaces pallas_pair.py t_pass_pallas (+ the hi complement of
-// t_pass_pallas3); bound and design: see the file note.
-template <int DIM>
-__global__ void t_pass_kernel(const float* __restrict__ P,
-                              const float* __restrict__ M,
-                              const float* __restrict__ Q,
-                              const int* __restrict__ count,
-                              float* __restrict__ out, int cap, int C,
-                              int ny, int nz, Cubic k) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (c >= C) return;
-  const size_t plane = (size_t)cap * C;
-  const size_t slot = (size_t)r * C + c;
-  float acc = 0.0f;
-  if (r < min(count[c], cap)) {
-    float pi[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) pi[d] = P[d * plane + slot];
-    for (int o = 0; o < Stencil<DIM>::kOffsets; ++o) {
-      const int n = c + flat_shift<DIM>(o, ny, nz);
-      if (n < 0 || n >= C) continue;
-      const int cnt = min(count[n], cap);
-      for (int j = 0; j < cnt; ++j) {
-        const size_t js = (size_t)j * C + n;
-        float dp[DIM];
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) dp[d] = pi[d] - P[d * plane + js];
-        float r2 = dp[0] * dp[0];
-        float t = Q[js] * dp[0];
-#pragma unroll
-        for (int d = 1; d < DIM; ++d) {
-          r2 = r2 + dp[d] * dp[d];
-          t = t + Q[d * plane + js] * dp[d];
-        }
-        acc += t * cubic_dwr(r2, k) * M[js];
-      }
-    }
-  }
-  out[slot] = acc;
-}
 
 // Fluid-fluid hoist: rho = sum m_j W, Gf = sum m_j grad, sq = sum
 // |m_j grad|^2, s2 = sum m_j |grad|^2 (when need_s2), and the pair count
@@ -354,7 +325,7 @@ __global__ void hoist_fb_kernel(const float* __restrict__ P,
   cnt_out[slot] = cnt_pairs;
 }
 
-// K_i = sum_j (m k)_j (p_i - p_j) dW/dr / r, as k_pass_kernel, in the
+// K_i = sum_j (m k)_j (p_i - p_j) dW/dr / r, as salva_k_pass, in the
 // slot-group formulation of pallas_pair2.py k_pass_pallas2 (v2): slots are
 // taken in groups of 8 ranks, and group g of cell c is live iff the cell
 // holds more than 8 g particles. An (own group, stencil shift, j group)
@@ -368,8 +339,9 @@ __global__ void hoist_fb_kernel(const float* __restrict__ P,
 // depends on counts only), so the warp never diverges on it; the 4 partial
 // sums of each i-slot are combined by a fixed butterfly of shuffles (the
 // same order in every run, no atomics), and j-lane 0 writes the slot.
-// Dead own groups write zeros. What bounds it is what bounds k_pass (the
-// file note): the work is the same pairs, now including the dead slots of
+// Dead own groups write zeros. What bounds it is what bounds the hoists
+// (the file note): the same pairs, read through L1/L2 behind dependent
+// count loads, the full spline for every candidate, and the dead slots of
 // live groups.
 template <int DIM>
 __global__ void k_pass_v2_kernel(const float* __restrict__ P,
@@ -434,6 +406,399 @@ __global__ void k_pass_v2_kernel(const float* __restrict__ P,
   }
 }
 
+// ---- k_pass and t_pass: tiles of cells, neighbour rows in shared memory --
+// (design and bound: the file note)
+
+// Entries of each lane's queue of within-h pairs: at least kQueue, and at
+// least what one stencil row can add (queue_len).
+constexpr int kQueue = 16;
+// The most dynamic shared memory a block can opt in to on Hopper.
+constexpr int kMaxSmem = 232448;
+
+__device__ __forceinline__ float word(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// What k_pass stages per neighbour slot, and adds per pair: one float4
+// (p_j, (m k)_j), (m k)_j = M[js] * K[js] premultiplied as the pair term
+// takes it. A block: 8 warps and at most 56 KB of shared memory, 4 blocks
+// resident on an H100 SM (228 KB, 1 KB of it reserved per block); the
+// fastest of the sizes measured at the 97k dam break (PERF.md).
+template <int DIM>
+struct KPass {
+  static constexpr int kWords = 1;  // float4 words of a staged slot
+  static constexpr int kOut = DIM;  // output channels
+  static constexpr int kThreads = 256;
+  static constexpr int kSmemBudget = 56 * 1024;
+  __device__ static void load(float4 (&s)[kWords], const float* P,
+                              const float* M, const float* X, size_t plane,
+                              size_t js) {
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) v[d] = P[d * plane + js];
+    v[DIM] = M[js] * X[js];
+    s[0] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __device__ static void add(float (&acc)[kOut], const float (&dp)[DIM],
+                             float r2, const float4* s, const Cubic& k) {
+    const float coeff = word(s[0], DIM) * cubic_dwr(r2, k);
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) acc[d] += dp[d] * coeff;
+  }
+};
+
+// t_pass: (p_j, m_j) and Q_j, two float4 words. Its slots are twice
+// k_pass's, so a block takes 16 warps and up to 100 KB (2 per SM) to reach
+// tiles as long.
+template <int DIM>
+struct TPass {
+  static constexpr int kWords = 2;
+  static constexpr int kOut = 1;
+  static constexpr int kThreads = 512;
+  static constexpr int kSmemBudget = 100 * 1024;
+  __device__ static void load(float4 (&s)[kWords], const float* P,
+                              const float* M, const float* X, size_t plane,
+                              size_t js) {
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      v[d] = P[d * plane + js];
+      q[d] = X[d * plane + js];
+    }
+    v[DIM] = M[js];
+    s[0] = make_float4(v[0], v[1], v[2], v[3]);
+    s[1] = make_float4(q[0], q[1], q[2], q[3]);
+  }
+  __device__ static void add(float (&acc)[kOut], const float (&dp)[DIM],
+                             float r2, const float4* s, const Cubic& k) {
+    float t = word(s[1], 0) * dp[0];
+#pragma unroll
+    for (int d = 1; d < DIM; ++d) t = t + word(s[1], d) * dp[d];
+    acc[0] += t * cubic_dwr(r2, k) * word(s[0], DIM);
+  }
+};
+
+// Stencil rows: the 3^(dim-1) offsets (dx, dy) in 3D, dx in 2D, in the
+// order of flat_shift; a row's three offsets add dz (3D) or dy (2D) in
+// {-1, 0, 1} to its flat shift.
+template <int DIM>
+struct Rows {
+  static constexpr int kRows = Stencil<DIM>::kOffsets / 3;
+  static constexpr int kOwn = kRows / 2;  // the row of the cell itself
+  __device__ static int shift(int row, int ny, int nz) {
+    if (DIM == 3) return ((row / 3 - 1) * ny + (row % 3 - 1)) * nz;
+    return (row - 1) * ny;
+  }
+};
+
+// Queue entries a lane needs: one stencil row (three cells) adds at most
+// ceil(3 cap / 4) pairs to it.
+__host__ __device__ inline int queue_len(int cap) {
+  return (3 * cap + 3) / 4 > kQueue ? (3 * cap + 3) / 4 : kQueue;
+}
+
+// Bytes of shared memory a block of `tile` cells takes, in the order
+// tile_pass_kernel lays them out: the staged slots, the output tile, the
+// lanes' queues, the staged cells' counts and offsets, the item list (then
+// its length and the largest staged count).
+template <int DIM, class Pass>
+size_t tile_bytes(int tile, int cap) {
+  const size_t rows = Rows<DIM>::kRows, width = tile + 2;
+  const int items = tile * ((cap + 7) / 8);
+  return rows * width * cap * Pass::kWords * sizeof(float4) +
+         (size_t)Pass::kOut * cap * tile * sizeof(float) +
+         (size_t)Pass::kThreads * queue_len(cap) * sizeof(unsigned short) +
+         (rows * width + rows * (width + 1)) * sizeof(int) +
+         (size_t)(std::max(32, items) + 2) * sizeof(int);
+}
+
+struct TileShape {
+  int tile;    // consecutive cells a block owns
+  int smem;    // bytes of dynamic shared memory a block takes
+  int blocks;  // blocks launched
+};
+
+// The tile: the most cells, up to 32 (cell, 8-slot group) items (longer
+// tiles measured slower, PERF.md), whose block fits the pass's
+// kSmemBudget bytes.
+template <int DIM, class Pass>
+TileShape tile_shape(int cap, int C) {
+  int tile = std::max(1, 32 / ((cap + 7) / 8));
+  while (tile > 1 && tile_bytes<DIM, Pass>(tile, cap) > Pass::kSmemBudget) {
+    --tile;
+  }
+  const size_t bytes = tile_bytes<DIM, Pass>(tile, cap);
+  return {tile, bytes > (size_t)kMaxSmem ? -1 : (int)bytes,
+          (C + tile - 1) / tile};
+}
+
+// k_pass (Pass = KPass) and t_pass (TPass) over tiles of `tile`
+// consecutive cells; see the file note. Every output slot of the block's
+// cells is written (zero for dead slots and air cells).
+template <int DIM, class Pass>
+__global__ void __launch_bounds__(Pass::kThreads)
+    tile_pass_kernel(const float* __restrict__ P, const float* __restrict__ M,
+                     const float* __restrict__ X,
+                     const int* __restrict__ count, float* __restrict__ out,
+                     int cap, int C, int ny, int nz, int tile, Cubic k) {
+  using R = Rows<DIM>;
+  constexpr int kW = Pass::kWords;
+  constexpr int kWarps = Pass::kThreads / 32;
+  extern __shared__ float4 smem[];
+  const int width = tile + 2;          // staged cells of a row
+  const int row_slots = width * cap;   // slots a staged row holds
+  const int n_staged = R::kRows * width;
+  const int n_out = Pass::kOut * cap * tile;  // output tile entries
+  const int n_items_max = tile * ((cap + 7) >> 3);
+  const int list = max(32, n_items_max);
+  const int qlen = queue_len(cap);
+  float4* slots = smem;  // [kRows][row_slots][kW], each row packed
+  float* out_t = reinterpret_cast<float*>(slots + (size_t)n_staged * cap * kW);
+  unsigned short* queues =  // [kWarps][qlen][32]
+      reinterpret_cast<unsigned short*>(out_t + n_out);
+  int* cnt = reinterpret_cast<int*>(queues + Pass::kThreads * qlen);
+  int* off = cnt + n_staged;                  // [kRows][width + 1]
+  int* items = off + R::kRows * (width + 1);  // [list], n_items, most
+  const int c0 = blockIdx.x * tile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t plane = (size_t)cap * C;
+
+  // Staged cell m of row `row` is flat cell c0 + shift(row) - 1 + m;
+  // cells outside the grid are empty, as in flat_shift's kernels.
+  bool own_live = false;
+  for (int e = threadIdx.x; e < n_staged; e += Pass::kThreads) {
+    const int row = e / width, m = e - row * width;
+    const int n = c0 + R::shift(row, ny, nz) - 1 + m;
+    cnt[e] = (n >= 0 && n < C) ? min(count[n], cap) : 0;
+    own_live |= row == R::kOwn && m >= 1 && m <= tile && cnt[e] > 0;
+  }
+  if (!__syncthreads_or(own_live)) {  // block-uniform: an all-air tile
+    for (int line = warp; line < Pass::kOut * cap; line += kWarps) {
+      for (int lc = lane; lc < tile && c0 + lc < C; lc += 32) {
+        out[(size_t)line * C + c0 + lc] = 0.0f;
+      }
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < n_out; e += Pass::kThreads) out_t[e] = 0.0f;
+  // Each row's slots are packed cell after cell: off[row][m] = the slots
+  // of staged cells 0 .. m-1 (a warp's scan per row).
+  for (int row = warp; row < R::kRows; row += kWarps) {
+    int* o = off + row * (width + 1);
+    int carry = 0;
+    for (int m0 = 0; m0 < width; m0 += 32) {
+      const int m = m0 + lane;
+      int incl = m < width ? cnt[row * width + m] : 0;
+#pragma unroll
+      for (int s = 1; s < 32; s <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, s);
+        if (lane >= s) incl += y;
+      }
+      if (m < width) o[m + 1] = carry + incl;
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) o[0] = 0;
+  }
+  // The live items: (cell lc, group g) with more than 8 g particles, in
+  // order (item = g * tile + lc); and the largest staged count. The last
+  // warp lists them: it scans the fewest rows.
+  if (warp == kWarps - 1) {
+    int found = 0;
+    for (int b0 = 0; b0 < n_items_max; b0 += 32) {
+      const int it = b0 + lane;
+      bool live = false;
+      if (it < n_items_max) {
+        const int g = it / tile;
+        live = cnt[R::kOwn * width + it - g * tile + 1] > 8 * g;
+      }
+      const unsigned b = __ballot_sync(0xffffffffu, live);
+      if (live) items[found + __popc(b & ((1u << lane) - 1u))] = it;
+      found += __popc(b);
+    }
+    int most = 0;
+    for (int e = lane; e < n_staged; e += 32) most = max(most, cnt[e]);
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      most = max(most, __shfl_xor_sync(0xffffffffu, most, s));
+    }
+    if (lane == 0) {
+      items[list] = found;
+      items[list + 1] = most;
+    }
+  }
+  __syncthreads();
+  const int n_items = items[list];
+  // Stage the live slots of every staged cell, ranks above the largest
+  // staged count left out: a warp per (row, rank) line, lanes on
+  // consecutive cells of one rank plane; warp w takes lines w, w + kWarps,
+  // ... in (row, rank) order, stepped without a division.
+  const int ranks = items[list + 1];
+  int srow = 0, rank = warp;
+  for (; srow < R::kRows && rank >= ranks; ++srow) rank -= ranks;
+  while (srow < R::kRows) {
+    const int n0 = c0 + R::shift(srow, ny, nz) - 1;
+    for (int m = lane; m < width; m += 32) {
+      if (rank < cnt[srow * width + m]) {
+        float4 rec[kW];
+        Pass::load(rec, P, M, X, plane, (size_t)rank * C + n0 + m);
+        const int idx =
+            srow * row_slots + off[srow * (width + 1) + m] + rank;
+#pragma unroll
+        for (int v = 0; v < kW; ++v) slots[(size_t)idx * kW + v] = rec[v];
+      }
+    }
+    for (rank += kWarps; srow < R::kRows && rank >= ranks; ++srow) {
+      rank -= ranks;
+    }
+  }
+  __syncthreads();
+  // A warp per live item: lane = 4 il + jl, i-slot r = 8 g + il; in each
+  // stencil row, cell lc's three neighbours are staged cells lc .. lc + 2,
+  // one packed run of slots, and j-lane jl takes its entries jl, jl + 4, ...
+  const int il = lane >> 2, jl = lane & 3;
+  unsigned short* q = queues + warp * qlen * 32 + lane;
+  for (int w = warp; w < n_items; w += kWarps) {
+    const int item = items[w];
+    const int g = item / tile, lc = item - g * tile;
+    const int r = 8 * g + il;
+    const bool live_i = r < cnt[R::kOwn * width + lc + 1];
+    float pi[DIM];
+    {
+      const int own = R::kOwn * row_slots +
+                      off[R::kOwn * (width + 1) + lc + 1] + r;
+      const float4 a = live_i ? slots[(size_t)own * kW]
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) pi[d] = word(a, d);
+    }
+    float acc[Pass::kOut];
+#pragma unroll
+    for (int d = 0; d < Pass::kOut; ++d) acc[d] = 0.0f;
+    int len = 0;
+    // r^2 of the pair (i, staged slot idx), and p_i - p_j.
+    auto dist2 = [&](int idx, float (&dp)[DIM]) {
+      const float4 a = slots[(size_t)idx * kW];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) dp[d] = pi[d] - word(a, d);
+      float r2 = dp[0] * dp[0];
+#pragma unroll
+      for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
+      return r2;
+    };
+    // Queue the pair if q2, exactly as cubic_dwr computes it, is at most 1:
+    // beyond, the pair term is +-0 (file note), so skipping the pair
+    // changes no sum.
+    auto queue = [&](int idx, float r2) {
+      if (r2 * k.inv_h2 <= 1.0f) q[len++ * 32] = (unsigned short)idx;
+    };
+    // Add the queued pairs, in the order they were found, two at a time
+    // (their splines overlap; the sums take them in order).
+    auto flush = [&]() {
+      int e = 0;
+      for (; e + 1 < len; e += 2) {
+        const int i0 = q[e * 32], i1 = q[(e + 1) * 32];
+        float dp0[DIM], dp1[DIM];
+        const float r20 = dist2(i0, dp0), r21 = dist2(i1, dp1);
+        Pass::add(acc, dp0, r20, slots + (size_t)i0 * kW, k);
+        Pass::add(acc, dp1, r21, slots + (size_t)i1 * kW, k);
+      }
+      if (e < len) {
+        const int i0 = q[e * 32];
+        float dp0[DIM];
+        const float r20 = dist2(i0, dp0);
+        Pass::add(acc, dp0, r20, slots + (size_t)i0 * kW, k);
+      }
+      len = 0;
+    };
+    for (int row = 0; row < R::kRows; ++row) {
+      const int* o = off + row * (width + 1) + lc;
+      const int begin = row * row_slots + o[0];
+      const int n_run = o[3] - o[0];  // warp-uniform
+      // A lane queues at most ceil(n_run / 4) <= qlen pairs of this row.
+      if (__any_sync(0xffffffffu, len + ((n_run + 3) >> 2) > qlen)) flush();
+      const int end = begin + (live_i ? n_run : 0);
+      int idx = begin + jl;
+      for (; idx + 4 < end; idx += 8) {
+        // Both distances before either queue store (the compiler cannot
+        // tell the queue from the staged slots), so the loads overlap.
+        float dp[DIM];
+        const float r2a = dist2(idx, dp), r2b = dist2(idx + 4, dp);
+        queue(idx, r2a);
+        queue(idx + 4, r2b);
+      }
+      if (idx < end) {
+        float dp[DIM];
+        queue(idx, dist2(idx, dp));
+      }
+    }
+    flush();
+    // The 4 j-lane partial sums of each i-slot, in a fixed order.
+#pragma unroll
+    for (int d = 0; d < Pass::kOut; ++d) {
+      float v = acc[d];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      acc[d] = v;
+    }
+    if (jl == 0 && live_i) {
+#pragma unroll
+      for (int d = 0; d < Pass::kOut; ++d) {
+        out_t[(d * cap + r) * tile + lc] = acc[d];
+      }
+    }
+  }
+  __syncthreads();
+  // Every slot of the tile's cells: a warp per (channel, rank) line of
+  // `tile` consecutive cells (the output is [kOut][cap][C], so line
+  // d * cap + r starts at line * C).
+  for (int line = warp; line < Pass::kOut * cap; line += kWarps) {
+    for (int lc = lane; lc < tile && c0 + lc < C; lc += 32) {
+      out[(size_t)line * C + c0 + lc] = out_t[line * tile + lc];
+    }
+  }
+}
+
+// The tiling of a [cap, C] grid, with the kernel allowed the shared memory
+// it takes; cudaErrorInvalidValue when no block fits (cap too large).
+template <int DIM, class Pass>
+cudaError_t tile_setup(int cap, int C, TileShape* t) {
+  *t = tile_shape<DIM, Pass>(cap, C);
+  if (t->smem < 0) return cudaErrorInvalidValue;
+  if (t->smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(tile_pass_kernel<DIM, Pass>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              t->smem);
+}
+
+template <int DIM, class Pass>
+int launch_tile_pass(const float* P, const float* M, const float* X,
+                     const int* count, float* out, int cap, int C, int ny,
+                     int nz, const Cubic& k, cudaStream_t s) {
+  TileShape t;
+  const cudaError_t err = tile_setup<DIM, Pass>(cap, C, &t);
+  if (err != cudaSuccess) return (int)err;
+  tile_pass_kernel<DIM, Pass><<<t.blocks, Pass::kThreads, t.smem, s>>>(
+      P, M, X, count, out, cap, C, ny, nz, t.tile, k);
+  return (int)cudaGetLastError();
+}
+
+template <int DIM, class Pass>
+int query_tile_pass(int cap, int C, int* shape) {
+  TileShape t;
+  cudaError_t err = tile_setup<DIM, Pass>(cap, C, &t);
+  int per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, tile_pass_kernel<DIM, Pass>, Pass::kThreads, t.smem);
+  }
+  shape[0] = t.tile;
+  shape[1] = t.smem;
+  shape[2] = t.blocks;
+  shape[3] = per_sm;
+  return (int)err;
+}
+
 constexpr int kThreads = 128;
 
 dim3 grid_for(int cap, int C) {
@@ -458,15 +823,14 @@ int salva_k_pass(const float* P, const float* M, const float* K,
   const Cubic k{inv_h2, w_norm, dwr_scale, h2};
   cudaStream_t s = (cudaStream_t)stream;
   if (dim == 3) {
-    k_pass_kernel<3><<<grid_for(cap, C), kThreads, 0, s>>>(
-        P, M, K, count, out, cap, C, ny, nz, k);
-  } else if (dim == 2) {
-    k_pass_kernel<2><<<grid_for(cap, C), kThreads, 0, s>>>(
-        P, M, K, count, out, cap, C, ny, nz, k);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return launch_tile_pass<3, KPass<3>>(P, M, K, count, out, cap, C, ny, nz,
+                                         k, s);
   }
-  return (int)cudaGetLastError();
+  if (dim == 2) {
+    return launch_tile_pass<2, KPass<2>>(P, M, K, count, out, cap, C, ny, nz,
+                                         k, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int salva_t_pass(const float* P, const float* M, const float* Q,
@@ -477,15 +841,31 @@ int salva_t_pass(const float* P, const float* M, const float* Q,
   const Cubic k{inv_h2, w_norm, dwr_scale, h2};
   cudaStream_t s = (cudaStream_t)stream;
   if (dim == 3) {
-    t_pass_kernel<3><<<grid_for(cap, C), kThreads, 0, s>>>(
-        P, M, Q, count, out, cap, C, ny, nz, k);
-  } else if (dim == 2) {
-    t_pass_kernel<2><<<grid_for(cap, C), kThreads, 0, s>>>(
-        P, M, Q, count, out, cap, C, ny, nz, k);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return launch_tile_pass<3, TPass<3>>(P, M, Q, count, out, cap, C, ny, nz,
+                                         k, s);
   }
-  return (int)cudaGetLastError();
+  if (dim == 2) {
+    return launch_tile_pass<2, TPass<2>>(P, M, Q, count, out, cap, C, ny, nz,
+                                         k, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// How salva_k_pass (t_pass == 0) or salva_t_pass tiles a [cap, C] grid:
+// shape[0..3] = cells a block owns, bytes of shared memory a block takes,
+// blocks launched, blocks resident on one SM of the current device.
+// Returns a CUDA error code (0 = success).
+int salva_pass_tiling(int t_pass, int dim, int cap, int C, int* shape) {
+  if (cap <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  if (dim == 3) {
+    return t_pass ? query_tile_pass<3, TPass<3>>(cap, C, shape)
+                  : query_tile_pass<3, KPass<3>>(cap, C, shape);
+  }
+  if (dim == 2) {
+    return t_pass ? query_tile_pass<2, TPass<2>>(cap, C, shape)
+                  : query_tile_pass<2, KPass<2>>(cap, C, shape);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int salva_hoist_ff(const float* P, const float* M, const int* count,

@@ -56,6 +56,7 @@ _SIGNATURES = {
     "salva_k_pass_v2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _F, _F, _F, _F, _P],
     "salva_expand": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "salva_pass_tiling": [_I, _I, _I, _I, _P],
 }
 
 

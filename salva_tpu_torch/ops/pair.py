@@ -382,8 +382,30 @@ def _launch(name, fn, *args, device):
     _build.launch(LAUNCHES, name, fn, *args, device=device)
 
 
+def tiling(name, dim, cap, C):
+    """How the ``k_pass`` or ``t_pass`` kernel tiles a [cap, C] grid on
+    the current CUDA device: ``tile`` (consecutive cells a block owns),
+    ``smem`` (bytes of shared memory a block takes), ``blocks`` (blocks a
+    launch runs) and ``per_sm`` (blocks resident on one SM)."""
+    import ctypes
+
+    from . import _build
+
+    if name not in ("k_pass", "t_pass"):
+        raise ValueError(f"only k_pass and t_pass are tiled, not {name!r}")
+    shape = (ctypes.c_int * 4)()
+    err = _build.load().salva_pass_tiling(int(name == "t_pass"), dim, cap,
+                                          C, ctypes.addressof(shape))
+    if err != 0:
+        raise RuntimeError(f"{name}: no tiling for dim {dim}, cap {cap} "
+                           f"(CUDA error {err})")
+    return dict(zip(("tile", "smem", "blocks", "per_sm"), shape))
+
+
 def k_pass(spec, h, dim, kernel_gradient, P, M, K, counts):
-    """K_i = sum_ff (k m)_j grad_ij -> [dim, cap, C]."""
+    """K_i = sum_ff (k m)_j grad_ij -> [dim, cap, C]. On CUDA tensors
+    one launch of the tiled kernel, which writes every slot: zeros for
+    dead slots and air cells, an all-air grid included."""
     if _check("k_pass", spec, dim, (kernel_gradient,),
               [(P, _vec), (M, _scl), (K, _scl)], counts):
         return k_pass_plain(spec, h, dim, kernel_gradient, P, M, K, counts)
@@ -408,7 +430,8 @@ def k_pass_v2(spec, h, dim, kernel_gradient, P, M, K, counts):
 
 
 def t_pass(spec, h, dim, kernel_gradient, P, M, Q, counts):
-    """T_i = sum_ff m_j (Q_j . grad_ij) -> [cap, C]."""
+    """T_i = sum_ff m_j (Q_j . grad_ij) -> [cap, C]; launched and written
+    as :func:`k_pass`."""
     if _check("t_pass", spec, dim, (kernel_gradient,),
               [(P, _vec), (M, _scl), (Q, _vec)], counts):
         return t_pass_plain(spec, h, dim, kernel_gradient, P, M, Q, counts)

@@ -11,7 +11,10 @@ GPU machine without the JAX package's dependencies:
 Fixture: a clustered random fluid binned by the port's dense grid, in 2D
 and 3D, with cells over 8 particles; for ``hoist_fb``, a moving boundary
 layer through it, binned both ways (full grid, compact table with the
-adjacency columns). Tolerances as in
+adjacency columns). The tiled ``k_pass`` / ``t_pass`` kernels are also
+held on grids cut to their tiles (``_tiled_grid``: caps 8 to 48, inner
+extents that are no multiple of a tile or shorter than one, the fullest
+cells on tile edges, an all-air grid). Tolerances as in
 ``tests/test_torch_pair_passes.py`` (the kernels walk the full stencil,
 the plain versions the half stencil: float32 summation order only);
 ``expand`` moves data only and must equal ``expand_plain`` bitwise.
@@ -69,17 +72,103 @@ def _assert_close(got, want, tol):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
 
 
-@pytest.mark.parametrize("dim", [2, 3])
-def test_k_and_t_kernels_match_plain(cuda, dim):
-    spec, P, M, V, K, counts = _grid(dim, cuda)
-    before = dict(pair.LAUNCHES)
+def _tiled_grid(dim, cap, window, device):
+    """A grid cut for the tiled ``k_pass`` / ``t_pass`` kernels: the inner
+    (z in 3D, y in 2D) extent ``"ragged"`` (2 k_pass tiles + 1 cell: no
+    multiple of the tile) or ``"short"`` (one cell less than a k_pass
+    tile, at least 3); every interior cell filled to a random count below
+    cap - 1, and the first and last cell of a k_pass and of a t_pass tile
+    (interior cells, where the short grid has them) at the cap and at
+    cap - 1, so the fullest cells sit on tile edges. ``"air"``: the ragged
+    grid with no particle. Masses, ``K`` and ``Q`` are scaled so that the
+    outputs stay of order 1. Returns (spec, P, M, Q, K, counts, fullest
+    cells)."""
+    rng = np.random.default_rng(100 * dim + cap)
+    other = (5, 4) if dim == 3 else (7,)
+    t_k = pair.tiling("k_pass", dim, cap, 1)["tile"]
+    inner = 2 * t_k + 1 if window in ("ragged", "air") else max(3, t_k - 1)
+    dims = other + (inner,)
+    spec = tdg.DenseGridSpec(origin=(0.0,) * dim, dims=dims, cap=cap,
+                             cell_width=H)
+    C = spec.num_cells
+    coords = np.stack(np.unravel_index(np.arange(C), dims), -1)
+    interior = np.all((coords >= 1) & (coords <= np.array(dims) - 2), -1)
+    if window == "air":
+        P = torch.full((dim, cap, C), tdg.POS_SENTINEL, device=device)
+        M, K = (torch.zeros((cap, C), device=device) for _ in range(2))
+        return (spec, P, M, torch.zeros_like(P), K,
+                torch.zeros(C, dtype=torch.int32, device=device), [])
+    n_cell = np.where(interior, rng.integers(0, cap - 1, size=C), 0)
+    full = []
+    for name in ("k_pass", "t_pass"):
+        tile = pair.tiling(name, dim, cap, C)["tile"]
+        for edge in (0, tile - 1):
+            cand = [c for c in np.flatnonzero(interior)
+                    if c % tile == edge and c not in full]
+            if cand:
+                full.append(int(cand[len(cand) // 2]))
+    n_cell[full] = cap - 1
+    n_cell[full[0]] = cap
+    cell = np.repeat(np.arange(C), n_cell)
+    n = len(cell)
+    pos = (coords[cell] + rng.uniform(0.02, 0.98, size=(n, dim))) * H
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    pos = t(pos)
+    binf = tdg.bin_particles(spec, pos, torch.ones(n, dtype=torch.bool,
+                                                    device=device))
+    P, M, Q, K = tdg.to_grid_multi(spec, binf, [
+        (pos, tdg.POS_SENTINEL), (t(rng.uniform(0.5, 1.5, size=n)), 0.0),
+        (t(rng.normal(size=(n, dim)) * 1e-5), 0.0),
+        (t(rng.uniform(0.0, 1e-5, size=n)), 0.0)])
+    counts = (binf.mask > 0).sum(dim=0, dtype=torch.int32)
+    assert counts.cpu().numpy().tolist() == n_cell.tolist()
+    return spec, P, M, Q, K, counts, full
+
+
+# (dim, cap, window): the tiled grids of _tiled_grid at every cap the
+# world's auto cap reaches, and the clustered fixture of _grid (cap 24).
+KT_CASES = ([(dim, cap, window) for dim in (2, 3) for cap in (8, 16, 24, 48)
+             for window in ("ragged", "short")]
+            + [(dim, 16, "air") for dim in (2, 3)]
+            + [(dim, 24, "clustered") for dim in (2, 3)])
+
+
+@pytest.mark.parametrize("dim,cap,window", KT_CASES)
+def test_k_and_t_kernels_match_plain(cuda, dim, cap, window):
+    if window == "clustered":
+        spec, P, M, Q, K, counts = _grid(dim, cuda)
+        full = []
+    else:
+        spec, P, M, Q, K, counts, full = _tiled_grid(dim, cap, window, cuda)
+    C, inner = spec.num_cells, spec.dims[-1]
+    for name in ("k_pass", "t_pass"):
+        tile = pair.tiling(name, dim, cap, C)["tile"]
+        if name == "k_pass" and window == "ragged":
+            assert inner % tile != 0
+        if name == "k_pass" and window == "short":
+            assert inner < tile or inner == 3
+        if full:
+            assert int(counts[full[0]]) == cap == int(counts.max())
+        if window == "ragged":
+            assert {c % tile for c in full} >= {0, tile - 1}
     args = (spec, H, dim, "cubic", P, M)
-    _assert_close(pair.k_pass(*args, K, counts),
-                  pair.k_pass_plain(*args, K, counts), KT_TOL)
-    _assert_close(pair.t_pass(*args, V, counts),
-                  pair.t_pass_plain(*args, V, counts), KT_TOL)
-    assert pair.LAUNCHES["k_pass"] == before["k_pass"] + 1
-    assert pair.LAUNCHES["t_pass"] == before["t_pass"] + 1
+    for name, X in (("k_pass", K), ("t_pass", Q)):
+        kern, plain = getattr(pair, name), getattr(pair, name + "_plain")
+        # Garbage in the allocator's cached blocks: every output slot must
+        # be written by the kernel.
+        junk = torch.full((dim + 1,) + tuple(P.shape[1:]), float("nan"),
+                          device=cuda)
+        del junk
+        before = pair.LAUNCHES[name]
+        out = kern(*args, X, counts)
+        assert pair.LAUNCHES[name] == before + 1
+        want = plain(*args, X, counts)
+        _assert_close(out, want, KT_TOL)
+        assert torch.equal(out, kern(*args, X, counts))  # bitwise rerun
+        if window == "air":
+            assert int(torch.count_nonzero(out)) == 0
+        else:
+            assert float(want.abs().max()) > 1e-3  # the sums are not empty
 
 
 @pytest.mark.parametrize("dim", [2, 3])
@@ -244,6 +333,16 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                     .contiguous().transpose(1, 2), counts)
     with pytest.raises(ValueError):
         pair.k_pass(spec, H, 3, "cubic", P, M.cpu(), K, counts)
+    # A cap whose staged neighbour rows fit no block's shared memory: the
+    # launch is refused and the wrapper raises.
+    big = tdg.DenseGridSpec(origin=(0.0,) * 3, dims=(3, 3, 3), cap=4096,
+                            cell_width=H)
+    Pb = torch.full((3, 4096, 27), tdg.POS_SENTINEL, device=cuda)
+    Mb = torch.zeros((4096, 27), device=cuda)
+    cb = torch.zeros(27, dtype=torch.int32, device=cuda)
+    for name, X in (("k_pass", Mb), ("t_pass", Pb)):
+        with pytest.raises(RuntimeError):
+            getattr(pair, name)(big, H, 3, "cubic", Pb, Mb, X, cb)
 
 
 def test_hoist_fb_with_no_columns_is_zero_and_not_counted(cuda):

@@ -15,7 +15,8 @@ warm-up steps, then:
 2. ``torch.profiler`` over 3 unsynchronized steps: device time summed
    over kernels against the wall clock (the device's busy share, against
    the profiled steps and against the unprofiled ms/step of part 1), and
-   the kernels with the most device time.
+   the kernels with the most device time, and each hand kernel's device
+   time per step.
 
 Usage, from the repository root on a machine with a CUDA device:
 
@@ -45,6 +46,10 @@ from salva_tpu_torch.geometry import dense_grid as dg  # noqa: E402
 from salva_tpu_torch.ops import binning, pair  # noqa: E402
 from salva_tpu_torch.solver import dense_common, dfsph_dense, iisph_dense  # noqa: E402,E501
 
+# The hand kernels, by a substring of their (demangled) profiler name.
+HAND_KERNELS = (("k_pass", "KPass"), ("t_pass", "TPass"),
+                ("hoist_ff", "hoist_ff_kernel"),
+                ("hoist_fb", "hoist_fb_kernel"), ("expand", "expand_kernel"))
 _TIMES = collections.defaultdict(float)
 _CALLS = collections.defaultdict(int)
 _DEPTH = [0]
@@ -191,6 +196,17 @@ def main() -> int:
     for e in top:
         print(f"{e.key[:62]:<62} {e.self_device_time_total / 3e3:9.3f} "
               f"{e.count / 3:10.1f}")
+    hand = {}
+    for name, key in HAND_KERNELS:
+        evs = [e for e in kernels if key in e.key]
+        hand[name] = dict(
+            ms_per_step=sum(e.self_device_time_total for e in evs) / 3e3,
+            calls_per_step=sum(e.count for e in evs) / 3)
+    print(f"\n{'hand kernel (device time)':<62} {'ms/step':>9} "
+          f"{'calls/step':>10}")
+    for name, h in hand.items():
+        print(f"{name:<62} {h['ms_per_step']:9.4f} "
+              f"{h['calls_per_step']:10.1f}")
     print(f"\ncard: {card}")
     if args.json:
         with open(args.json, "w") as f:
@@ -202,6 +218,7 @@ def main() -> int:
                 profiler_wall_ms_3_steps=wall_ms,
                 top=[dict(op=e.key, ms_per_step=e.self_device_time_total
                           / 3e3, calls_per_step=e.count / 3) for e in top],
+                hand_kernels=hand,
             ), f, indent=1)
     return 0
 
