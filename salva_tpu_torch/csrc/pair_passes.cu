@@ -108,8 +108,6 @@
 
 #include <stddef.h>
 
-#include <algorithm>
-
 namespace {
 
 struct Cubic {
@@ -406,76 +404,82 @@ __global__ void k_pass_v2_kernel(const float* __restrict__ P,
   }
 }
 
-// ---- k_pass and t_pass: tiles of cells, neighbour rows in shared memory --
+// ---- k_pass and t_pass: tiles of cells, neighbour rows through a ring -----
 // (design and bound: the file note)
 
-// Entries of each lane's queue of within-h pairs: at least kQueue, and at
-// least what one stencil row can add (queue_len).
-constexpr int kQueue = 16;
+// Row buffers in the ring: while the warps work on row i, the copies of
+// row i + 1 (issued a row earlier) and of row i + 2 are in flight.
+constexpr int kRing = 3;
 // The most dynamic shared memory a block can opt in to on Hopper.
 constexpr int kMaxSmem = 232448;
+// Devices whose opt-in above the default 48 KB a process remembers.
+constexpr int kDevices = 64;
 
 __device__ __forceinline__ float word(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
-// What k_pass stages per neighbour slot, and adds per pair: one float4
-// (p_j, (m k)_j), (m k)_j = M[js] * K[js] premultiplied as the pair term
-// takes it. A block: 8 warps and at most 56 KB of shared memory, 4 blocks
-// resident on an H100 SM (228 KB, 1 KB of it reserved per block); the
-// fastest of the sizes measured at the 97k dam break (PERF.md).
+// One 4-byte asynchronous copy, global to shared memory (sm_80 and up),
+// and the copy groups of the calling thread.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most the newest of the thread's groups is in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// What k_pass stages per neighbour slot besides (p_j, m_j): K_j; the pair
+// term takes (m_j K_j) dW/dr / r, the product formed as the PR 1 kernel
+// formed it. Blocks of 8 warps take up to 32 (cell, 8-slot group) items.
 template <int DIM>
 struct KPass {
-  static constexpr int kWords = 1;  // float4 words of a staged slot
+  using X = float;
   static constexpr int kOut = DIM;  // output channels
   static constexpr int kThreads = 256;
-  static constexpr int kSmemBudget = 56 * 1024;
-  __device__ static void load(float4 (&s)[kWords], const float* P,
-                              const float* M, const float* X, size_t plane,
-                              size_t js) {
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) v[d] = P[d * plane + js];
-    v[DIM] = M[js] * X[js];
-    s[0] = make_float4(v[0], v[1], v[2], v[3]);
+  static constexpr int kItems = 32;
+  static constexpr int kSmemBudget = 48 * 1024;
+  __device__ static void stage(X* x, const float* src, size_t plane,
+                               size_t js) {
+    cp_async4(x, src + js);
   }
   __device__ static void add(float (&acc)[kOut], const float (&dp)[DIM],
-                             float r2, const float4* s, const Cubic& k) {
-    const float coeff = word(s[0], DIM) * cubic_dwr(r2, k);
+                             float r2, const float4& a, const X& x,
+                             const Cubic& k) {
+    const float coeff = (word(a, DIM) * x) * cubic_dwr(r2, k);
 #pragma unroll
     for (int d = 0; d < DIM; ++d) acc[d] += dp[d] * coeff;
   }
 };
 
-// t_pass: (p_j, m_j) and Q_j, two float4 words. Its slots are twice
-// k_pass's, so a block takes 16 warps and up to 100 KB (2 per SM) to reach
-// tiles as long.
+// t_pass: Q_j, one float4 beside (p_j, m_j).
 template <int DIM>
 struct TPass {
-  static constexpr int kWords = 2;
+  using X = float4;
   static constexpr int kOut = 1;
-  static constexpr int kThreads = 512;
-  static constexpr int kSmemBudget = 100 * 1024;
-  __device__ static void load(float4 (&s)[kWords], const float* P,
-                              const float* M, const float* X, size_t plane,
-                              size_t js) {
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  static constexpr int kThreads = 256;
+  static constexpr int kItems = 32;
+  static constexpr int kSmemBudget = 48 * 1024;
+  __device__ static void stage(X* x, const float* src, size_t plane,
+                               size_t js) {
 #pragma unroll
     for (int d = 0; d < DIM; ++d) {
-      v[d] = P[d * plane + js];
-      q[d] = X[d * plane + js];
+      cp_async4(reinterpret_cast<float*>(x) + d, src + d * plane + js);
     }
-    v[DIM] = M[js];
-    s[0] = make_float4(v[0], v[1], v[2], v[3]);
-    s[1] = make_float4(q[0], q[1], q[2], q[3]);
   }
   __device__ static void add(float (&acc)[kOut], const float (&dp)[DIM],
-                             float r2, const float4* s, const Cubic& k) {
-    float t = word(s[1], 0) * dp[0];
+                             float r2, const float4& a, const X& x,
+                             const Cubic& k) {
+    float t = x.x * dp[0];
 #pragma unroll
-    for (int d = 1; d < DIM; ++d) t = t + word(s[1], d) * dp[d];
-    acc[0] += t * cubic_dwr(r2, k) * word(s[0], DIM);
+    for (int d = 1; d < DIM; ++d) t = t + word(x, d) * dp[d];
+    acc[0] += t * cubic_dwr(r2, k) * word(a, DIM);
   }
 };
 
@@ -492,39 +496,40 @@ struct Rows {
   }
 };
 
-// Queue entries a lane needs: one stencil row (three cells) adds at most
-// ceil(3 cap / 4) pairs to it.
-__host__ __device__ inline int queue_len(int cap) {
-  return (3 * cap + 3) / 4 > kQueue ? (3 * cap + 3) / 4 : kQueue;
-}
+// Queue entries a lane needs: one stencil row (three cells, at most 3 cap
+// slots over 4 j-lanes).
+__host__ __device__ inline int queue_len(int cap) { return (3 * cap + 3) / 4; }
 
 // Bytes of shared memory a block of `tile` cells takes, in the order
-// tile_pass_kernel lays them out: the staged slots, the output tile, the
-// lanes' queues, the staged cells' counts and offsets, the item list (then
-// its length and the largest staged count).
+// tile_pass_kernel lays them out: the ring's records and X entries, the
+// output tile, the items' own positions, the lanes' queues, the counts
+// and offsets of the staged cells, each row's largest count, the item
+// list and its length.
 template <int DIM, class Pass>
 size_t tile_bytes(int tile, int cap) {
   const size_t rows = Rows<DIM>::kRows, width = tile + 2;
-  const int items = tile * ((cap + 7) / 8);
-  return rows * width * cap * Pass::kWords * sizeof(float4) +
+  return kRing * width * cap * (sizeof(float4) + sizeof(typename Pass::X)) +
          (size_t)Pass::kOut * cap * tile * sizeof(float) +
+         (size_t)Pass::kItems * 8 * DIM * sizeof(float) +
          (size_t)Pass::kThreads * queue_len(cap) * sizeof(unsigned short) +
-         (rows * width + rows * (width + 1)) * sizeof(int) +
-         (size_t)(std::max(32, items) + 2) * sizeof(int);
+         (rows * width + rows * (width + 1) + rows + Pass::kItems + 1) *
+             sizeof(int);
 }
 
 struct TileShape {
   int tile;    // consecutive cells a block owns
-  int smem;    // bytes of dynamic shared memory a block takes
+  int smem;    // bytes of dynamic shared memory a block takes (-1: none fits)
   int blocks;  // blocks launched
 };
 
-// The tile: the most cells, up to 32 (cell, 8-slot group) items (longer
-// tiles measured slower, PERF.md), whose block fits the pass's
-// kSmemBudget bytes.
+// The tile: the most cells whose (cell, 8-slot group) items fit the
+// block's kItems and whose block fits the pass's kSmemBudget bytes. None
+// when a single cell has more groups than kItems (cap above 8 kItems).
 template <int DIM, class Pass>
 TileShape tile_shape(int cap, int C) {
-  int tile = std::max(1, 32 / ((cap + 7) / 8));
+  const int groups = (cap + 7) / 8;
+  if (groups > Pass::kItems) return {1, -1, C};
+  int tile = Pass::kItems / groups;
   while (tile > 1 && tile_bytes<DIM, Pass>(tile, cap) > Pass::kSmemBudget) {
     --tile;
   }
@@ -543,23 +548,26 @@ __global__ void __launch_bounds__(Pass::kThreads)
                      const int* __restrict__ count, float* __restrict__ out,
                      int cap, int C, int ny, int nz, int tile, Cubic k) {
   using R = Rows<DIM>;
-  constexpr int kW = Pass::kWords;
+  using XT = typename Pass::X;
   constexpr int kWarps = Pass::kThreads / 32;
+  constexpr int kPer = Pass::kItems / kWarps;  // items a warp takes
   extern __shared__ float4 smem[];
   const int width = tile + 2;          // staged cells of a row
-  const int row_slots = width * cap;   // slots a staged row holds
+  const int row_slots = width * cap;   // slots a ring buffer holds
   const int n_staged = R::kRows * width;
   const int n_out = Pass::kOut * cap * tile;  // output tile entries
-  const int n_items_max = tile * ((cap + 7) >> 3);
-  const int list = max(32, n_items_max);
+  const int n_items_max = tile * ((cap + 7) >> 3);  // <= kItems
   const int qlen = queue_len(cap);
-  float4* slots = smem;  // [kRows][row_slots][kW], each row packed
-  float* out_t = reinterpret_cast<float*>(slots + (size_t)n_staged * cap * kW);
-  unsigned short* queues =  // [kWarps][qlen][32]
-      reinterpret_cast<unsigned short*>(out_t + n_out);
+  float4* ring = smem;  // [kRing][row_slots] (p_j, m_j), each row packed
+  XT* ring_x = reinterpret_cast<XT*>(ring + kRing * row_slots);
+  float* out_t = reinterpret_cast<float*>(ring_x + kRing * row_slots);
+  float* pi_s = out_t + n_out;  // [kItems][8][DIM]: the items' own p_i
+  unsigned short* queues =      // [kWarps][qlen][32]
+      reinterpret_cast<unsigned short*>(pi_s + Pass::kItems * 8 * DIM);
   int* cnt = reinterpret_cast<int*>(queues + Pass::kThreads * qlen);
-  int* off = cnt + n_staged;                  // [kRows][width + 1]
-  int* items = off + R::kRows * (width + 1);  // [list], n_items, most
+  int* off = cnt + n_staged;                   // [kRows][width + 1]
+  int* most = off + R::kRows * (width + 1);    // [kRows]
+  int* items = most + R::kRows;                // [kItems], then n_items
   const int c0 = blockIdx.x * tile;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t plane = (size_t)cap * C;
@@ -583,13 +591,15 @@ __global__ void __launch_bounds__(Pass::kThreads)
   }
   for (int e = threadIdx.x; e < n_out; e += Pass::kThreads) out_t[e] = 0.0f;
   // Each row's slots are packed cell after cell: off[row][m] = the slots
-  // of staged cells 0 .. m-1 (a warp's scan per row).
+  // of staged cells 0 .. m-1, and most[row] = its largest count (a warp's
+  // scan per row).
   for (int row = warp; row < R::kRows; row += kWarps) {
     int* o = off + row * (width + 1);
-    int carry = 0;
+    int carry = 0, mx = 0;
     for (int m0 = 0; m0 < width; m0 += 32) {
       const int m = m0 + lane;
-      int incl = m < width ? cnt[row * width + m] : 0;
+      const int c = m < width ? cnt[row * width + m] : 0;
+      int incl = c;
 #pragma unroll
       for (int s = 1; s < 32; s <<= 1) {
         const int y = __shfl_up_sync(0xffffffffu, incl, s);
@@ -597,154 +607,181 @@ __global__ void __launch_bounds__(Pass::kThreads)
       }
       if (m < width) o[m + 1] = carry + incl;
       carry += __shfl_sync(0xffffffffu, incl, 31);
+      mx = max(mx, c);
     }
-    if (lane == 0) o[0] = 0;
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, s));
+    }
+    if (lane == 0) {
+      o[0] = 0;
+      most[row] = mx;
+    }
   }
-  // The live items: (cell lc, group g) with more than 8 g particles, in
-  // order (item = g * tile + lc); and the largest staged count. The last
-  // warp lists them: it scans the fewest rows.
+  // The live items (cell lc, group g) with more than 8 g particles, in
+  // order of g * tile + lc, as (g << 16) | lc. The last warp lists them.
   if (warp == kWarps - 1) {
     int found = 0;
     for (int b0 = 0; b0 < n_items_max; b0 += 32) {
       const int it = b0 + lane;
+      int g = 0, lc = 0;
       bool live = false;
       if (it < n_items_max) {
-        const int g = it / tile;
-        live = cnt[R::kOwn * width + it - g * tile + 1] > 8 * g;
+        g = it / tile;
+        lc = it - g * tile;
+        live = cnt[R::kOwn * width + lc + 1] > 8 * g;
       }
       const unsigned b = __ballot_sync(0xffffffffu, live);
-      if (live) items[found + __popc(b & ((1u << lane) - 1u))] = it;
+      if (live) items[found + __popc(b & ((1u << lane) - 1u))] = (g << 16) | lc;
       found += __popc(b);
     }
-    int most = 0;
-    for (int e = lane; e < n_staged; e += 32) most = max(most, cnt[e]);
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      most = max(most, __shfl_xor_sync(0xffffffffu, most, s));
-    }
-    if (lane == 0) {
-      items[list] = found;
-      items[list + 1] = most;
-    }
+    if (lane == 0) items[Pass::kItems] = found;
   }
   __syncthreads();
-  const int n_items = items[list];
-  // Stage the live slots of every staged cell, ranks above the largest
-  // staged count left out: a warp per (row, rank) line, lanes on
-  // consecutive cells of one rank plane; warp w takes lines w, w + kWarps,
-  // ... in (row, rank) order, stepped without a division.
-  const int ranks = items[list + 1];
-  int srow = 0, rank = warp;
-  for (; srow < R::kRows && rank >= ranks; ++srow) rank -= ranks;
-  while (srow < R::kRows) {
-    const int n0 = c0 + R::shift(srow, ny, nz) - 1;
-    for (int m = lane; m < width; m += 32) {
-      if (rank < cnt[srow * width + m]) {
-        float4 rec[kW];
-        Pass::load(rec, P, M, X, plane, (size_t)rank * C + n0 + m);
-        const int idx =
-            srow * row_slots + off[srow * (width + 1) + m] + rank;
+  const int n_items = items[Pass::kItems];
+
+  // Row `row` into ring buffer row % kRing: its live slots, ranks above
+  // the row's largest count left out; consecutive threads on consecutive
+  // cells of one rank plane (coalesced reads).
+  auto stage = [&](int row) {
+    float4* rec = ring + (row % kRing) * row_slots;
+    XT* xr = ring_x + (row % kRing) * row_slots;
+    const int* cr = cnt + row * width;
+    const int* orow = off + row * (width + 1);
+    const int n0 = c0 + R::shift(row, ny, nz) - 1;
+    const int n_el = most[row] * width;
+    for (int e = threadIdx.x; e < n_el; e += Pass::kThreads) {
+      const int rank = e / width, m = e - rank * width;
+      if (rank < cr[m]) {
+        const int idx = orow[m] + rank;
+        const size_t js = (size_t)rank * C + n0 + m;
+        float* dst = reinterpret_cast<float*>(rec + idx);
 #pragma unroll
-        for (int v = 0; v < kW; ++v) slots[(size_t)idx * kW + v] = rec[v];
+        for (int d = 0; d < DIM; ++d) cp_async4(dst + d, P + d * plane + js);
+        cp_async4(dst + DIM, M + js);
+        Pass::stage(xr + idx, X, plane, js);
       }
     }
-    for (rank += kWarps; srow < R::kRows && rank >= ranks; ++srow) {
-      rank -= ranks;
+  };
+  // The items' own positions (live slots only) ride with row 0.
+  for (int e = threadIdx.x; e < n_items * 8; e += Pass::kThreads) {
+    const int v = items[e >> 3], lc = v & 0xffff;
+    const int r = 8 * (v >> 16) + (e & 7);
+    if (r < cnt[R::kOwn * width + lc + 1]) {
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) {
+        cp_async4(pi_s + e * DIM + d, P + d * plane + (size_t)r * C + c0 + lc);
+      }
     }
   }
-  __syncthreads();
-  // A warp per live item: lane = 4 il + jl, i-slot r = 8 g + il; in each
-  // stencil row, cell lc's three neighbours are staged cells lc .. lc + 2,
-  // one packed run of slots, and j-lane jl takes its entries jl, jl + 4, ...
+  stage(0);
+  cp_async_commit();
+  stage(1);
+  cp_async_commit();
+
+  // A warp takes items warp, warp + kWarps, ... (kPer at most) and keeps
+  // their sums across the rows: lane = 4 il + jl, i-slot r = 8 g + il; in
+  // each row, cell lc's three neighbours are staged cells lc .. lc + 2,
+  // one packed run of slots, and j-lane jl takes its entries jl, jl + 4,
+  // ... A lane first queues the entries with q2 <= 1, then adds them.
   const int il = lane >> 2, jl = lane & 3;
   unsigned short* q = queues + warp * qlen * 32 + lane;
-  for (int w = warp; w < n_items; w += kWarps) {
-    const int item = items[w];
-    const int g = item / tile, lc = item - g * tile;
-    const int r = 8 * g + il;
-    const bool live_i = r < cnt[R::kOwn * width + lc + 1];
-    float pi[DIM];
-    {
-      const int own = R::kOwn * row_slots +
-                      off[R::kOwn * (width + 1) + lc + 1] + r;
-      const float4 a = live_i ? slots[(size_t)own * kW]
-                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float acc[kPer][Pass::kOut];
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) pi[d] = word(a, d);
+  for (int s = 0; s < kPer; ++s) {
+#pragma unroll
+    for (int d = 0; d < Pass::kOut; ++d) acc[s][d] = 0.0f;
+  }
+  for (int row = 0; row < R::kRows; ++row) {
+    cp_async_wait_one();  // this thread's copies of `row` have landed
+    __syncthreads();      // and everyone's; ring buffer (row + 2) % kRing
+                          // (row - 1's) is no longer read
+    if (row + 2 < R::kRows) stage(row + 2);
+    cp_async_commit();    // (an empty group near the end)
+    const float4* rec = ring + (row % kRing) * row_slots;
+    const XT* xr = ring_x + (row % kRing) * row_slots;
+    const int* orow = off + row * (width + 1);
+#pragma unroll
+    for (int s = 0; s < kPer; ++s) {
+      const int w = warp + s * kWarps;
+      if (w < n_items) {  // warp-uniform
+        const int v = items[w], lc = v & 0xffff;
+        const bool live_i =
+            8 * (v >> 16) + il < cnt[R::kOwn * width + lc + 1];
+        float pi[DIM];
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) pi[d] = pi_s[(w * 8 + il) * DIM + d];
+        // r^2 of the pair (i, ring slot idx), and p_i - p_j.
+        auto dist2 = [&](int idx, float (&dp)[DIM]) {
+          const float4 a = rec[idx];
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) dp[d] = pi[d] - word(a, d);
+          float r2 = dp[0] * dp[0];
+#pragma unroll
+          for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
+          return r2;
+        };
+        // Queue the pair if q2, exactly as cubic_dwr computes it, is at
+        // most 1: beyond, the pair term is +-0 (file note), so skipping
+        // the pair changes no sum.
+        int len = 0;
+        auto queue = [&](int idx, float r2) {
+          if (r2 * k.inv_h2 <= 1.0f) q[len++ * 32] = (unsigned short)idx;
+        };
+        const int begin = orow[lc];
+        const int end = begin + (live_i ? orow[lc + 3] - begin : 0);
+        int idx = begin + jl;
+        for (; idx + 4 < end; idx += 8) {
+          // Both distances before either queue store (the compiler cannot
+          // tell the queue from the ring), so the loads overlap.
+          float dp[DIM];
+          const float r2a = dist2(idx, dp), r2b = dist2(idx + 4, dp);
+          queue(idx, r2a);
+          queue(idx + 4, r2b);
+        }
+        if (idx < end) {
+          float dp[DIM];
+          queue(idx, dist2(idx, dp));
+        }
+        // Add the queued pairs, in the order they were found, two at a
+        // time (their splines overlap; the sums take them in order).
+        int e = 0;
+        for (; e + 1 < len; e += 2) {
+          const int i0 = q[e * 32], i1 = q[(e + 1) * 32];
+          float dp0[DIM], dp1[DIM];
+          const float r20 = dist2(i0, dp0), r21 = dist2(i1, dp1);
+          Pass::add(acc[s], dp0, r20, rec[i0], xr[i0], k);
+          Pass::add(acc[s], dp1, r21, rec[i1], xr[i1], k);
+        }
+        if (e < len) {
+          const int i0 = q[e * 32];
+          float dp0[DIM];
+          const float r20 = dist2(i0, dp0);
+          Pass::add(acc[s], dp0, r20, rec[i0], xr[i0], k);
+        }
+      }
     }
-    float acc[Pass::kOut];
+  }
+  // The 4 j-lane partial sums of each i-slot, in a fixed order, into the
+  // output tile.
 #pragma unroll
-    for (int d = 0; d < Pass::kOut; ++d) acc[d] = 0.0f;
-    int len = 0;
-    // r^2 of the pair (i, staged slot idx), and p_i - p_j.
-    auto dist2 = [&](int idx, float (&dp)[DIM]) {
-      const float4 a = slots[(size_t)idx * kW];
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) dp[d] = pi[d] - word(a, d);
-      float r2 = dp[0] * dp[0];
-#pragma unroll
-      for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
-      return r2;
-    };
-    // Queue the pair if q2, exactly as cubic_dwr computes it, is at most 1:
-    // beyond, the pair term is +-0 (file note), so skipping the pair
-    // changes no sum.
-    auto queue = [&](int idx, float r2) {
-      if (r2 * k.inv_h2 <= 1.0f) q[len++ * 32] = (unsigned short)idx;
-    };
-    // Add the queued pairs, in the order they were found, two at a time
-    // (their splines overlap; the sums take them in order).
-    auto flush = [&]() {
-      int e = 0;
-      for (; e + 1 < len; e += 2) {
-        const int i0 = q[e * 32], i1 = q[(e + 1) * 32];
-        float dp0[DIM], dp1[DIM];
-        const float r20 = dist2(i0, dp0), r21 = dist2(i1, dp1);
-        Pass::add(acc, dp0, r20, slots + (size_t)i0 * kW, k);
-        Pass::add(acc, dp1, r21, slots + (size_t)i1 * kW, k);
-      }
-      if (e < len) {
-        const int i0 = q[e * 32];
-        float dp0[DIM];
-        const float r20 = dist2(i0, dp0);
-        Pass::add(acc, dp0, r20, slots + (size_t)i0 * kW, k);
-      }
-      len = 0;
-    };
-    for (int row = 0; row < R::kRows; ++row) {
-      const int* o = off + row * (width + 1) + lc;
-      const int begin = row * row_slots + o[0];
-      const int n_run = o[3] - o[0];  // warp-uniform
-      // A lane queues at most ceil(n_run / 4) <= qlen pairs of this row.
-      if (__any_sync(0xffffffffu, len + ((n_run + 3) >> 2) > qlen)) flush();
-      const int end = begin + (live_i ? n_run : 0);
-      int idx = begin + jl;
-      for (; idx + 4 < end; idx += 8) {
-        // Both distances before either queue store (the compiler cannot
-        // tell the queue from the staged slots), so the loads overlap.
-        float dp[DIM];
-        const float r2a = dist2(idx, dp), r2b = dist2(idx + 4, dp);
-        queue(idx, r2a);
-        queue(idx + 4, r2b);
-      }
-      if (idx < end) {
-        float dp[DIM];
-        queue(idx, dist2(idx, dp));
-      }
-    }
-    flush();
-    // The 4 j-lane partial sums of each i-slot, in a fixed order.
-#pragma unroll
-    for (int d = 0; d < Pass::kOut; ++d) {
-      float v = acc[d];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      acc[d] = v;
-    }
-    if (jl == 0 && live_i) {
+  for (int s = 0; s < kPer; ++s) {
+    const int w = warp + s * kWarps;
+    if (w < n_items) {  // warp-uniform
+      const int v = items[w], lc = v & 0xffff;
+      const int r = 8 * (v >> 16) + il;
 #pragma unroll
       for (int d = 0; d < Pass::kOut; ++d) {
-        out_t[(d * cap + r) * tile + lc] = acc[d];
+        float x = acc[s][d];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        acc[s][d] = x;
+      }
+      if (jl == 0 && r < cnt[R::kOwn * width + lc + 1]) {
+#pragma unroll
+        for (int d = 0; d < Pass::kOut; ++d) {
+          out_t[(d * cap + r) * tile + lc] = acc[s][d];
+        }
       }
     }
   }
@@ -760,15 +797,24 @@ __global__ void __launch_bounds__(Pass::kThreads)
 }
 
 // The tiling of a [cap, C] grid, with the kernel allowed the shared memory
-// it takes; cudaErrorInvalidValue when no block fits (cap too large).
+// it takes (the opt-in above 48 KB is made once per device for the
+// largest size asked so far); cudaErrorInvalidValue when no block fits
+// (cap too large).
 template <int DIM, class Pass>
 cudaError_t tile_setup(int cap, int C, TileShape* t) {
+  static int granted[kDevices] = {};
   *t = tile_shape<DIM, Pass>(cap, C);
   if (t->smem < 0) return cudaErrorInvalidValue;
   if (t->smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(tile_pass_kernel<DIM, Pass>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              t->smem);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && t->smem <= granted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(tile_pass_kernel<DIM, Pass>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             t->smem);
+  if (err == cudaSuccess && dev < kDevices) granted[dev] = t->smem;
+  return err;
 }
 
 template <int DIM, class Pass>
