@@ -61,13 +61,18 @@
 //    per tile instead of once per consumer slot. Each row is packed cell
 //    after cell (offsets from a scan of the counts), so a cell's three
 //    neighbours in a row are one run of slots. A tile of only air cells
-//    stages nothing and writes its zeros. Several blocks are resident on
-//    an SM, so one block's staging overlaps another's pair work. The
-//    staged slot is a transposed, premultiplied record, built by a plain
-//    load and store: 4-byte cp.async copies would need k_j beside the
-//    record (20 bytes a slot, so shorter tiles) and were not faster when
-//    tried, and a TMA box needs a row stride that is a multiple of 16
-//    bytes, which C * 4 is not in general.
+//    stages nothing and writes its zeros. A thread issues the loads of
+//    kBatch slots before it stores the first, so staging waits about one
+//    global latency per kBatch slots a thread; several blocks are resident
+//    on an SM, so one block's staging also overlaps another's pair work.
+//    A TMA box would need a row stride that is a multiple of 16 bytes,
+//    which C * 4 is not in general.
+//  - Every row at once, not a ring: a ring of three row buffers filled by
+//    4-byte cp.async copies two rows ahead of the warps, rows taken in
+//    turn, was built and was slower on an H100 (PERF.md): a lane's queue
+//    then ends at every row, so the warp runs the spline for its busiest
+//    lane of each (item, row) instead of each item; a block waits at a
+//    barrier per row; and a warp holds all its items' sums at once.
 //  - Lanes on live work: a warp per live (cell, 8-slot group) item of the
 //    tile, lane = 4 il + jl as in k_pass_v2_kernel: i-slot 8 g + il, and
 //    j-lane jl takes entries jl, jl + 4, ... of each row's run. Every
@@ -89,11 +94,11 @@
 //    unskipped loop were bitwise equal at the 97k dam break's state.
 //  - Every output slot of a tile is written once, from a shared-memory
 //    tile, in runs of consecutive cells; dead slots get zeros.
-// What bounds them as built, at the 97k dam break: not HBM. About three
-// fifths of each pass is the pair loops (instruction throughput: every
-// candidate still costs a shared load and its distance), the rest each
-// block's counts, staging and writes, whose latency other resident blocks
-// hide only in part (tools/torch_tile_pass_probe.py; PERF.md).
+// What bounds them as built, at the 97k dam break: not HBM. Most of each
+// pass is the pair loops (every candidate still costs a shared load and
+// its distance, a chain of dependent instructions), the rest each block's
+// counts, staging and writes, whose latency the 2-4 blocks resident on an
+// SM hide only in part (PERF.md).
 //
 // Determinism: each output slot is summed by its own thread (hoists) or
 // its own four lanes (k_pass, t_pass, k_pass_v2) in a fixed order
@@ -107,6 +112,8 @@
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -404,82 +411,97 @@ __global__ void k_pass_v2_kernel(const float* __restrict__ P,
   }
 }
 
-// ---- k_pass and t_pass: tiles of cells, neighbour rows through a ring -----
+// ---- k_pass and t_pass: tiles of cells, neighbour rows in shared memory --
 // (design and bound: the file note)
 
-// Row buffers in the ring: while the warps work on row i, the copies of
-// row i + 1 (issued a row earlier) and of row i + 2 are in flight.
-constexpr int kRing = 3;
+// Entries of each lane's queue of within-h pairs: at least kQueue, and at
+// least what one stencil row can add (queue_len).
+constexpr int kQueue = 16;
 // The most dynamic shared memory a block can opt in to on Hopper.
 constexpr int kMaxSmem = 232448;
 // Devices whose opt-in above the default 48 KB a process remembers.
 constexpr int kDevices = 64;
+// Slots a thread stages at once: the loads of all of them are in flight
+// before the first store.
+constexpr int kBatch = 2;
 
 __device__ __forceinline__ float word(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
-// One 4-byte asynchronous copy, global to shared memory (sm_80 and up),
-// and the copy groups of the calling thread.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Waits until at most the newest of the thread's groups is in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// What k_pass stages per neighbour slot besides (p_j, m_j): K_j; the pair
-// term takes (m_j K_j) dW/dr / r, the product formed as the PR 1 kernel
-// formed it. Blocks of 8 warps take up to 32 (cell, 8-slot group) items.
+// What k_pass stages per neighbour slot, and adds per pair: one float4
+// (p_j, (m k)_j), (m k)_j = M[js] * K[js] premultiplied as the pair term
+// takes it. A block: 8 warps and at most 56 KB of shared memory, 4 blocks
+// resident on an H100 SM (228 KB, 1 KB of it reserved per block); the
+// fastest of the sizes measured at the 97k dam break (PERF.md).
 template <int DIM>
 struct KPass {
-  using X = float;
+  static constexpr int kWords = 1;  // float4 words of a staged slot
   static constexpr int kOut = DIM;  // output channels
   static constexpr int kThreads = 256;
-  static constexpr int kItems = 32;
-  static constexpr int kSmemBudget = 48 * 1024;
-  __device__ static void stage(X* x, const float* src, size_t plane,
+  static constexpr int kSmemBudget = 56 * 1024;
+  static constexpr int kRaw = DIM + 2;  // words read per slot: p_j, m_j, k_j
+  __device__ static void fetch(float (&v)[kRaw], const float* P,
+                               const float* M, const float* X, size_t plane,
                                size_t js) {
-    cp_async4(x, src + js);
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) v[d] = P[d * plane + js];
+    v[DIM] = M[js];
+    v[DIM + 1] = X[js];
+  }
+  __device__ static void pack(float4* s, const float (&v)[kRaw]) {
+    float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) w[d] = v[d];
+    w[DIM] = v[DIM] * v[DIM + 1];
+    s[0] = make_float4(w[0], w[1], w[2], w[3]);
   }
   __device__ static void add(float (&acc)[kOut], const float (&dp)[DIM],
-                             float r2, const float4& a, const X& x,
-                             const Cubic& k) {
-    const float coeff = (word(a, DIM) * x) * cubic_dwr(r2, k);
+                             float r2, const float4* s, const Cubic& k) {
+    const float coeff = word(s[0], DIM) * cubic_dwr(r2, k);
 #pragma unroll
     for (int d = 0; d < DIM; ++d) acc[d] += dp[d] * coeff;
   }
 };
 
-// t_pass: Q_j, one float4 beside (p_j, m_j).
+// t_pass: (p_j, m_j) and Q_j, two float4 words. Its slots are twice
+// k_pass's, so a block takes 16 warps and up to 100 KB (2 per SM) to reach
+// tiles as long.
 template <int DIM>
 struct TPass {
-  using X = float4;
+  static constexpr int kWords = 2;
   static constexpr int kOut = 1;
-  static constexpr int kThreads = 256;
-  static constexpr int kItems = 32;
-  static constexpr int kSmemBudget = 48 * 1024;
-  __device__ static void stage(X* x, const float* src, size_t plane,
+  static constexpr int kThreads = 512;
+  static constexpr int kSmemBudget = 100 * 1024;
+  static constexpr int kRaw = 2 * DIM + 1;  // p_j, m_j, Q_j
+  __device__ static void fetch(float (&v)[kRaw], const float* P,
+                               const float* M, const float* X, size_t plane,
                                size_t js) {
 #pragma unroll
     for (int d = 0; d < DIM; ++d) {
-      cp_async4(reinterpret_cast<float*>(x) + d, src + d * plane + js);
+      v[d] = P[d * plane + js];
+      v[DIM + 1 + d] = X[d * plane + js];
     }
+    v[DIM] = M[js];
+  }
+  __device__ static void pack(float4* s, const float (&v)[kRaw]) {
+    float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      w[d] = v[d];
+      q[d] = v[DIM + 1 + d];
+    }
+    w[DIM] = v[DIM];
+    s[0] = make_float4(w[0], w[1], w[2], w[3]);
+    s[1] = make_float4(q[0], q[1], q[2], q[3]);
   }
   __device__ static void add(float (&acc)[kOut], const float (&dp)[DIM],
-                             float r2, const float4& a, const X& x,
-                             const Cubic& k) {
-    float t = x.x * dp[0];
+                             float r2, const float4* s, const Cubic& k) {
+    float t = word(s[1], 0) * dp[0];
 #pragma unroll
-    for (int d = 1; d < DIM; ++d) t = t + word(x, d) * dp[d];
-    acc[0] += t * cubic_dwr(r2, k) * word(a, DIM);
+    for (int d = 1; d < DIM; ++d) t = t + word(s[1], d) * dp[d];
+    acc[0] += t * cubic_dwr(r2, k) * word(s[0], DIM);
   }
 };
 
@@ -496,40 +518,39 @@ struct Rows {
   }
 };
 
-// Queue entries a lane needs: one stencil row (three cells, at most 3 cap
-// slots over 4 j-lanes).
-__host__ __device__ inline int queue_len(int cap) { return (3 * cap + 3) / 4; }
+// Queue entries a lane needs: one stencil row (three cells) adds at most
+// ceil(3 cap / 4) pairs to it.
+__host__ __device__ inline int queue_len(int cap) {
+  return (3 * cap + 3) / 4 > kQueue ? (3 * cap + 3) / 4 : kQueue;
+}
 
 // Bytes of shared memory a block of `tile` cells takes, in the order
-// tile_pass_kernel lays them out: the ring's records and X entries, the
-// output tile, the items' own positions, the lanes' queues, the counts
-// and offsets of the staged cells, each row's largest count, the item
-// list and its length.
+// tile_pass_kernel lays them out: the staged slots, the output tile, the
+// lanes' queues, the staged cells' counts and offsets, each row's largest
+// count, the item list (then its length).
 template <int DIM, class Pass>
 size_t tile_bytes(int tile, int cap) {
   const size_t rows = Rows<DIM>::kRows, width = tile + 2;
-  return kRing * width * cap * (sizeof(float4) + sizeof(typename Pass::X)) +
+  const int items = tile * ((cap + 7) / 8);
+  return rows * width * cap * Pass::kWords * sizeof(float4) +
          (size_t)Pass::kOut * cap * tile * sizeof(float) +
-         (size_t)Pass::kItems * 8 * DIM * sizeof(float) +
          (size_t)Pass::kThreads * queue_len(cap) * sizeof(unsigned short) +
-         (rows * width + rows * (width + 1) + rows + Pass::kItems + 1) *
-             sizeof(int);
+         (rows * width + rows * (width + 1) + rows) * sizeof(int) +
+         (size_t)(std::max(32, items) + 1) * sizeof(int);
 }
 
 struct TileShape {
   int tile;    // consecutive cells a block owns
-  int smem;    // bytes of dynamic shared memory a block takes (-1: none fits)
+  int smem;    // bytes of dynamic shared memory a block takes
   int blocks;  // blocks launched
 };
 
-// The tile: the most cells whose (cell, 8-slot group) items fit the
-// block's kItems and whose block fits the pass's kSmemBudget bytes. None
-// when a single cell has more groups than kItems (cap above 8 kItems).
+// The tile: the most cells, up to 32 (cell, 8-slot group) items (longer
+// tiles measured slower, PERF.md), whose block fits the pass's
+// kSmemBudget bytes.
 template <int DIM, class Pass>
 TileShape tile_shape(int cap, int C) {
-  const int groups = (cap + 7) / 8;
-  if (groups > Pass::kItems) return {1, -1, C};
-  int tile = Pass::kItems / groups;
+  int tile = std::max(1, 32 / ((cap + 7) / 8));
   while (tile > 1 && tile_bytes<DIM, Pass>(tile, cap) > Pass::kSmemBudget) {
     --tile;
   }
@@ -548,26 +569,24 @@ __global__ void __launch_bounds__(Pass::kThreads)
                      const int* __restrict__ count, float* __restrict__ out,
                      int cap, int C, int ny, int nz, int tile, Cubic k) {
   using R = Rows<DIM>;
-  using XT = typename Pass::X;
+  constexpr int kW = Pass::kWords;
   constexpr int kWarps = Pass::kThreads / 32;
-  constexpr int kPer = Pass::kItems / kWarps;  // items a warp takes
   extern __shared__ float4 smem[];
   const int width = tile + 2;          // staged cells of a row
-  const int row_slots = width * cap;   // slots a ring buffer holds
+  const int row_slots = width * cap;   // slots a staged row holds
   const int n_staged = R::kRows * width;
   const int n_out = Pass::kOut * cap * tile;  // output tile entries
-  const int n_items_max = tile * ((cap + 7) >> 3);  // <= kItems
+  const int n_items_max = tile * ((cap + 7) >> 3);
+  const int list = max(32, n_items_max);
   const int qlen = queue_len(cap);
-  float4* ring = smem;  // [kRing][row_slots] (p_j, m_j), each row packed
-  XT* ring_x = reinterpret_cast<XT*>(ring + kRing * row_slots);
-  float* out_t = reinterpret_cast<float*>(ring_x + kRing * row_slots);
-  float* pi_s = out_t + n_out;  // [kItems][8][DIM]: the items' own p_i
-  unsigned short* queues =      // [kWarps][qlen][32]
-      reinterpret_cast<unsigned short*>(pi_s + Pass::kItems * 8 * DIM);
+  float4* slots = smem;  // [kRows][row_slots][kW], each row packed
+  float* out_t = reinterpret_cast<float*>(slots + (size_t)n_staged * cap * kW);
+  unsigned short* queues =  // [kWarps][qlen][32]
+      reinterpret_cast<unsigned short*>(out_t + n_out);
   int* cnt = reinterpret_cast<int*>(queues + Pass::kThreads * qlen);
-  int* off = cnt + n_staged;                   // [kRows][width + 1]
-  int* most = off + R::kRows * (width + 1);    // [kRows]
-  int* items = most + R::kRows;                // [kItems], then n_items
+  int* off = cnt + n_staged;                  // [kRows][width + 1]
+  int* most = off + R::kRows * (width + 1);   // [kRows]
+  int* items = most + R::kRows;               // [list], n_items
   const int c0 = blockIdx.x * tile;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t plane = (size_t)cap * C;
@@ -618,170 +637,156 @@ __global__ void __launch_bounds__(Pass::kThreads)
       most[row] = mx;
     }
   }
-  // The live items (cell lc, group g) with more than 8 g particles, in
-  // order of g * tile + lc, as (g << 16) | lc. The last warp lists them.
+  // The live items: (cell lc, group g) with more than 8 g particles, in
+  // order (item = g * tile + lc). The last warp lists them: it scans the
+  // fewest rows.
   if (warp == kWarps - 1) {
     int found = 0;
     for (int b0 = 0; b0 < n_items_max; b0 += 32) {
       const int it = b0 + lane;
-      int g = 0, lc = 0;
       bool live = false;
       if (it < n_items_max) {
-        g = it / tile;
-        lc = it - g * tile;
-        live = cnt[R::kOwn * width + lc + 1] > 8 * g;
+        const int g = it / tile;
+        live = cnt[R::kOwn * width + it - g * tile + 1] > 8 * g;
       }
       const unsigned b = __ballot_sync(0xffffffffu, live);
-      if (live) items[found + __popc(b & ((1u << lane) - 1u))] = (g << 16) | lc;
+      if (live) items[found + __popc(b & ((1u << lane) - 1u))] = it;
       found += __popc(b);
     }
-    if (lane == 0) items[Pass::kItems] = found;
+    if (lane == 0) items[list] = found;
   }
   __syncthreads();
-  const int n_items = items[Pass::kItems];
-
-  // Row `row` into ring buffer row % kRing: its live slots, ranks above
-  // the row's largest count left out; consecutive threads on consecutive
-  // cells of one rank plane (coalesced reads).
-  auto stage = [&](int row) {
-    float4* rec = ring + (row % kRing) * row_slots;
-    XT* xr = ring_x + (row % kRing) * row_slots;
-    const int* cr = cnt + row * width;
-    const int* orow = off + row * (width + 1);
-    const int n0 = c0 + R::shift(row, ny, nz) - 1;
-    const int n_el = most[row] * width;
-    for (int e = threadIdx.x; e < n_el; e += Pass::kThreads) {
-      const int rank = e / width, m = e - rank * width;
-      if (rank < cr[m]) {
-        const int idx = orow[m] + rank;
-        const size_t js = (size_t)rank * C + n0 + m;
-        float* dst = reinterpret_cast<float*>(rec + idx);
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) cp_async4(dst + d, P + d * plane + js);
-        cp_async4(dst + DIM, M + js);
-        Pass::stage(xr + idx, X, plane, js);
-      }
+  const int n_items = items[list];
+  // Stage the live slots of every staged cell, ranks above the row's
+  // largest count left out. Element x of row `row` is (rank x / width,
+  // staged cell x % width): consecutive threads read consecutive cells of
+  // one rank plane, and a thread takes elements threadIdx.x, + kThreads,
+  // ... through the rows in order, issuing the loads of kBatch of them
+  // before it stores the first (one global latency per batch, not per
+  // slot).
+  int row = 0, x = threadIdx.x;
+  auto settle = [&]() {  // carry x into the row that holds it
+    while (row < R::kRows && x >= most[row] * width) {
+      x -= most[row] * width;
+      ++row;
     }
   };
-  // The items' own positions (live slots only) ride with row 0.
-  for (int e = threadIdx.x; e < n_items * 8; e += Pass::kThreads) {
-    const int v = items[e >> 3], lc = v & 0xffff;
-    const int r = 8 * (v >> 16) + (e & 7);
-    if (r < cnt[R::kOwn * width + lc + 1]) {
+  settle();
+  while (row < R::kRows) {
+    float raw[kBatch][Pass::kRaw];
+    int dst[kBatch];
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        cp_async4(pi_s + e * DIM + d, P + d * plane + (size_t)r * C + c0 + lc);
+    for (int b = 0; b < kBatch; ++b) {
+      dst[b] = -1;
+      if (row < R::kRows) {
+        const int rank = x / width, m = x - rank * width;
+        if (rank < cnt[row * width + m]) {
+          dst[b] = row * row_slots + off[row * (width + 1) + m] + rank;
+          Pass::fetch(raw[b], P, M, X, plane,
+                      (size_t)rank * C + c0 + R::shift(row, ny, nz) - 1 + m);
+        }
+        x += Pass::kThreads;
+        settle();
       }
     }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (dst[b] >= 0) Pass::pack(slots + (size_t)dst[b] * kW, raw[b]);
+    }
   }
-  stage(0);
-  cp_async_commit();
-  stage(1);
-  cp_async_commit();
-
-  // A warp takes items warp, warp + kWarps, ... (kPer at most) and keeps
-  // their sums across the rows: lane = 4 il + jl, i-slot r = 8 g + il; in
-  // each row, cell lc's three neighbours are staged cells lc .. lc + 2,
-  // one packed run of slots, and j-lane jl takes its entries jl, jl + 4,
-  // ... A lane first queues the entries with q2 <= 1, then adds them.
+  __syncthreads();
+  // A warp per live item: lane = 4 il + jl, i-slot r = 8 g + il; in each
+  // stencil row, cell lc's three neighbours are staged cells lc .. lc + 2,
+  // one packed run of slots, and j-lane jl takes its entries jl, jl + 4, ...
   const int il = lane >> 2, jl = lane & 3;
   unsigned short* q = queues + warp * qlen * 32 + lane;
-  float acc[kPer][Pass::kOut];
+  for (int w = warp; w < n_items; w += kWarps) {
+    const int item = items[w];
+    const int g = item / tile, lc = item - g * tile;
+    const int r = 8 * g + il;
+    const bool live_i = r < cnt[R::kOwn * width + lc + 1];
+    float pi[DIM];
+    {
+      const int own = R::kOwn * row_slots +
+                      off[R::kOwn * (width + 1) + lc + 1] + r;
+      const float4 a = live_i ? slots[(size_t)own * kW]
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
-  for (int s = 0; s < kPer; ++s) {
+      for (int d = 0; d < DIM; ++d) pi[d] = word(a, d);
+    }
+    float acc[Pass::kOut];
 #pragma unroll
-    for (int d = 0; d < Pass::kOut; ++d) acc[s][d] = 0.0f;
-  }
-  for (int row = 0; row < R::kRows; ++row) {
-    cp_async_wait_one();  // this thread's copies of `row` have landed
-    __syncthreads();      // and everyone's; ring buffer (row + 2) % kRing
-                          // (row - 1's) is no longer read
-    if (row + 2 < R::kRows) stage(row + 2);
-    cp_async_commit();    // (an empty group near the end)
-    const float4* rec = ring + (row % kRing) * row_slots;
-    const XT* xr = ring_x + (row % kRing) * row_slots;
-    const int* orow = off + row * (width + 1);
+    for (int d = 0; d < Pass::kOut; ++d) acc[d] = 0.0f;
+    int len = 0;
+    // r^2 of the pair (i, staged slot idx), and p_i - p_j.
+    auto dist2 = [&](int idx, float (&dp)[DIM]) {
+      const float4 a = slots[(size_t)idx * kW];
 #pragma unroll
-    for (int s = 0; s < kPer; ++s) {
-      const int w = warp + s * kWarps;
-      if (w < n_items) {  // warp-uniform
-        const int v = items[w], lc = v & 0xffff;
-        const bool live_i =
-            8 * (v >> 16) + il < cnt[R::kOwn * width + lc + 1];
-        float pi[DIM];
+      for (int d = 0; d < DIM; ++d) dp[d] = pi[d] - word(a, d);
+      float r2 = dp[0] * dp[0];
 #pragma unroll
-        for (int d = 0; d < DIM; ++d) pi[d] = pi_s[(w * 8 + il) * DIM + d];
-        // r^2 of the pair (i, ring slot idx), and p_i - p_j.
-        auto dist2 = [&](int idx, float (&dp)[DIM]) {
-          const float4 a = rec[idx];
-#pragma unroll
-          for (int d = 0; d < DIM; ++d) dp[d] = pi[d] - word(a, d);
-          float r2 = dp[0] * dp[0];
-#pragma unroll
-          for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
-          return r2;
-        };
-        // Queue the pair if q2, exactly as cubic_dwr computes it, is at
-        // most 1: beyond, the pair term is +-0 (file note), so skipping
-        // the pair changes no sum.
-        int len = 0;
-        auto queue = [&](int idx, float r2) {
-          if (r2 * k.inv_h2 <= 1.0f) q[len++ * 32] = (unsigned short)idx;
-        };
-        const int begin = orow[lc];
-        const int end = begin + (live_i ? orow[lc + 3] - begin : 0);
-        int idx = begin + jl;
-        for (; idx + 4 < end; idx += 8) {
-          // Both distances before either queue store (the compiler cannot
-          // tell the queue from the ring), so the loads overlap.
-          float dp[DIM];
-          const float r2a = dist2(idx, dp), r2b = dist2(idx + 4, dp);
-          queue(idx, r2a);
-          queue(idx + 4, r2b);
-        }
-        if (idx < end) {
-          float dp[DIM];
-          queue(idx, dist2(idx, dp));
-        }
-        // Add the queued pairs, in the order they were found, two at a
-        // time (their splines overlap; the sums take them in order).
-        int e = 0;
-        for (; e + 1 < len; e += 2) {
-          const int i0 = q[e * 32], i1 = q[(e + 1) * 32];
-          float dp0[DIM], dp1[DIM];
-          const float r20 = dist2(i0, dp0), r21 = dist2(i1, dp1);
-          Pass::add(acc[s], dp0, r20, rec[i0], xr[i0], k);
-          Pass::add(acc[s], dp1, r21, rec[i1], xr[i1], k);
-        }
-        if (e < len) {
-          const int i0 = q[e * 32];
-          float dp0[DIM];
-          const float r20 = dist2(i0, dp0);
-          Pass::add(acc[s], dp0, r20, rec[i0], xr[i0], k);
-        }
+      for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
+      return r2;
+    };
+    // Queue the pair if q2, exactly as cubic_dwr computes it, is at most 1:
+    // beyond, the pair term is +-0 (file note), so skipping the pair
+    // changes no sum.
+    auto queue = [&](int idx, float r2) {
+      if (r2 * k.inv_h2 <= 1.0f) q[len++ * 32] = (unsigned short)idx;
+    };
+    // Add the queued pairs, in the order they were found, two at a time
+    // (their splines overlap; the sums take them in order).
+    auto flush = [&]() {
+      int e = 0;
+      for (; e + 1 < len; e += 2) {
+        const int i0 = q[e * 32], i1 = q[(e + 1) * 32];
+        float dp0[DIM], dp1[DIM];
+        const float r20 = dist2(i0, dp0), r21 = dist2(i1, dp1);
+        Pass::add(acc, dp0, r20, slots + (size_t)i0 * kW, k);
+        Pass::add(acc, dp1, r21, slots + (size_t)i1 * kW, k);
+      }
+      if (e < len) {
+        const int i0 = q[e * 32];
+        float dp0[DIM];
+        const float r20 = dist2(i0, dp0);
+        Pass::add(acc, dp0, r20, slots + (size_t)i0 * kW, k);
+      }
+      len = 0;
+    };
+    for (int row = 0; row < R::kRows; ++row) {
+      const int* o = off + row * (width + 1) + lc;
+      const int begin = row * row_slots + o[0];
+      const int n_run = o[3] - o[0];  // warp-uniform
+      // A lane queues at most ceil(n_run / 4) <= qlen pairs of this row.
+      if (__any_sync(0xffffffffu, len + ((n_run + 3) >> 2) > qlen)) flush();
+      const int end = begin + (live_i ? n_run : 0);
+      int idx = begin + jl;
+      for (; idx + 4 < end; idx += 8) {
+        // Both distances before either queue store (the compiler cannot
+        // tell the queue from the staged slots), so the loads overlap.
+        float dp[DIM];
+        const float r2a = dist2(idx, dp), r2b = dist2(idx + 4, dp);
+        queue(idx, r2a);
+        queue(idx + 4, r2b);
+      }
+      if (idx < end) {
+        float dp[DIM];
+        queue(idx, dist2(idx, dp));
       }
     }
-  }
-  // The 4 j-lane partial sums of each i-slot, in a fixed order, into the
-  // output tile.
+    flush();
+    // The 4 j-lane partial sums of each i-slot, in a fixed order.
 #pragma unroll
-  for (int s = 0; s < kPer; ++s) {
-    const int w = warp + s * kWarps;
-    if (w < n_items) {  // warp-uniform
-      const int v = items[w], lc = v & 0xffff;
-      const int r = 8 * (v >> 16) + il;
+    for (int d = 0; d < Pass::kOut; ++d) {
+      float v = acc[d];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      acc[d] = v;
+    }
+    if (jl == 0 && live_i) {
 #pragma unroll
       for (int d = 0; d < Pass::kOut; ++d) {
-        float x = acc[s][d];
-        x += __shfl_xor_sync(0xffffffffu, x, 1);
-        x += __shfl_xor_sync(0xffffffffu, x, 2);
-        acc[s][d] = x;
-      }
-      if (jl == 0 && r < cnt[R::kOwn * width + lc + 1]) {
-#pragma unroll
-        for (int d = 0; d < Pass::kOut; ++d) {
-          out_t[(d * cap + r) * tile + lc] = acc[s][d];
-        }
+        out_t[(d * cap + r) * tile + lc] = acc[d];
       }
     }
   }
