@@ -30,9 +30,10 @@ in these phases:
    the least time the card could take (bound: the bytes of the live
    slots the pass must read and of its outputs, or its float32
    operations), the library call's time where one computes the same
-   function, and planted faults that each output's rule must catch (for
-   the tiled ``k_pass`` and ``t_pass``, whose tiling is logged, in the
-   fullest cell on a tile's edge);
+   function, the device launches one call of each hoist makes (the
+   profiler's count), and planted faults that each output's rule must
+   catch (for the tiled ``k_pass``, ``t_pass`` and ``hoist_ff``, whose
+   tiling is logged, in the fullest cell on a tile's edge);
 6. each main path (DFSPH and IISPH, without and with the forces)
    stepped 5 times through the kernels and 5 times through the plain
    versions (substituted here, in the script), with identical iteration
@@ -307,6 +308,19 @@ def must_fail(label, got, want, tol):
     raise AssertionError(f"planted fault {label} passed the tolerance {tol}")
 
 
+def device_launches(fn):
+    """Device activities (kernels and memory fills) of one ``fn()``, as
+    ``torch.profiler`` records them: what one call of a wrapper launches."""
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
@@ -522,23 +536,26 @@ def phase_kernels(pair, world):
     shifts = tdg.flat_shifts(spec)
     n_eval = sum(int((c64 * shift_flat(c64, s)).sum()) for s in shifts)
     log(f"[kernels] fluid-fluid candidate pairs per pass: {n_eval}")
-    # The tiled k_pass / t_pass kernels: blocks of `tile` consecutive cells.
+    # The tiled k_pass / t_pass / hoist_ff kernels: blocks of `tile`
+    # consecutive cells (hoist_ff without s2, as DFSPH runs it, and with).
     edge = {}
     cidx = torch.arange(C, device="cuda")
-    for name in ("k_pass", "t_pass"):
-        t = pair.tiling(name, dim, spec.cap, C)
+    for name, s2 in (("k_pass", False), ("t_pass", False),
+                     ("hoist_ff", False), ("hoist_ff", True)):
+        t = pair.tiling(name, dim, spec.cap, C, need_s2=s2)
         edge[name] = torch.nonzero((cidx % t["tile"] == 0)
                                    | (cidx % t["tile"] == t["tile"] - 1))[:, 0]
-        log(f"[kernels] {name}: tiles of {t['tile']} cells, {t['smem']} B of "
-            f"shared memory a block, {t['blocks']} blocks a launch, "
-            f"{t['per_sm']} blocks resident per SM")
+        log(f"[kernels] {name}{' (need_s2=True)' if s2 else ''}: tiles of "
+            f"{t['tile']} cells, {t['smem']} B of shared memory a block, "
+            f"{t['blocks']} blocks a launch, {t['per_sm']} blocks resident "
+            f"per SM")
     # Planted fluid-side faults: the kernel is given one particle fewer in
     # one cell (an off-by-one in the occupancy loop), and that slot itself
     # is then copied from the plain result, so only the neighbors' sums,
-    # each short of one pair term, carry the fault. The hoist's cell is
-    # the fullest one; k_pass's and t_pass's the fullest on a tile's first
-    # or last cell, so that the missing term crosses a tile boundary.
-    short_ff, copy_ff, cell = drop_last(counts, cidx)
+    # each short of one pair term, carry the fault. Each tiled kernel's
+    # cell is the fullest on one of its tiles' first or last cell, so that
+    # the missing term crosses a tile boundary.
+    short_ff, copy_ff, cell = drop_last(counts, edge["hoist_ff"])
     short_k, copy_k, cell_k = drop_last(counts, edge["k_pass"])
     short_t, copy_t, cell_t = drop_last(counts, edge["t_pass"])
     log(f"[kernels] planted faults drop the last particle of cell {cell} "
@@ -591,6 +608,14 @@ def phase_kernels(pair, world):
         ms = cuda_ms(lambda: kern(False), 50)
         one = call_ms(lambda: kern(False), 20)
         plain_ms = cuda_ms(plain, 10)
+        if name == "hoist_ff":
+            ms0 = cuda_ms(lambda: pair.hoist_ff(
+                spec, h, dim, "cubic", "cubic", P, M, counts,
+                need_s2=False), 50)
+            n_dev = device_launches(lambda: kern(False))
+            log(f"[kernels] hoist_ff: {ms0:.4f} ms device time without s2 "
+                f"(the DFSPH setting); {n_dev} device launch(es) a call")
+            assert n_dev == 1, f"hoist_ff: {n_dev} launches a call"
         # Reads: the live slots of each input plane and every column's
         # count; writes: every output element once.
         results[name] = dict(max_abs_err=err, ms=ms, call_ms=one,
@@ -728,9 +753,18 @@ def phase_kernels(pair, world):
         ms = cuda_ms(lambda: kern(False), 50)
         one = call_ms(lambda: kern(False), 20)
         plain_ms = cuda_ms(plain, 10)
+        # A call is the zero fill of the packed outputs and the kernel: the
+        # time above holds both; the fill alone, and the launches a call.
+        fill_ms = cuda_ms(lambda: torch.zeros(
+            (dim + 5,) + tuple(P.shape[1:]), device="cuda"), 50)
+        n_dev = device_launches(lambda: kern(False))
+        log(f"[kernels] hoist_fb ({layout}): {n_dev} device launches a "
+            f"call; the zero fill alone {fill_ms:.4f} ms device time")
+        assert 1 <= n_dev <= 2, f"hoist_fb: {n_dev} launches a call"
         b_ms, b_by, ops = bound("hoist_fb", dim, read, written, cand, within)
         fb[layout] = dict(max_abs_err=err, ms=ms, call_ms=one,
-                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          fill_ms=fill_ms, launches_per_call=n_dev)
         log(f"[kernels] hoist_fb ({layout}): kernel {ms:.4f} ms device time "
             f"({one:.4f} ms a call), plain {plain_ms:.4f} ms; bound "
             f"{b_ms:.5f} ms ({b_by}; {read} B read: {n_pf} fluid slots, "

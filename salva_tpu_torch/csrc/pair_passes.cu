@@ -14,33 +14,25 @@
 //   t_pass   <- pallas_pair.py t_pass_pallas / _build_t_kernel, via
 //               t_pass_pallas3 (+ hi_complement); tile_pass_kernel<TPass>
 //   hoist_ff <- pallas_pair.py hoist_ff_pallas / _build_hoist_kernel, via
-//               hoist_ff_pallas3 (+ hi_complement)
+//               hoist_ff_pallas3 (+ hi_complement); tile_pass_kernel<HoistFF>
 //   hoist_fb <- pallas_pair.py hoist_fb_pallas / _build_fb_hoist_kernel,
 //               as run by pallas_pair2.py hoist_fb_pallas3 (and the XLA
 //               twins of solver/dense_common.py: _hoist_fb_sparse and the
-//               roll fold of DenseCtx._hoist); see hoist_fb_kernel
+//               roll fold of DenseCtx._hoist); see hoist_fb_warps
 //   k_pass_v2 <- pallas_pair2.py k_pass_pallas2 / _build_k2_kernel (the
 //               slot-group-predicated formulation); see k_pass_v2_kernel
 // The TPU kernels split each pass into an ungated 8-row slice plus a
 // gated complement over 8-row slot groups, because the TPU computes in
 // (8, 128) tiles. Here every kernel walks the true occupancy of each
 // neighbour cell (count[n]), so the slot-group split and its gating flags
-// disappear: a dead slot (r >= count[c]) writes zeros and does no pair
-// work.
+// disappear: a dead slot (r >= count[c]) does no pair work.
 //
-// The hoists (one thread per output slot). What bounds them on the H100:
-// not HBM bandwidth. Each live slot visits 3^dim neighbour cells and every
-// particle in them (~27 x 8 pairs in a resting 3D fluid); the neighbour
-// positions are gathered through L1/L2 with a dependent count[n] load
-// before each cell, so the latency of those gathers and the
-// special-function throughput of sqrtf / rsqrtf per pair (SFU: 1/8 of the
-// FP32 rate) set the time. The design keeps loads coalesced (c on
-// threadIdx.x: neighbouring lanes read neighbouring cells of the same
-// row), keeps the accumulators in registers, and writes each output once.
-//
-// k_pass and t_pass (tile_pass_kernel), the passes every solver iteration
-// runs. What bounds them is the same pair work, and three costs of the
-// thread-per-slot design: (1) a (cap, C) grid of threads for ~1/5 live
+// k_pass, t_pass and the fluid-fluid hoist (tile_pass_kernel): k_pass and
+// t_pass run every solver iteration, hoist_ff once a substep. What bounds
+// them on the H100 is not HBM but the pair work: each live slot visits
+// 3^dim neighbour cells and every particle in them (~27 x 8 candidates in
+// a resting 3D fluid). A thread-per-slot design (the first port of all
+// three) pays three costs: (1) a (cap, C) grid of threads for ~1/5 live
 // slots, whose lanes loop over different counts; (2) every candidate
 // pair's neighbour data fetched again from L1/L2 by each of up to 27 x 8
 // consumer slots, behind a dependent count load; (3) the full spline
@@ -57,8 +49,9 @@
 //    cell's stencil crosses one, so nothing checks for it.
 //  - Shared memory: the block stages the live slots of those runs once
 //    (k_pass: (p_j, (m k)_j) as one float4, premultiplied; t_pass:
-//    (p_j, m_j) and Q_j), so each neighbour cell's data crosses L2 once
-//    per tile instead of once per consumer slot. Each row is packed cell
+//    (p_j, m_j) and Q_j; hoist_ff: (p_j, m_j), the mass as it is), so
+//    each neighbour cell's data crosses L2 once per tile instead of once
+//    per consumer slot. Each row is packed cell
 //    after cell (offsets from a scan of the counts), so a cell's three
 //    neighbours in a row are one run of slots. A tile of only air cells
 //    stages nothing and writes its zeros. A thread issues the loads of
@@ -92,18 +85,82 @@
 //    addends are -0). The skipped loop therefore returns bitwise the
 //    unskipped loop's sums; on an H100 both passes of the skipped and the
 //    unskipped loop were bitwise equal at the 97k dam break's state.
+//  - hoist_ff (Pass = HoistFF) adds, per queued pair, m_j W to rho, m_j g
+//    to Gf, |g|^2 m_j^2 to sq and (when need_s2, a template flag) |g|^2
+//    m_j to s2, g = (p_i - p_j) dW/dr / r, with W and dW/dr / r from one
+//    sqrtf (cubic_w_dwr; dW/dr / r as cubic_dwr computes it). The
+//    skip is exact for every channel: for q2 > 1, q = sqrtf(q2) >= 1, so
+//    W is w_norm * 0 (q > 1; or q == 1 and (1 - q)^3 = 0) and dW/dr / r
+//    is +-0 as above; then every term (m_j W, m_j g, |g|^2 m_j^2,
+//    |g|^2 m_j) is +-0, with or without fused multiply-adds, and each
+//    sum stays bitwise as it was. Its pair count is not taken from the
+//    queue: its rule, r^2 <= h^2 and m_j != 0, is the plain version's,
+//    and the dam-break lattice holds pairs at exactly r = h, where
+//    r^2 <= h^2 and r^2 * inv_h2 <= 1 can round apart. So every candidate
+//    of the distance phase adds (r^2 <= h^2 && m_j != 0) to an integer
+//    count, from the r^2 it has just computed and the m_j in the same
+//    staged float4; the four j-lanes' counts meet in integer shuffles,
+//    exact in any order. On an H100 the skipped loop was bitwise equal to
+//    the unskipped one for every channel at the 97k state (PERF.md).
 //  - Every output slot of a tile is written once, from a shared-memory
-//    tile, in runs of consecutive cells; dead slots get zeros.
+//    tile, in runs of consecutive cells; dead slots get zeros. hoist_ff's
+//    output tile holds DIM + 3 float channels and the count (as its bits)
+//    a slot; the wrapper hands one packed [DIM + 4, cap, C] allocation
+//    and returns views of it.
 // What bounds them as built, at the 97k dam break: not HBM. Most of each
 // pass is the pair loops (every candidate still costs a shared load and
 // its distance, a chain of dependent instructions), the rest each block's
 // counts, staging and writes, whose latency the 2-4 blocks resident on an
 // SM hide only in part (PERF.md).
 //
-// Determinism: each output slot is summed by its own thread (hoists) or
-// its own four lanes (k_pass, t_pass, k_pass_v2) in a fixed order
-// (stencil offsets or rows, then rank); there are no atomics, so results
-// are bitwise identical from run to run.
+// The fluid-boundary hoist (hoist_fb_warps), once a substep. The boundary
+// is a thin layer: at the 97k dam break ~6 x 10^5 candidate pairs, a few
+// thousand fluid columns next to it, while the output planes (DIM + 5
+// channels x cap x C x 4 B, ~17 MB at cap 16 and 32,768 cells) are the
+// only sizeable traffic (~5 us at 3.35 TB/s). What cost the first,
+// thread-per-slot design was not its pair work but its call: six zero
+// fills and a launch (seven launches, on a step that is host-bound), and
+// in the kernel a thread per (listed column, rank) over the whole cap,
+// walking the 3^dim offsets through two dependent loads each
+// (cell_to_col[n], then count_b[b]) before a serial loop over the
+// candidates. The design:
+//  - Items: a warp owns one (listed column, 8-slot group) item, lane =
+//    4 il + jl as in k_pass_v2_kernel (i-slot 8 g + il; j-lane jl takes
+//    boundary slots jl, jl + 4, ... of each neighbour cell). An unused
+//    table entry (outside [0, C)) or a dead group exits at once
+//    (warp-uniform), doing no pair work.
+//  - Neighbour cells: lane o < 3^dim loads cell o's boundary column and
+//    count, all lanes at once; a ballot lists the cells with boundary
+//    particles, and shuffles hand each its column and count, so no
+//    thread walks a chain of dependent loads per offset.
+//  - Pairs: the distance phase queues, per lane in shared memory, the
+//    pairs within h on the function's own rule, r^2 <= h^2 (exact here:
+//    the plain version masks every term and the count on it); the
+//    spline and the sums then run on the queue only. Boundary data (p,
+//    volume, velocity) is read through L1: the layer is thin, and each
+//    boundary slot is read by the 8 i-lanes of a warp at once.
+//  - Outputs: the wrapper takes one packed [DIM + 5, cap, C] allocation
+//    and zero-fills it once (one launch; the count plane is an int32
+//    view), and the kernel writes the live slots of listed columns only:
+//    two launches a call. The kernel cannot write the zeros of unlisted
+//    columns itself: the sparse table lists columns, and knowing which
+//    columns it leaves out would take an inverse map, itself a launch.
+//    The fill writes the bytes the bound counts for every output anyway
+//    (PERF.md has its device time beside the kernel's).
+// One kernel covers the TPU's three forms of this hoist: the Pallas
+// kernel over full-grid boundary arrays, a sparse XLA fold over the fluid
+// columns next to a boundary (through a top_k table), and a roll fold
+// over the boundary arrays rematerialized onto the full grid. The
+// boundary grid is either the full grid (cell_to_col == nullptr: column
+// = cell) or the compact occupied-cell table (cell_to_col =
+// cell_to_active, whose void column is empty); the fluid columns to
+// visit are either all of them (cols == nullptr) or the sparse hoist's
+// adjacency table, so a table that overflows drops exactly the columns
+// the reference drops.
+//
+// Determinism: each output slot is summed by its own four lanes in a
+// fixed order (stencil rows or offsets, then rank); there are no
+// atomics, so results are bitwise identical from run to run.
 //
 // Pair math: the fused cubic spline of salva_tpu (dense_common.w_dwr,
 // pallas_pair._grad_scale_fn / _w_scale_fn): W and dW/dr / r from r^2
@@ -135,13 +192,20 @@ __device__ __forceinline__ float cubic_dwr(float r2, const Cubic& k) {
   return k.dwr_scale * (cut ? 0.0f : (q <= 0.5f ? near_d : far_d));
 }
 
-__device__ __forceinline__ float cubic_w(float r2, const Cubic& k) {
+// W and dW/dr / r (the expressions of cubic_dwr) from one sqrtf of q2.
+__device__ __forceinline__ void cubic_w_dwr(float r2, const Cubic& k,
+                                            float& w, float& dwr) {
   const float q2 = r2 * k.inv_h2;
   const float q = sqrtf(q2);
-  const float near_w = 1.0f + (q2 * q - q2) * 6.0f;
   const float one_q = 1.0f - q;
+  const float rq = rsqrtf(fmaxf(q2, 1.0e-12f));
+  const float far_d = -6.0f * one_q * one_q * rq;
+  const float near_d = 18.0f * q - 12.0f;
+  const bool cut = (q > 1.0f) || (q <= 1.0e-5f);
+  dwr = k.dwr_scale * (cut ? 0.0f : (q <= 0.5f ? near_d : far_d));
+  const float near_w = 1.0f + (q2 * q - q2) * 6.0f;
   const float far_w = one_q * one_q * one_q * 2.0f;
-  return k.w_norm * (q <= 0.5f ? near_w : (q <= 1.0f ? far_w : 0.0f));
+  w = k.w_norm * (q <= 0.5f ? near_w : (q <= 1.0f ? far_w : 0.0f));
 }
 
 // Flat-index delta of stencil offset o (row-major, dx outermost), the
@@ -161,175 +225,6 @@ struct Stencil {
   static constexpr int kOffsets = DIM == 3 ? 27 : 9;
 };
 
-// Fluid-fluid hoist: rho = sum m_j W, Gf = sum m_j grad, sq = sum
-// |m_j grad|^2, s2 = sum m_j |grad|^2 (when need_s2), and the pair count
-// (r^2 <= h^2 and m_j != 0). Replaces pallas_pair.py hoist_ff_pallas (+
-// the hi complement of hoist_ff_pallas3); bound and design: see the file
-// note.
-template <int DIM>
-__global__ void hoist_ff_kernel(const float* __restrict__ P,
-                                const float* __restrict__ M,
-                                const int* __restrict__ count,
-                                float* __restrict__ rho_out,
-                                float* __restrict__ gf_out,
-                                float* __restrict__ sq_out,
-                                float* __restrict__ s2_out,
-                                int* __restrict__ cnt_out, int cap, int C,
-                                int ny, int nz, int need_s2, Cubic k) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (c >= C) return;
-  const size_t plane = (size_t)cap * C;
-  const size_t slot = (size_t)r * C + c;
-  float rho = 0.0f, sq = 0.0f, s2 = 0.0f;
-  float gf[DIM];
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) gf[d] = 0.0f;
-  int cnt_pairs = 0;
-  if (r < min(count[c], cap)) {
-    float pi[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) pi[d] = P[d * plane + slot];
-    for (int o = 0; o < Stencil<DIM>::kOffsets; ++o) {
-      const int n = c + flat_shift<DIM>(o, ny, nz);
-      if (n < 0 || n >= C) continue;
-      const int cnt = min(count[n], cap);
-      for (int j = 0; j < cnt; ++j) {
-        const size_t js = (size_t)j * C + n;
-        float dp[DIM];
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) dp[d] = pi[d] - P[d * plane + js];
-        float r2 = dp[0] * dp[0];
-#pragma unroll
-        for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
-        const float mj = M[js];
-        const float dwr = cubic_dwr(r2, k);
-        rho += mj * cubic_w(r2, k);
-        float gsq = 0.0f;
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) {
-          const float g = dp[d] * dwr;
-          gf[d] += g * mj;
-          gsq = gsq + g * g;
-        }
-        sq += gsq * mj * mj;
-        if (need_s2) s2 += gsq * mj;
-        cnt_pairs += (r2 <= k.h2 && mj != 0.0f) ? 1 : 0;
-      }
-    }
-  }
-  rho_out[slot] = rho;
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) gf_out[d * plane + slot] = gf[d];
-  sq_out[slot] = sq;
-  s2_out[slot] = s2;
-  cnt_out[slot] = cnt_pairs;
-}
-
-// Fluid-boundary hoist: per live fluid slot i, over the boundary
-// particles j of its 3^dim neighbour cells within h:
-//   rho = sum Volb_j W,  Gb = sum Volb_j grad,  sq = sum |grad|^2 Volb_j^2,
-//   s2 = sum |grad|^2 Volb_j (when need_s2),  Sb = sum Volb_j (vb_j . grad),
-//   cnt = the number of such pairs.
-// Replaces pallas_pair.py hoist_fb_pallas (as hoist_fb_pallas3 runs it on
-// 8-row slices of the fluid grid). The TPU needed three forms of this
-// hoist: the Pallas kernel over full-grid boundary arrays, a sparse XLA
-// fold over the fluid columns next to a boundary (through a top_k table),
-// and a roll fold over the boundary arrays rematerialized onto the full
-// grid. One kernel covers all three: the boundary grid is either the
-// full grid (cell_to_col == nullptr: column = cell) or the compact
-// occupied-cell table (cell_to_col = cell_to_active, whose void column
-// is empty), and the fluid columns to visit are either all of them
-// (cols == nullptr) or the sparse hoist's adjacency table (so a table
-// that overflows drops exactly the columns the reference drops; entries
-// outside [0, C) are unused). A thread walks each neighbour cell's true
-// boundary count, so an empty cell costs one count load and the
-// sparse/dense distinction of the TPU disappears.
-//
-// Outputs are zero-filled by the caller; a thread writes only its own
-// live slot of a listed column. What bounds it on the H100: at the 97k
-// dam-break state the output planes (8 channels x cap x C x 4 B, ~17 MB
-// at cap 16 and a 32,768-cell window) are the only sizeable traffic,
-// ~5 us at 3.35 TB/s; the inputs it must read (live slots next to the
-// floor) add well under 1 MB, and the pair work (~6 x 10^5 candidate
-// pairs) is far below the float32 rate. Like the other passes it runs
-// far above that bound, latency-bound on the dependent count and
-// position loads.
-template <int DIM>
-__global__ void hoist_fb_kernel(const float* __restrict__ P,
-                                const int* __restrict__ count,
-                                const int* __restrict__ cols, int n_cols,
-                                const float* __restrict__ Pb,
-                                const float* __restrict__ Volb,
-                                const float* __restrict__ Vb,
-                                const int* __restrict__ count_b,
-                                const int* __restrict__ cell_to_col,
-                                float* __restrict__ rho_out,
-                                float* __restrict__ gb_out,
-                                float* __restrict__ sq_out,
-                                float* __restrict__ s2_out,
-                                float* __restrict__ sb_out,
-                                int* __restrict__ cnt_out, int cap, int C,
-                                int cap_b, int Cb, int ny, int nz,
-                                int need_s2, Cubic k) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (t >= n_cols) return;
-  const int c = cols ? cols[t] : t;
-  if (c < 0 || c >= C) return;          // unused table entry
-  if (r >= min(count[c], cap)) return;  // dead slot: stays zero
-  const size_t plane = (size_t)cap * C;
-  const size_t plane_b = (size_t)cap_b * Cb;
-  const size_t slot = (size_t)r * C + c;
-  float pi[DIM];
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) pi[d] = P[d * plane + slot];
-  float rho = 0.0f, sq = 0.0f, s2 = 0.0f, sb = 0.0f;
-  float gb[DIM];
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) gb[d] = 0.0f;
-  int cnt_pairs = 0;
-  for (int o = 0; o < Stencil<DIM>::kOffsets; ++o) {
-    const int n = c + flat_shift<DIM>(o, ny, nz);
-    if (n < 0 || n >= C) continue;  // outside the grid: an empty cell
-    const int b = cell_to_col ? cell_to_col[n] : n;
-    if (b < 0 || b >= Cb) continue;
-    const int cnt = min(count_b[b], cap_b);
-    for (int j = 0; j < cnt; ++j) {
-      const size_t js = (size_t)j * Cb + b;
-      float dp[DIM];
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) dp[d] = pi[d] - Pb[d * plane_b + js];
-      float r2 = dp[0] * dp[0];
-#pragma unroll
-      for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
-      if (r2 > k.h2) continue;  // outside the support: every term is 0
-      const float vj = Volb[js];
-      const float dwr = cubic_dwr(r2, k);
-      rho += vj * cubic_w(r2, k);
-      float gsq = 0.0f, vdotg = 0.0f;
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        const float g = dp[d] * dwr;
-        gb[d] += g * vj;
-        gsq = gsq + g * g;
-        vdotg = vdotg + Vb[d * plane_b + js] * g * vj;
-      }
-      sq += gsq * vj * vj;
-      if (need_s2) s2 += gsq * vj;
-      sb += vdotg;
-      ++cnt_pairs;
-    }
-  }
-  rho_out[slot] = rho;
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) gb_out[d * plane + slot] = gb[d];
-  sq_out[slot] = sq;
-  s2_out[slot] = s2;
-  sb_out[slot] = sb;
-  cnt_out[slot] = cnt_pairs;
-}
-
 // K_i = sum_j (m k)_j (p_i - p_j) dW/dr / r, as salva_k_pass, in the
 // slot-group formulation of pallas_pair2.py k_pass_pallas2 (v2): slots are
 // taken in groups of 8 ranks, and group g of cell c is live iff the cell
@@ -344,10 +239,10 @@ __global__ void hoist_fb_kernel(const float* __restrict__ P,
 // depends on counts only), so the warp never diverges on it; the 4 partial
 // sums of each i-slot are combined by a fixed butterfly of shuffles (the
 // same order in every run, no atomics), and j-lane 0 writes the slot.
-// Dead own groups write zeros. What bounds it is what bounds the hoists
-// (the file note): the same pairs, read through L1/L2 behind dependent
-// count loads, the full spline for every candidate, and the dead slots of
-// live groups.
+// Dead own groups write zeros. What bounds it is the pair work of the
+// thread-per-slot design (the file note): the same pairs, read through
+// L1/L2 behind dependent count loads, the full spline for every
+// candidate, and the dead slots of live groups.
 template <int DIM>
 __global__ void k_pass_v2_kernel(const float* __restrict__ P,
                                  const float* __restrict__ M,
@@ -411,7 +306,8 @@ __global__ void k_pass_v2_kernel(const float* __restrict__ P,
   }
 }
 
-// ---- k_pass and t_pass: tiles of cells, neighbour rows in shared memory --
+// ---- k_pass, t_pass, hoist_ff: tiles of cells, neighbour rows in shared
+// memory
 // (design and bound: the file note)
 
 // Entries of each lane's queue of within-h pairs: at least kQueue, and at
@@ -437,7 +333,8 @@ __device__ __forceinline__ float word(const float4& v, int i) {
 template <int DIM>
 struct KPass {
   static constexpr int kWords = 1;  // float4 words of a staged slot
-  static constexpr int kOut = DIM;  // output channels
+  static constexpr int kOut = DIM;  // float output channels
+  static constexpr bool kCount = false;  // an int pair-count channel after them
   static constexpr int kThreads = 256;
   static constexpr int kSmemBudget = 56 * 1024;
   static constexpr int kRaw = DIM + 2;  // words read per slot: p_j, m_j, k_j
@@ -471,6 +368,7 @@ template <int DIM>
 struct TPass {
   static constexpr int kWords = 2;
   static constexpr int kOut = 1;
+  static constexpr bool kCount = false;
   static constexpr int kThreads = 512;
   static constexpr int kSmemBudget = 100 * 1024;
   static constexpr int kRaw = 2 * DIM + 1;  // p_j, m_j, Q_j
@@ -505,6 +403,49 @@ struct TPass {
   }
 };
 
+// hoist_ff: (p_j, m_j), one float4 word, the mass not premultiplied; the
+// float channels rho, Gf, sq, s2 (s2 summed only when kS2) and the pair
+// count. Its output tile is DIM + 4 words a slot, so at cap 16 a 56 KB
+// block holds 15 cells (k_pass: 16).
+template <int DIM, bool kS2>
+struct HoistFF {
+  static constexpr int kWords = 1;
+  static constexpr int kOut = DIM + 3;
+  static constexpr bool kCount = true;
+  static constexpr int kThreads = 256;
+  static constexpr int kSmemBudget = 56 * 1024;
+  static constexpr int kRaw = DIM + 1;  // p_j, m_j
+  __device__ static void fetch(float (&v)[kRaw], const float* P,
+                               const float* M, const float* X, size_t plane,
+                               size_t js) {
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) v[d] = P[d * plane + js];
+    v[DIM] = M[js];
+  }
+  __device__ static void pack(float4* s, const float (&v)[kRaw]) {
+    float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int d = 0; d <= DIM; ++d) w[d] = v[d];
+    s[0] = make_float4(w[0], w[1], w[2], w[3]);
+  }
+  __device__ static void add(float (&acc)[kOut], const float (&dp)[DIM],
+                             float r2, const float4* s, const Cubic& k) {
+    const float mj = word(s[0], DIM);
+    float w, dwr;
+    cubic_w_dwr(r2, k, w, dwr);
+    acc[0] += mj * w;
+    float gsq = 0.0f;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      const float g = dp[d] * dwr;
+      acc[1 + d] += g * mj;
+      gsq = gsq + g * g;
+    }
+    acc[DIM + 1] += gsq * mj * mj;
+    if (kS2) acc[DIM + 2] += gsq * mj;
+  }
+};
+
 // Stencil rows: the 3^(dim-1) offsets (dx, dy) in 3D, dx in 2D, in the
 // order of flat_shift; a row's three offsets add dz (3D) or dy (2D) in
 // {-1, 0, 1} to its flat shift.
@@ -533,7 +474,7 @@ size_t tile_bytes(int tile, int cap) {
   const size_t rows = Rows<DIM>::kRows, width = tile + 2;
   const int items = tile * ((cap + 7) / 8);
   return rows * width * cap * Pass::kWords * sizeof(float4) +
-         (size_t)Pass::kOut * cap * tile * sizeof(float) +
+         (size_t)(Pass::kOut + Pass::kCount) * cap * tile * sizeof(float) +
          (size_t)Pass::kThreads * queue_len(cap) * sizeof(unsigned short) +
          (rows * width + rows * (width + 1) + rows) * sizeof(int) +
          (size_t)(std::max(32, items) + 1) * sizeof(int);
@@ -559,9 +500,11 @@ TileShape tile_shape(int cap, int C) {
           (C + tile - 1) / tile};
 }
 
-// k_pass (Pass = KPass) and t_pass (TPass) over tiles of `tile`
-// consecutive cells; see the file note. Every output slot of the block's
-// cells is written (zero for dead slots and air cells).
+// k_pass (Pass = KPass), t_pass (TPass) and hoist_ff (HoistFF) over tiles
+// of `tile` consecutive cells; see the file note. Every output slot of the
+// block's cells is written (zero for dead slots and air cells). `out` is
+// [kOut + kCount, cap, C]: the float channels, then the pair count's
+// int32 plane.
 template <int DIM, class Pass>
 __global__ void __launch_bounds__(Pass::kThreads)
     tile_pass_kernel(const float* __restrict__ P, const float* __restrict__ M,
@@ -575,7 +518,8 @@ __global__ void __launch_bounds__(Pass::kThreads)
   const int width = tile + 2;          // staged cells of a row
   const int row_slots = width * cap;   // slots a staged row holds
   const int n_staged = R::kRows * width;
-  const int n_out = Pass::kOut * cap * tile;  // output tile entries
+  constexpr int kChan = Pass::kOut + Pass::kCount;  // output channels
+  const int n_out = kChan * cap * tile;  // output tile entries
   const int n_items_max = tile * ((cap + 7) >> 3);
   const int list = max(32, n_items_max);
   const int qlen = queue_len(cap);
@@ -601,7 +545,7 @@ __global__ void __launch_bounds__(Pass::kThreads)
     own_live |= row == R::kOwn && m >= 1 && m <= tile && cnt[e] > 0;
   }
   if (!__syncthreads_or(own_live)) {  // block-uniform: an all-air tile
-    for (int line = warp; line < Pass::kOut * cap; line += kWarps) {
+    for (int line = warp; line < kChan * cap; line += kWarps) {
       for (int lc = lane; lc < tile && c0 + lc < C; lc += 32) {
         out[(size_t)line * C + c0 + lc] = 0.0f;
       }
@@ -717,12 +661,14 @@ __global__ void __launch_bounds__(Pass::kThreads)
     float acc[Pass::kOut];
 #pragma unroll
     for (int d = 0; d < Pass::kOut; ++d) acc[d] = 0.0f;
-    int len = 0;
-    // r^2 of the pair (i, staged slot idx), and p_i - p_j.
-    auto dist2 = [&](int idx, float (&dp)[DIM]) {
+    int len = 0, pairs = 0;
+    // r^2 of the pair (i, staged slot idx), p_i - p_j, and the slot's
+    // word DIM (hoist_ff: m_j).
+    auto dist2 = [&](int idx, float (&dp)[DIM], float& wj) {
       const float4 a = slots[(size_t)idx * kW];
 #pragma unroll
       for (int d = 0; d < DIM; ++d) dp[d] = pi[d] - word(a, d);
+      wj = word(a, DIM);
       float r2 = dp[0] * dp[0];
 #pragma unroll
       for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
@@ -730,25 +676,27 @@ __global__ void __launch_bounds__(Pass::kThreads)
     };
     // Queue the pair if q2, exactly as cubic_dwr computes it, is at most 1:
     // beyond, the pair term is +-0 (file note), so skipping the pair
-    // changes no sum.
-    auto queue = [&](int idx, float r2) {
+    // changes no sum. hoist_ff counts the pair on its own rule.
+    auto visit = [&](int idx, float r2, float mj) {
       if (r2 * k.inv_h2 <= 1.0f) q[len++ * 32] = (unsigned short)idx;
+      if (Pass::kCount) pairs += (r2 <= k.h2 && mj != 0.0f) ? 1 : 0;
     };
     // Add the queued pairs, in the order they were found, two at a time
     // (their splines overlap; the sums take them in order).
     auto flush = [&]() {
       int e = 0;
+      float w0, w1;
       for (; e + 1 < len; e += 2) {
         const int i0 = q[e * 32], i1 = q[(e + 1) * 32];
         float dp0[DIM], dp1[DIM];
-        const float r20 = dist2(i0, dp0), r21 = dist2(i1, dp1);
+        const float r20 = dist2(i0, dp0, w0), r21 = dist2(i1, dp1, w1);
         Pass::add(acc, dp0, r20, slots + (size_t)i0 * kW, k);
         Pass::add(acc, dp1, r21, slots + (size_t)i1 * kW, k);
       }
       if (e < len) {
         const int i0 = q[e * 32];
         float dp0[DIM];
-        const float r20 = dist2(i0, dp0);
+        const float r20 = dist2(i0, dp0, w0);
         Pass::add(acc, dp0, r20, slots + (size_t)i0 * kW, k);
       }
       len = 0;
@@ -764,14 +712,15 @@ __global__ void __launch_bounds__(Pass::kThreads)
       for (; idx + 4 < end; idx += 8) {
         // Both distances before either queue store (the compiler cannot
         // tell the queue from the staged slots), so the loads overlap.
-        float dp[DIM];
-        const float r2a = dist2(idx, dp), r2b = dist2(idx + 4, dp);
-        queue(idx, r2a);
-        queue(idx + 4, r2b);
+        float dp[DIM], ma, mb;
+        const float r2a = dist2(idx, dp, ma), r2b = dist2(idx + 4, dp, mb);
+        visit(idx, r2a, ma);
+        visit(idx + 4, r2b, mb);
       }
       if (idx < end) {
-        float dp[DIM];
-        queue(idx, dist2(idx, dp));
+        float dp[DIM], ma;
+        const float r2a = dist2(idx, dp, ma);
+        visit(idx, r2a, ma);
       }
     }
     flush();
@@ -783,20 +732,30 @@ __global__ void __launch_bounds__(Pass::kThreads)
       v += __shfl_xor_sync(0xffffffffu, v, 2);
       acc[d] = v;
     }
+    if (Pass::kCount) {
+      pairs += __shfl_xor_sync(0xffffffffu, pairs, 1);
+      pairs += __shfl_xor_sync(0xffffffffu, pairs, 2);
+    }
     if (jl == 0 && live_i) {
 #pragma unroll
       for (int d = 0; d < Pass::kOut; ++d) {
         out_t[(d * cap + r) * tile + lc] = acc[d];
       }
+      if (Pass::kCount) {
+        out_t[(Pass::kOut * cap + r) * tile + lc] = __int_as_float(pairs);
+      }
     }
   }
   __syncthreads();
   // Every slot of the tile's cells: a warp per (channel, rank) line of
-  // `tile` consecutive cells (the output is [kOut][cap][C], so line
-  // d * cap + r starts at line * C).
-  for (int line = warp; line < Pass::kOut * cap; line += kWarps) {
+  // `tile` consecutive cells (the output is [kChan][cap][C], so line
+  // d * cap + r starts at line * C), copied as 32-bit words (the count
+  // plane holds int32).
+  const unsigned* words = reinterpret_cast<const unsigned*>(out_t);
+  unsigned* out_w = reinterpret_cast<unsigned*>(out);
+  for (int line = warp; line < kChan * cap; line += kWarps) {
     for (int lc = lane; lc < tile && c0 + lc < C; lc += 32) {
-      out[(size_t)line * C + c0 + lc] = out_t[line * tile + lc];
+      out_w[(size_t)line * C + c0 + lc] = words[line * tile + lc];
     }
   }
 }
@@ -850,11 +809,173 @@ int query_tile_pass(int cap, int C, int* shape) {
   return (int)err;
 }
 
-constexpr int kThreads = 128;
+// ---- hoist_fb: a warp per live (listed column, 8-slot group) -------------
+// (design and bound: the file note)
 
-dim3 grid_for(int cap, int C) {
-  return dim3((unsigned)((C + kThreads - 1) / kThreads), (unsigned)cap);
+constexpr int kFbThreads = 256;
+// Entries of each lane's queue of within-h boundary pairs; a full queue is
+// added before the next candidate step.
+constexpr int kFbQueue = 16;
+
+// Fluid-boundary hoist: per live fluid slot i of a listed column, over the
+// boundary particles j of its 3^dim neighbour cells within h:
+//   rho = sum Volb_j W,  Gb = sum Volb_j grad,  sq = sum |grad|^2 Volb_j^2,
+//   s2 = sum |grad|^2 Volb_j (when need_s2),  Sb = sum Volb_j (vb_j . grad),
+//   cnt = the number of such pairs.
+// `out` is [DIM + 5, cap, C] (rho, Gb, sq, s2, Sb, then the count's int32
+// plane), zero-filled by the caller: a warp writes the live slots of its
+// item only. Item w = entry t (of `cols`, or column t when cols is null)
+// and 8-slot group g, w = t * groups + g.
+template <int DIM>
+__global__ void __launch_bounds__(kFbThreads)
+    hoist_fb_warps(const float* __restrict__ P, const int* __restrict__ count,
+                   const int* __restrict__ cols, int n_cols,
+                   const float* __restrict__ Pb,
+                   const float* __restrict__ Volb,
+                   const float* __restrict__ Vb,
+                   const int* __restrict__ count_b,
+                   const int* __restrict__ cell_to_col,
+                   float* __restrict__ out, int cap, int C, int cap_b,
+                   int Cb, int ny, int nz, int need_s2, Cubic k) {
+  constexpr int kWarps = kFbThreads / 32;
+  constexpr int kOut = DIM + 4;  // float channels: rho, Gb, sq, s2, Sb
+  __shared__ int queues[kWarps][kFbQueue][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = (cap + 7) >> 3;
+  const long long item = (long long)blockIdx.x * kWarps + warp;
+  // Every exit below is warp-uniform.
+  if (item >= (long long)n_cols * groups) return;
+  const int t = (int)(item / groups);
+  const int g = (int)(item - (long long)t * groups);
+  const int c = cols ? cols[t] : t;
+  if (c < 0 || c >= C) return;           // unused table entry
+  const int n_i = min(count[c], cap);
+  if (n_i <= 8 * g) return;              // dead group: the fill's zeros
+  // Lane o < 3^dim: neighbour cell o's boundary column and count.
+  int bcol = 0, bcnt = 0;
+  if (lane < Stencil<DIM>::kOffsets) {
+    const int n = c + flat_shift<DIM>(lane, ny, nz);
+    if (n >= 0 && n < C) {  // outside the grid: an empty cell
+      const int b = cell_to_col ? cell_to_col[n] : n;
+      if (b >= 0 && b < Cb) {
+        bcol = b;
+        bcnt = min(count_b[b], cap_b);
+      }
+    }
+  }
+  unsigned cells = __ballot_sync(0xffffffffu, bcnt > 0);
+  if (!cells) return;  // no boundary particle around: zeros
+  const int il = lane >> 2, jl = lane & 3;
+  const int r = 8 * g + il;
+  const bool live_i = r < n_i;
+  const size_t plane = (size_t)cap * C;
+  const size_t plane_b = (size_t)cap_b * Cb;
+  float pi[DIM];
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) {
+    pi[d] = live_i ? P[d * plane + (size_t)r * C + c] : 0.0f;
+  }
+  float acc[kOut];
+#pragma unroll
+  for (int d = 0; d < kOut; ++d) acc[d] = 0.0f;
+  int pairs = 0, len = 0;
+  int* q = &queues[warp][0][lane];
+  // p_i - p_j and r^2 for boundary slot js.
+  auto dist2 = [&](size_t js, float (&dp)[DIM]) {
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) dp[d] = pi[d] - Pb[d * plane_b + js];
+    float r2 = dp[0] * dp[0];
+#pragma unroll
+    for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
+    return r2;
+  };
+  auto add = [&](size_t js) {
+    float dp[DIM];
+    const float r2 = dist2(js, dp);
+    const float vj = Volb[js];
+    float w, dwr;
+    cubic_w_dwr(r2, k, w, dwr);
+    acc[0] += vj * w;
+    float gsq = 0.0f, vdotg = 0.0f;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      const float gd = dp[d] * dwr;
+      acc[1 + d] += gd * vj;
+      gsq = gsq + gd * gd;
+      vdotg = vdotg + Vb[d * plane_b + js] * gd * vj;
+    }
+    acc[DIM + 1] += gsq * vj * vj;
+    if (need_s2) acc[DIM + 2] += gsq * vj;
+    acc[DIM + 3] += vdotg;
+  };
+  // Add the queued pairs in the order they were found, two at a time.
+  auto flush = [&]() {
+    int e = 0;
+    for (; e + 1 < len; e += 2) {
+      const int j0 = q[e * 32], j1 = q[(e + 1) * 32];
+      add((size_t)j0);
+      add((size_t)j1);
+    }
+    if (e < len) add((size_t)q[e * 32]);
+    len = 0;
+  };
+  // The cells with boundary particles, in stencil order; j-lane jl takes
+  // their slots jl, jl + 4, ... and queues those within h (r^2 <= h^2,
+  // the count's rule and the plain version's mask).
+  while (cells) {
+    const int o = __ffs(cells) - 1;
+    cells &= cells - 1;
+    const int b = __shfl_sync(0xffffffffu, bcol, o);
+    const int nb = __shfl_sync(0xffffffffu, bcnt, o);
+    for (int j0 = 0; j0 < nb; j0 += 4) {
+      if (__any_sync(0xffffffffu, len == kFbQueue)) flush();
+      const int j = j0 + jl;
+      if (live_i && j < nb) {
+        const size_t js = (size_t)j * Cb + b;
+        float dp[DIM];
+        if (dist2(js, dp) <= k.h2) {
+          q[len++ * 32] = (int)js;
+          ++pairs;
+        }
+      }
+    }
+  }
+  flush();
+  // The 4 j-lane partial sums of each i-slot, in a fixed order.
+#pragma unroll
+  for (int d = 0; d < kOut; ++d) {
+    float v = acc[d];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    acc[d] = v;
+  }
+  pairs += __shfl_xor_sync(0xffffffffu, pairs, 1);
+  pairs += __shfl_xor_sync(0xffffffffu, pairs, 2);
+  if (jl == 0 && live_i) {
+    const size_t slot = (size_t)r * C + c;
+#pragma unroll
+    for (int d = 0; d < kOut; ++d) out[d * plane + slot] = acc[d];
+    reinterpret_cast<int*>(out)[kOut * plane + slot] = pairs;
+  }
 }
+
+// The passes of tile_pass_kernel, as salva_pass_tiling names them.
+enum TiledPass { kTileK = 0, kTileT = 1, kTileHoist = 2, kTileHoistS2 = 3 };
+
+template <int DIM>
+int query_tiling(int pass, int cap, int C, int* shape) {
+  switch (pass) {
+    case kTileK: return query_tile_pass<DIM, KPass<DIM>>(cap, C, shape);
+    case kTileT: return query_tile_pass<DIM, TPass<DIM>>(cap, C, shape);
+    case kTileHoist:
+      return query_tile_pass<DIM, HoistFF<DIM, false>>(cap, C, shape);
+    case kTileHoistS2:
+      return query_tile_pass<DIM, HoistFF<DIM, true>>(cap, C, shape);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+constexpr int kThreads = 128;
 
 }  // namespace
 
@@ -902,41 +1023,40 @@ int salva_t_pass(const float* P, const float* M, const float* Q,
   return (int)cudaErrorInvalidValue;
 }
 
-// How salva_k_pass (t_pass == 0) or salva_t_pass tiles a [cap, C] grid:
-// shape[0..3] = cells a block owns, bytes of shared memory a block takes,
-// blocks launched, blocks resident on one SM of the current device.
-// Returns a CUDA error code (0 = success).
-int salva_pass_tiling(int t_pass, int dim, int cap, int C, int* shape) {
+// How salva_k_pass (pass 0), salva_t_pass (1) or salva_hoist_ff (2: without
+// s2, 3: with it) tiles a [cap, C] grid: shape[0..3] = cells a block owns,
+// bytes of shared memory a block takes, blocks launched, blocks resident
+// on one SM of the current device. Returns a CUDA error code (0 =
+// success).
+int salva_pass_tiling(int pass, int dim, int cap, int C, int* shape) {
   if (cap <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  if (dim == 3) {
-    return t_pass ? query_tile_pass<3, TPass<3>>(cap, C, shape)
-                  : query_tile_pass<3, KPass<3>>(cap, C, shape);
-  }
-  if (dim == 2) {
-    return t_pass ? query_tile_pass<2, TPass<2>>(cap, C, shape)
-                  : query_tile_pass<2, KPass<2>>(cap, C, shape);
-  }
+  if (dim == 3) return query_tiling<3>(pass, cap, C, shape);
+  if (dim == 2) return query_tiling<2>(pass, cap, C, shape);
   return (int)cudaErrorInvalidValue;
 }
 
+// `out` is [dim + 4, cap, C]: rho, Gf (dim planes), sq, s2, and the pair
+// count as int32; every slot is written.
 int salva_hoist_ff(const float* P, const float* M, const int* count,
-                   float* rho, float* gf, float* sq, float* s2, int* cnt,
-                   int dim, int cap, int C, int ny, int nz, int need_s2,
-                   float inv_h2, float w_norm, float dwr_scale, float h2,
-                   void* stream) {
+                   float* out, int dim, int cap, int C, int ny, int nz,
+                   int need_s2, float inv_h2, float w_norm, float dwr_scale,
+                   float h2, void* stream) {
   if (cap <= 0 || C <= 0) return kNotLaunched;
   const Cubic k{inv_h2, w_norm, dwr_scale, h2};
   cudaStream_t s = (cudaStream_t)stream;
   if (dim == 3) {
-    hoist_ff_kernel<3><<<grid_for(cap, C), kThreads, 0, s>>>(
-        P, M, count, rho, gf, sq, s2, cnt, cap, C, ny, nz, need_s2, k);
-  } else if (dim == 2) {
-    hoist_ff_kernel<2><<<grid_for(cap, C), kThreads, 0, s>>>(
-        P, M, count, rho, gf, sq, s2, cnt, cap, C, ny, nz, need_s2, k);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return need_s2 ? launch_tile_pass<3, HoistFF<3, true>>(
+                         P, M, nullptr, count, out, cap, C, ny, nz, k, s)
+                   : launch_tile_pass<3, HoistFF<3, false>>(
+                         P, M, nullptr, count, out, cap, C, ny, nz, k, s);
   }
-  return (int)cudaGetLastError();
+  if (dim == 2) {
+    return need_s2 ? launch_tile_pass<2, HoistFF<2, true>>(
+                         P, M, nullptr, count, out, cap, C, ny, nz, k, s)
+                   : launch_tile_pass<2, HoistFF<2, false>>(
+                         P, M, nullptr, count, out, cap, C, ny, nz, k, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int salva_k_pass_v2(const float* P, const float* M, const float* K,
@@ -962,29 +1082,34 @@ int salva_k_pass_v2(const float* P, const float* M, const float* K,
 }
 
 // `cols` may be null (visit all C columns; n_cols = C) and `cell_to_col`
-// may be null (the boundary grid is the full grid, Cb = C). The outputs
-// must be zero-filled: only listed live slots are written.
+// may be null (the boundary grid is the full grid, Cb = C). `out` is
+// [dim + 5, cap, C]: rho, Gb (dim planes), sq, s2, Sb, and the pair count
+// as int32; it must be zero-filled: only listed live slots are written.
 int salva_hoist_fb(const float* P, const int* count, const int* cols,
                    int n_cols, const float* Pb, const float* Volb,
                    const float* Vb, const int* count_b,
-                   const int* cell_to_col, float* rho, float* gb, float* sq,
-                   float* s2, float* sb, int* cnt, int dim, int cap, int C,
-                   int cap_b, int Cb, int ny, int nz, int need_s2,
+                   const int* cell_to_col, float* out, int dim, int cap,
+                   int C, int cap_b, int Cb, int ny, int nz, int need_s2,
                    float inv_h2, float w_norm, float dwr_scale, float h2,
                    void* stream) {
   if (cap <= 0 || C <= 0 || n_cols <= 0 || cap_b <= 0 || Cb <= 0) {
     return kNotLaunched;
   }
+  // A queued boundary slot is an int index j * Cb + b.
+  if ((long long)cap_b * Cb > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const Cubic k{inv_h2, w_norm, dwr_scale, h2};
   cudaStream_t s = (cudaStream_t)stream;
+  const long long warps = (long long)n_cols * ((cap + 7) / 8);
+  const int per_block = kFbThreads / 32;
+  const dim3 grid((unsigned)((warps + per_block - 1) / per_block));
   if (dim == 3) {
-    hoist_fb_kernel<3><<<grid_for(cap, n_cols), kThreads, 0, s>>>(
-        P, count, cols, n_cols, Pb, Volb, Vb, count_b, cell_to_col, rho, gb,
-        sq, s2, sb, cnt, cap, C, cap_b, Cb, ny, nz, need_s2, k);
+    hoist_fb_warps<3><<<grid, kFbThreads, 0, s>>>(
+        P, count, cols, n_cols, Pb, Volb, Vb, count_b, cell_to_col, out, cap,
+        C, cap_b, Cb, ny, nz, need_s2, k);
   } else if (dim == 2) {
-    hoist_fb_kernel<2><<<grid_for(cap, n_cols), kThreads, 0, s>>>(
-        P, count, cols, n_cols, Pb, Volb, Vb, count_b, cell_to_col, rho, gb,
-        sq, s2, sb, cnt, cap, C, cap_b, Cb, ny, nz, need_s2, k);
+    hoist_fb_warps<2><<<grid, kFbThreads, 0, s>>>(
+        P, count, cols, n_cols, Pb, Volb, Vb, count_b, cell_to_col, out, cap,
+        C, cap_b, Cb, ny, nz, need_s2, k);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -47,10 +47,9 @@ _SIGNATURES = {
                      _F, _F, _F, _F, _P],
     "salva_t_pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _F, _F, _F, _F, _P],
-    "salva_hoist_ff": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _F, _F, _F, _F, _P],
-    "salva_hoist_fb": [_P, _P, _P, _I, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P, _P,
+    "salva_hoist_ff": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _F, _F, _F, _F, _P],
+    "salva_hoist_fb": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I,
                        _F, _F, _F, _F, _P],
     "salva_k_pass_v2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

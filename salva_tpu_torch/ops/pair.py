@@ -382,20 +382,29 @@ def _launch(name, fn, *args, device):
     _build.launch(LAUNCHES, name, fn, *args, device=device)
 
 
-def tiling(name, dim, cap, C):
-    """How the ``k_pass`` or ``t_pass`` kernel tiles a [cap, C] grid on
-    the current CUDA device: ``tile`` (consecutive cells a block owns),
-    ``smem`` (bytes of shared memory a block takes), ``blocks`` (blocks a
-    launch runs) and ``per_sm`` (blocks resident on one SM)."""
+# The tiled kernels, as ``salva_pass_tiling`` numbers them (hoist_ff
+# without and with s2).
+_TILED = {("k_pass", False): 0, ("t_pass", False): 1,
+          ("hoist_ff", False): 2, ("hoist_ff", True): 3}
+
+
+def tiling(name, dim, cap, C, need_s2=False):
+    """How the ``k_pass``, ``t_pass`` or ``hoist_ff`` (with or without
+    ``need_s2``) kernel tiles a [cap, C] grid on the current CUDA device:
+    ``tile`` (consecutive cells a block owns), ``smem`` (bytes of shared
+    memory a block takes), ``blocks`` (blocks a launch runs) and
+    ``per_sm`` (blocks resident on one SM)."""
     import ctypes
 
     from . import _build
 
-    if name not in ("k_pass", "t_pass"):
-        raise ValueError(f"only k_pass and t_pass are tiled, not {name!r}")
+    key = (name, bool(need_s2) and name == "hoist_ff")
+    if key not in _TILED:
+        raise ValueError(f"only k_pass, t_pass and hoist_ff are tiled, not "
+                         f"{name!r}")
     shape = (ctypes.c_int * 4)()
-    err = _build.load().salva_pass_tiling(int(name == "t_pass"), dim, cap,
-                                          C, ctypes.addressof(shape))
+    err = _build.load().salva_pass_tiling(_TILED[key], dim, cap, C,
+                                          ctypes.addressof(shape))
     if err != 0:
         raise RuntimeError(f"{name}: no tiling for dim {dim}, cap {cap} "
                            f"(CUDA error {err})")
@@ -444,22 +453,21 @@ def t_pass(spec, h, dim, kernel_gradient, P, M, Q, counts):
 
 def hoist_ff(spec, h, dim, kernel_density, kernel_gradient, P, M, counts,
              need_s2=True):
-    """(rho_ff, Gf, sq_ff, s2_ff, cnt_ff); s2 is zero unless ``need_s2``."""
+    """(rho_ff, Gf, sq_ff, s2_ff, cnt_ff); s2 is zero unless ``need_s2``.
+    On CUDA tensors one launch of the tiled kernel, which writes every
+    slot of one packed [dim + 4, cap, C] allocation; the outputs are
+    contiguous views of it (the count plane as int32)."""
     if _check("hoist_ff", spec, dim, (kernel_density, kernel_gradient),
               [(P, _vec), (M, _scl)], counts):
         return hoist_ff_plain(spec, h, dim, kernel_density, kernel_gradient,
                               P, M, counts, need_s2=need_s2)
-    rho = torch.empty_like(M)
-    gf = torch.empty_like(P)
-    sq = torch.empty_like(M)
-    s2 = torch.empty_like(M)
-    cnt = torch.empty(M.shape, dtype=torch.int32, device=P.device)
-    dim_, cap, C, ny, nz = _grid_args(spec, dim, P)
+    out = torch.empty((dim + 4,) + tuple(M.shape), dtype=torch.float32,
+                      device=P.device)
     _launch("hoist_ff", "salva_hoist_ff", P.data_ptr(), M.data_ptr(),
-            counts.data_ptr(), rho.data_ptr(), gf.data_ptr(), sq.data_ptr(),
-            s2.data_ptr(), cnt.data_ptr(), dim_, cap, C, ny, nz,
+            counts.data_ptr(), out.data_ptr(), *_grid_args(spec, dim, P),
             int(bool(need_s2)), *_cubic_args(h, dim), device=P.device)
-    return rho, gf, sq, s2, cnt
+    return (out[0], out[1:1 + dim], out[1 + dim], out[2 + dim],
+            out[3 + dim].view(torch.int32))
 
 
 def _check_fb(dim, C, on_cpu, device, Pb, Volb, Vbvel, counts_b,
@@ -508,9 +516,10 @@ def hoist_fb(spec, h, dim, kernel_density, kernel_gradient, P, counts, Pb,
              Volb, Vbvel, counts_b, cell_to_col=None, cols=None,
              need_s2=True):
     """(rho_fb, Gb, sq_fb, s2_fb, Sb, cnt_fb) on the full [cap_f, C] fluid
-    grid; operands as :func:`hoist_fb_plain`. The kernel visits the
-    listed columns only; the others stay zero (outputs are zero-filled
-    here)."""
+    grid; operands as :func:`hoist_fb_plain`. On CUDA tensors two
+    launches: one zero fill of a packed [dim + 5, cap, C] allocation, of
+    which the outputs are contiguous views (the count plane as int32),
+    and the kernel, which writes the live slots of the listed columns."""
     on_cpu = _check("hoist_fb", spec, dim, (kernel_density, kernel_gradient),
                     [(P, _vec)], counts)
     cap_b, Cb = _check_fb(dim, P.shape[2], on_cpu, P.device, Pb, Volb, Vbvel,
@@ -521,18 +530,15 @@ def hoist_fb(spec, h, dim, kernel_density, kernel_gradient, P, counts, Pb,
                               cell_to_col=cell_to_col, cols=cols,
                               need_s2=need_s2)
     dim_, cap, C, ny, nz = _grid_args(spec, dim, P)
-    scl = (cap, C)
-    rho = torch.zeros(scl, dtype=torch.float32, device=P.device)
-    gb = torch.zeros_like(P)
-    sq, s2, sb = (torch.zeros_like(rho) for _ in range(3))
-    cnt = torch.zeros(scl, dtype=torch.int32, device=P.device)
+    out = torch.zeros((dim + 5, cap, C), dtype=torch.float32,
+                      device=P.device)
     n_cols = C if cols is None else cols.shape[0]
     _launch("hoist_fb", "salva_hoist_fb", P.data_ptr(), counts.data_ptr(),
             None if cols is None else cols.data_ptr(), n_cols,
             Pb.data_ptr(), Volb.data_ptr(), Vbvel.data_ptr(),
             counts_b.data_ptr(),
             None if cell_to_col is None else cell_to_col.data_ptr(),
-            rho.data_ptr(), gb.data_ptr(), sq.data_ptr(), s2.data_ptr(),
-            sb.data_ptr(), cnt.data_ptr(), dim_, cap, C, cap_b, Cb, ny, nz,
+            out.data_ptr(), dim_, cap, C, cap_b, Cb, ny, nz,
             int(bool(need_s2)), *_cubic_args(h, dim), device=P.device)
-    return rho, gb, sq, s2, sb, cnt
+    return (out[0], out[1:1 + dim], out[1 + dim], out[2 + dim], out[3 + dim],
+            out[4 + dim].view(torch.int32))

@@ -11,10 +11,11 @@ GPU machine without the JAX package's dependencies:
 Fixture: a clustered random fluid binned by the port's dense grid, in 2D
 and 3D, with cells over 8 particles; for ``hoist_fb``, a moving boundary
 layer through it, binned both ways (full grid, compact table with the
-adjacency columns). The tiled ``k_pass`` / ``t_pass`` kernels are also
-held on grids cut to their tiles (``_tiled_grid``: caps 8 to 48, inner
-extents that are no multiple of a tile or shorter than one, the fullest
-cells on tile edges, an all-air grid). Tolerances as in
+adjacency columns, unused entries among them). The tiled ``k_pass`` /
+``t_pass`` / ``hoist_ff`` kernels are also held on grids cut to their
+tiles (``_tiled_grid``: caps 8 to 48, inner extents that are no multiple
+of a tile or shorter than one, the fullest cells on tile edges, an
+all-air grid). Tolerances as in
 ``tests/test_torch_pair_passes.py`` (the kernels walk the full stencil,
 the plain versions the half stencil: float32 summation order only);
 ``expand`` moves data only and must equal ``expand_plain`` bitwise.
@@ -73,13 +74,14 @@ def _assert_close(got, want, tol):
 
 
 def _tiled_grid(dim, cap, window, device):
-    """A grid cut for the tiled ``k_pass`` / ``t_pass`` kernels: the inner
-    (z in 3D, y in 2D) extent ``"ragged"`` (2 k_pass tiles + 1 cell: no
-    multiple of the tile) or ``"short"`` (one cell less than a k_pass
-    tile, at least 3); every interior cell filled to a random count below
-    cap - 1, and the first and last cell of a k_pass and of a t_pass tile
-    (interior cells, where the short grid has them) at the cap and at
-    cap - 1, so the fullest cells sit on tile edges. ``"air"``: the ragged
+    """A grid cut for the tiled ``k_pass`` / ``t_pass`` / ``hoist_ff``
+    kernels: the inner (z in 3D, y in 2D) extent ``"ragged"`` (2 k_pass
+    tiles + 1 cell: no multiple of the tile) or ``"short"`` (one cell less
+    than a k_pass tile, at least 3); every interior cell filled to a random
+    count below cap - 1, and the first and last cell of a k_pass, a t_pass
+    and a hoist_ff tile (interior cells, where the short grid has them) at
+    the cap and at cap - 1, so the fullest cells sit on tile edges.
+    ``"air"``: the ragged
     grid with no particle. Masses, ``K`` and ``Q`` are scaled so that the
     outputs stay of order 1. Returns (spec, P, M, Q, K, counts, fullest
     cells)."""
@@ -100,7 +102,7 @@ def _tiled_grid(dim, cap, window, device):
                 torch.zeros(C, dtype=torch.int32, device=device), [])
     n_cell = np.where(interior, rng.integers(0, cap - 1, size=C), 0)
     full = []
-    for name in ("k_pass", "t_pass"):
+    for name in TILED:
         tile = pair.tiling(name, dim, cap, C)["tile"]
         for edge in (0, tile - 1):
             cand = [c for c in np.flatnonzero(interior)
@@ -125,6 +127,8 @@ def _tiled_grid(dim, cap, window, device):
     return spec, P, M, Q, K, counts, full
 
 
+# The kernels of tile_pass_kernel.
+TILED = ("k_pass", "t_pass", "hoist_ff")
 # (dim, cap, window): the tiled grids of _tiled_grid at every cap the
 # world's auto cap reaches, and the clustered fixture of _grid (cap 24).
 KT_CASES = ([(dim, cap, window) for dim in (2, 3) for cap in (8, 16, 24, 48)
@@ -171,30 +175,64 @@ def test_k_and_t_kernels_match_plain(cuda, dim, cap, window):
             assert float(want.abs().max()) > 1e-3  # the sums are not empty
 
 
-@pytest.mark.parametrize("dim", [2, 3])
 @pytest.mark.parametrize("need_s2", [False, True])
-def test_hoist_kernel_matches_plain(cuda, dim, need_s2):
-    spec, P, M, V, K, counts = _grid(dim, cuda)
+@pytest.mark.parametrize("dim,cap,window", KT_CASES)
+def test_hoist_kernel_matches_plain(cuda, dim, cap, window, need_s2):
+    if window == "clustered":
+        spec, P, M, V, K, counts = _grid(dim, cuda)
+        full = []
+    else:
+        spec, P, M, Q, K, counts, full = _tiled_grid(dim, cap, window, cuda)
+    C = spec.num_cells
+    t = pair.tiling("hoist_ff", dim, cap, C, need_s2=need_s2)
+    assert t["blocks"] == -(-C // t["tile"]) and t["per_sm"] >= 1
+    assert 0 < t["smem"] <= 56 * 1024
+    if window == "ragged":
+        assert {c % t["tile"] for c in full} >= {0, t["tile"] - 1}
     args = (spec, H, dim, "cubic", "cubic", P, M, counts)
+    # Garbage in the allocator's cached blocks: every output slot must be
+    # written by the kernel (the outputs are views of one allocation).
+    junk = torch.full((dim + 4,) + tuple(M.shape), float("nan"),
+                      device=cuda)
+    del junk
+    before = pair.LAUNCHES["hoist_ff"]
     out = pair.hoist_ff(*args, need_s2=need_s2)
+    assert pair.LAUNCHES["hoist_ff"] == before + 1
     ref = pair.hoist_ff_plain(*args, need_s2=need_s2)
+    for o, r in zip(out, ref):
+        assert o.is_contiguous() and o.shape == r.shape and o.dtype == r.dtype
     for o, r in zip(out[:4], ref[:4]):
         _assert_close(o, r, HOIST_TOL)
     assert torch.equal(out[4], ref[4])  # pair counts exact
+    again = pair.hoist_ff(*args, need_s2=need_s2)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))  # bitwise
+    if window == "air":
+        assert all(int(torch.count_nonzero(o)) == 0 for o in out)
+    else:
+        assert int(out[4].sum()) > 0
+    assert bool((out[3] != 0).any()) == (need_s2 and window != "air")
 
 
-def _boundary(spec, device, layout):
-    """A jittered moving boundary layer at y ~ 0.5 through the fluid of
-    :func:`_grid`, as ``hoist_fb`` takes it: ``"full"`` binned into the
-    fluid grid's cells (identity map, every column), ``"sparse"`` binned
-    into the compact occupied-cell table and visited through its
-    boundary-adjacency columns (with unused table entries)."""
+def _boundary(spec, device, layout, through=None, counts=None):
+    """A jittered moving boundary layer at y ~ 0.5 (or through the centre
+    of fluid cell ``through``) through the fluid of :func:`_grid`, as
+    ``hoist_fb`` takes it: ``"full"`` binned into the fluid grid's cells
+    (identity map, every column), ``"sparse"`` binned into the compact
+    occupied-cell table and visited through its boundary-adjacency
+    columns, with unused entries in the middle and at the end of the
+    table and the 5 last adjacent columns (never ``through``; holding
+    fluid, given the fluid's ``counts``) left out, as an overflowing
+    table drops them."""
     dim = spec.dim
     rng = np.random.default_rng(23 + dim)
     ticks = np.arange(0.05, 1.6, 0.1)
     grid = np.stack(np.meshgrid(*([ticks] * (dim - 1)), indexing="ij"),
                     axis=-1).reshape(-1, dim - 1)
-    bpos = np.insert(grid, 1, 0.5, axis=1)
+    y = 0.5
+    if through is not None:
+        iy = np.unravel_index(through, spec.dims)[1]
+        y = spec.origin[1] + (iy + 0.5) * spec.cell_width
+    bpos = np.insert(grid, 1, y, axis=1)
     bpos = bpos + rng.uniform(-0.02, 0.02, size=bpos.shape)
     nb = len(bpos)
     bpos = torch.from_numpy(bpos.astype(np.float32)).to(device)
@@ -217,7 +255,16 @@ def _boundary(spec, device, layout):
         adj = torch.zeros(C, dtype=torch.bool, device=device)
         for s_ in tdg.flat_shifts(spec):
             adj |= torch.roll(occ[:C], s_)
-        cols = torch.cat([torch.nonzero(adj)[:, 0],
+        ids = torch.nonzero(adj)[:, 0]
+        keep = torch.ones_like(ids, dtype=torch.bool)
+        drop = ids != (-1 if through is None else through)
+        if counts is not None:
+            drop &= counts[ids] > 0
+        keep[torch.nonzero(drop)[-5:, 0]] = False
+        ids = ids[keep]
+        half = ids.numel() // 2
+        unused = torch.tensor([C, -1, C + 5], device=device)
+        cols = torch.cat([ids[:half], unused, ids[half:],
                           torch.full((7,), C, device=device)]).to(torch.int32)
     Pb, Vb, Volb = tdg.to_grid_multi(sb, binb, [(bpos, tdg.POS_SENTINEL),
                                                 (bvel, 0.0), (vol, 0.0)])
@@ -231,17 +278,62 @@ def _boundary(spec, device, layout):
 @pytest.mark.parametrize("dim", [2, 3])
 def test_hoist_fb_kernel_matches_plain(cuda, dim, need_s2, layout):
     spec, P, M, V, K, counts = _grid(dim, cuda)
-    bnd, kw = _boundary(spec, cuda, layout)
+    C = spec.num_cells
+    # The boundary layer runs through the fullest cell, whose last 8-slot
+    # group is the fullest rank group of the grid.
+    fullest = int(torch.argmax(counts))
+    n_full = int(counts[fullest])
+    bnd, kw = _boundary(spec, cuda, layout, through=fullest, counts=counts)
+    listed = torch.zeros(C, dtype=torch.bool, device=cuda)
+    if kw["cols"] is None:
+        listed[:] = True
+    else:
+        cols = kw["cols"].long()
+        listed[cols[(cols >= 0) & (cols < C)]] = True
+        assert int((~((cols >= 0) & (cols < C))).sum()) == 10
+        assert bool(listed[fullest])
     args = (spec, H, dim, "cubic", "cubic", P, counts, *bnd)
+    junk = torch.full((dim + 5,) + tuple(P.shape[1:]), float("nan"),
+                      device=cuda)
+    del junk
     before = pair.LAUNCHES["hoist_fb"]
     out = pair.hoist_fb(*args, need_s2=need_s2, **kw)
     assert pair.LAUNCHES["hoist_fb"] == before + 1
     ref = pair.hoist_fb_plain(*args, need_s2=need_s2, **kw)
+    for o, r in zip(out, ref):
+        assert o.is_contiguous() and o.shape == r.shape and o.dtype == r.dtype
     for o, r in zip(out[:5], ref[:5]):
         _assert_close(o, r, HOIST_TOL)
     assert torch.equal(out[5], ref[5])  # pair counts exact
     assert int(out[5].sum()) > 0
     assert bool((out[3] != 0).any()) == need_s2
+    # Every particle of the fullest rank group pairs with the layer;
+    # unlisted columns (dropped from the table) come back zero.
+    top = (n_full - 1) // 8 * 8
+    assert bool((out[5][top:n_full, fullest] > 0).all())
+    for o in out:
+        assert int(torch.count_nonzero(o[..., ~listed])) == 0
+    if layout == "sparse":  # the dropped columns had pairs to drop
+        every = pair.hoist_fb_plain(*args, need_s2=need_s2,
+                                    cell_to_col=kw["cell_to_col"])
+        assert int(every[5][:, ~listed].sum()) > 0
+    # Two launches a call: the zero fill of the packed outputs and the
+    # kernel (device activities recorded by the profiler).
+    assert 1 <= _device_launches(
+        lambda: pair.hoist_fb(*args, need_s2=need_s2, **kw)) <= 2
+
+
+def _device_launches(fn):
+    """Device activities (kernels and memory fills) of one ``fn()``, as
+    ``torch.profiler`` records them."""
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 @pytest.mark.parametrize("dim", [2, 3])
@@ -343,6 +435,8 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     for name, X in (("k_pass", Mb), ("t_pass", Pb)):
         with pytest.raises(RuntimeError):
             getattr(pair, name)(big, H, 3, "cubic", Pb, Mb, X, cb)
+    with pytest.raises(RuntimeError):
+        pair.hoist_ff(big, H, 3, "cubic", "cubic", Pb, Mb, cb)
 
 
 def test_hoist_fb_with_no_columns_is_zero_and_not_counted(cuda):

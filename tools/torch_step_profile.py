@@ -48,8 +48,8 @@ from salva_tpu_torch.solver import dense_common, dfsph_dense, iisph_dense  # noq
 
 # The hand kernels, by a substring of their (demangled) profiler name.
 HAND_KERNELS = (("k_pass", "KPass"), ("t_pass", "TPass"),
-                ("hoist_ff", "hoist_ff_kernel"),
-                ("hoist_fb", "hoist_fb_kernel"), ("expand", "expand_kernel"))
+                ("hoist_ff", "HoistFF"), ("hoist_fb", "hoist_fb_warps"),
+                ("expand", "expand_kernel"))
 _TIMES = collections.defaultdict(float)
 _CALLS = collections.defaultdict(int)
 _DEPTH = [0]
