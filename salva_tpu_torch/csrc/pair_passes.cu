@@ -51,9 +51,9 @@
 //    (k_pass: (p_j, (m k)_j) as one float4, premultiplied; t_pass:
 //    (p_j, m_j) and Q_j; hoist_ff: (p_j, m_j), the mass as it is), so
 //    each neighbour cell's data crosses L2 once per tile instead of once
-//    per consumer slot. Each row is packed cell
-//    after cell (offsets from a scan of the counts), so a cell's three
-//    neighbours in a row are one run of slots. A tile of only air cells
+//    per consumer slot. Each row is packed cell after cell (offsets from
+//    a scan of the counts), so a cell's three neighbours in a row are one
+//    run of slots. A tile of only air cells
 //    stages nothing and writes its zeros. A thread issues the loads of
 //    kBatch slots before it stores the first, so staging waits about one
 //    global latency per kBatch slots a thread; several blocks are resident
@@ -88,7 +88,7 @@
 //  - hoist_ff (Pass = HoistFF) adds, per queued pair, m_j W to rho, m_j g
 //    to Gf, |g|^2 m_j^2 to sq and (when need_s2, a template flag) |g|^2
 //    m_j to s2, g = (p_i - p_j) dW/dr / r, with W and dW/dr / r from one
-//    sqrtf (cubic_w_dwr; dW/dr / r as cubic_dwr computes it). The
+//    sqrtf (cubic_w_dwr, of which cubic_dwr is the dW/dr / r half). The
 //    skip is exact for every channel: for q2 > 1, q = sqrtf(q2) >= 1, so
 //    W is w_norm * 0 (q > 1; or q == 1 and (1 - q)^3 = 0) and dW/dr / r
 //    is +-0 as above; then every term (m_j W, m_j g, |g|^2 m_j^2,
@@ -181,18 +181,7 @@ struct Cubic {
   float h2;         // h^2: pair-count radius
 };
 
-__device__ __forceinline__ float cubic_dwr(float r2, const Cubic& k) {
-  const float q2 = r2 * k.inv_h2;
-  const float q = sqrtf(q2);
-  const float one_q = 1.0f - q;
-  const float rq = rsqrtf(fmaxf(q2, 1.0e-12f));
-  const float far_d = -6.0f * one_q * one_q * rq;
-  const float near_d = 18.0f * q - 12.0f;
-  const bool cut = (q > 1.0f) || (q <= 1.0e-5f);
-  return k.dwr_scale * (cut ? 0.0f : (q <= 0.5f ? near_d : far_d));
-}
-
-// W and dW/dr / r (the expressions of cubic_dwr) from one sqrtf of q2.
+// W and dW/dr / r of the pair at r^2, from one sqrtf of q2.
 __device__ __forceinline__ void cubic_w_dwr(float r2, const Cubic& k,
                                             float& w, float& dwr) {
   const float q2 = r2 * k.inv_h2;
@@ -206,6 +195,12 @@ __device__ __forceinline__ void cubic_w_dwr(float r2, const Cubic& k,
   const float near_w = 1.0f + (q2 * q - q2) * 6.0f;
   const float far_w = one_q * one_q * one_q * 2.0f;
   w = k.w_norm * (q <= 0.5f ? near_w : (q <= 1.0f ? far_w : 0.0f));
+}
+
+__device__ __forceinline__ float cubic_dwr(float r2, const Cubic& k) {
+  float w, dwr;
+  cubic_w_dwr(r2, k, w, dwr);  // w is dead code here
+  return dwr;
 }
 
 // Flat-index delta of stencil offset o (row-major, dx outermost), the
@@ -405,15 +400,17 @@ struct TPass {
 
 // hoist_ff: (p_j, m_j), one float4 word, the mass not premultiplied; the
 // float channels rho, Gf, sq, s2 (s2 summed only when kS2) and the pair
-// count. Its output tile is DIM + 4 words a slot, so at cap 16 a 56 KB
-// block holds 15 cells (k_pass: 16).
+// count, DIM + 4 output words a slot. A block: 16 warps and up to 100 KB,
+// 2 resident on an H100 SM (registers set it), tiles of 16 cells at cap
+// 16: faster at the 97k dam break than k_pass's 8 warps and 56 KB (tiles
+// of 15 cells, 4 a SM) and than 8 warps with 48 or 72 KB (PERF.md).
 template <int DIM, bool kS2>
 struct HoistFF {
   static constexpr int kWords = 1;
   static constexpr int kOut = DIM + 3;
   static constexpr bool kCount = true;
-  static constexpr int kThreads = 256;
-  static constexpr int kSmemBudget = 56 * 1024;
+  static constexpr int kThreads = 512;
+  static constexpr int kSmemBudget = 100 * 1024;
   static constexpr int kRaw = DIM + 1;  // p_j, m_j
   __device__ static void fetch(float (&v)[kRaw], const float* P,
                                const float* M, const float* X, size_t plane,
@@ -975,7 +972,7 @@ int query_tiling(int pass, int cap, int C, int* shape) {
   return (int)cudaErrorInvalidValue;
 }
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // k_pass_v2's block
 
 }  // namespace
 

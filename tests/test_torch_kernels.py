@@ -186,7 +186,7 @@ def test_hoist_kernel_matches_plain(cuda, dim, cap, window, need_s2):
     C = spec.num_cells
     t = pair.tiling("hoist_ff", dim, cap, C, need_s2=need_s2)
     assert t["blocks"] == -(-C // t["tile"]) and t["per_sm"] >= 1
-    assert 0 < t["smem"] <= 56 * 1024
+    assert 0 < t["smem"] <= 100 * 1024
     if window == "ragged":
         assert {c % t["tile"] for c in full} >= {0, t["tile"] - 1}
     args = (spec, H, dim, "cubic", "cubic", P, M, counts)
@@ -323,17 +323,22 @@ def test_hoist_fb_kernel_matches_plain(cuda, dim, need_s2, layout):
         lambda: pair.hoist_fb(*args, need_s2=need_s2, **kw)) <= 2
 
 
-def _device_launches(fn):
+def _device_launches(fn, tries=3):
     """Device activities (kernels and memory fills) of one ``fn()``, as
-    ``torch.profiler`` records them."""
-    torch.cuda.synchronize()
+    ``torch.profiler`` records them: the most over ``tries`` profiled
+    calls (a profile of one short call now and then comes back without
+    its device events: an undercount, never an overcount)."""
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
-        fn()
+    counts = []
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+        with torch.profiler.profile(activities=act) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    return max(counts)
 
 
 @pytest.mark.parametrize("dim", [2, 3])
