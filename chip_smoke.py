@@ -42,7 +42,15 @@ in these phases:
    ``expand`` (bitwise equal);
 7. the DFSPH dam break on the full-grid boundary binning
    (``dense_sparse_boundary=False``) for 5 steps, through the kernels,
-   against the phase-6 kernel run on the sparse binning.
+   against the phase-6 kernel run on the sparse binning;
+8. the brute all-pairs tier: two small worlds on the card,
+   ``tests/test_brute.py``'s dam world (125 particles) and the bench
+   scene at 16^3 = 4,096 particles (capacity at the brute ceiling), each
+   resolving ``layout="auto"`` to brute and stepped 10 times, twice
+   (bitwise equal, no kernel launched: the tier runs the full-stencil
+   plain folds, as the JAX package runs no Pallas kernel there), against
+   the same world at ``layout="dense"`` through the kernels: exact step-1
+   contact counts, identical iterations, matching positions.
 
 Usage, from the repository root:  python3 chip_smoke.py
 Exits non-zero without a result line when no CUDA device is present or
@@ -52,7 +60,8 @@ the line before it is the card's name and power limit, and the line
 before that the kernels' JSON record (``launches``: the count of the
 run named by ``launches_path`` — the DFSPH forces path, this slice's,
 and for ``k_pass_v2``, which no main path launches, its phase-5 checks
-and timing; ``launches_by_path``: every main path's).
+and timing; ``launches_by_path``: every main path's, the brute paths'
+zeros included).
 """
 
 import json
@@ -114,6 +123,12 @@ FAULT_SCALE = 0.99
 #   reading and three orders of magnitude below the lattice sensitivity.
 # The forces paths are held to the same bounds.
 PATH_POS_ATOL = {"dfsph": 5e-5, "iisph": 2e-6}
+# Brute tier vs the grid through the kernels after 10 steps (positions,
+# metres): tests/test_brute.py's bound for the 125-particle dam world,
+# and the kernel-vs-plain DFSPH bound above for the 16^3 bench scene
+# (the same lattice start). Measured on an H100 (700 W): 6.0e-8 and
+# 2.4e-7, with identical iterations.
+BRUTE_POS_ATOL = {"dam_n5": 2e-6, "bench_16": PATH_POS_ATOL["dfsph"]}
 # The fluid's non-pressure forces on the forces main paths: the basic3
 # scene's artificial viscosity and the elasticity scenes' XSPH (whose
 # nonzero boundary coefficient drives the fluid-boundary passes), as
@@ -180,11 +195,13 @@ def card_line() -> str:
 
 
 def dam_break_world(device, solver="dfsph", sparse_boundary=True,
-                    forces=False):
-    """The bench.py dam break (``run_config``): a 46^3 cube one radius
-    above a sampled Cuboid floor, moving down at 2 m/s, in a static
-    domain; caps, window and fb table auto-resolve. ``forces``: the
-    fluid carries FORCES."""
+                    forces=False, n_target=N_TARGET, layout="auto",
+                    dense_caps=(None, None)):
+    """The bench.py dam break (``run_config``): a cube of
+    round(n_target^(1/3))^3 particles (46^3 by default) one radius above
+    a sampled Cuboid floor, moving down at 2 m/s, in a static domain;
+    caps (unless ``dense_caps`` names them), window and fb table
+    auto-resolve. ``forces``: the fluid carries FORCES."""
     from salva_tpu_torch import forces as force_specs
     from salva_tpu_torch import shapes
     from salva_tpu_torch.config import DFSPHConfig, IISPHConfig
@@ -192,7 +209,7 @@ def dam_break_world(device, solver="dfsph", sparse_boundary=True,
     from salva_tpu_torch.scenes import cube_fluid
     from salva_tpu_torch.world import Boundary, Fluid, LiquidWorld
 
-    n_side = max(2, round(N_TARGET ** (1.0 / 3.0)))
+    n_side = max(2, round(n_target ** (1.0 / 3.0)))
     radius = 0.05
     half = n_side * radius
     wall = max(1.5 * half, half + 0.5)
@@ -203,8 +220,8 @@ def dam_break_world(device, solver="dfsph", sparse_boundary=True,
     cfg = {"dfsph": DFSPHConfig, "iisph": IISPHConfig}[solver]()
     world = LiquidWorld(solver=cfg, particle_radius=radius,
                         smoothing_factor=2.0, dim=3, domain=domain,
-                        dense_cap=None, dense_cap_boundary=None,
-                        device=device)
+                        layout=layout, dense_cap=dense_caps[0],
+                        dense_cap_boundary=dense_caps[1], device=device)
     if not sparse_boundary:
         world.sim = world.sim.replace(dense_sparse_boundary=False)
     pos = cube_fluid((n_side, n_side, n_side), radius)
@@ -997,6 +1014,128 @@ def phase_full_grid(pair, sparse_run):
     return launches
 
 
+def small_dam_world(device, layout, dense_caps=(None, None)):
+    """``tests/test_brute.py``'s ``_dam_world`` at n=5: 125 particles on
+    a lattice 2 radii apart, 0.4 m up, falling at 2 m/s over a sampled
+    0.8 x 0.1 x 0.8 floor, in a static domain, no window fitting."""
+    from salva_tpu_torch import shapes
+    from salva_tpu_torch.sampling import shape_surface_sample
+    from salva_tpu_torch.world import Boundary, Fluid, LiquidWorld
+
+    radius = 0.05
+    world = LiquidWorld(particle_radius=radius, dim=3, layout=layout,
+                        domain=((-1.0, -0.4, -1.0), (1.0, 2.0, 1.0)),
+                        fit_grid=False, dense_cap=dense_caps[0],
+                        dense_cap_boundary=dense_caps[1], device=device)
+    ax = np.arange(5) * 2.0 * radius
+    pos = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"),
+                   -1).reshape(-1, 3).astype(np.float32)
+    pos[:, 1] += 0.4
+    vel = np.zeros_like(pos)
+    vel[:, 1] = -2.0
+    world.add_fluid(Fluid(pos, density0=1000.0, velocities=vel))
+    floor = shape_surface_sample(shapes.Cuboid((0.8, 0.1, 0.8)), radius, 3)
+    floor[:, 1] -= 0.1
+    world.add_boundary(Boundary(floor))
+    return world
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def step_world(world, steps, device):
+    """``steps`` steps of ``world``: (iterations per step, step-1
+    contacts (ff, fb), overflow per step, live positions, ms/step)."""
+    iters, overflow, first = [], [], None
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        world.step(DT, GRAVITY)
+        d = world.last_diagnostics
+        iters.append((d.solver.pressure_iters, d.solver.divergence_iters))
+        overflow.append(int(d.neighbor_overflow))
+        if first is None:
+            first = (int(d.ncontacts_ff), int(d.ncontacts_fb))
+    _sync(device)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    alive = world.fluids_state.alive
+    return dict(iters=iters, first=first, overflow=overflow,
+                pos=world.fluids_state.positions[alive].clone(), ms=ms)
+
+
+def phase_brute(pair, device="cuda", steps=10):
+    """Phase 8: the brute all-pairs tier on two small worlds. Each world
+    resolves ``layout="auto"`` to brute and is stepped twice from the same
+    inputs (bitwise equal, no kernel launched), then against the same
+    world at ``layout="dense"`` (the kernels). The 125-particle world's
+    floor sits on the grid's cell edges, where the host's float64
+    occupancy measure (the auto cap tier) undercounts the device's
+    float32 binning: with auto caps the grid drops boundary particles
+    (logged here, one step), so its dense twin names caps of 32. Returns
+    each path's launch counts."""
+    scenes = {
+        "dam_n5": (lambda layout, caps=(None, None):
+                   small_dam_world(device, layout, caps), (32, 32)),
+        "bench_16": (lambda layout, caps=(None, None):
+                     dam_break_world(device, n_target=16 ** 3,
+                                     layout=layout, dense_caps=caps),
+                     (None, None)),
+    }
+    launches = {}
+    for name, (make, dense_caps) in scenes.items():
+        tag = f"[brute {name}]"
+        runs = []
+        for _ in range(2):
+            world = make("auto")
+            sim = world._effective_sim()
+            assert sim.layout == "brute", f"{tag} auto resolved {sim.layout}"
+            reset_counts(pair)
+            runs.append(step_world(world, steps, device))
+            counts = read_counts(pair)
+            assert not any(counts.values()), f"{tag} launched {counts}"
+        launches[f"brute_{name}"] = counts
+        n = runs[0]["pos"].shape[0]
+        assert runs[0]["iters"] == runs[1]["iters"]
+        assert torch.equal(runs[0]["pos"], runs[1]["pos"]), \
+            f"{tag} two runs differ"
+        if dense_caps != (None, None):
+            auto = make("dense")
+            auto.warn_overflow = False
+            auto.step(DT, GRAVITY)
+            log(f"{tag} the grid with auto caps {auto._auto_caps}: overflow "
+                f"{int(auto.last_diagnostics.neighbor_overflow)} at step 1; "
+                f"the dense twin runs caps {dense_caps}")
+        dense = make("dense", dense_caps)
+        dsim = dense._effective_sim()
+        reset_counts(pair)
+        grid = step_world(dense, steps, device)
+        launches[f"dense_{name}"] = read_counts(pair)
+        brute = runs[0]
+        dpos = float((brute["pos"] - grid["pos"]).abs().max())
+        log(f"{tag} N={n}: brute {brute['ms']:.3f} / {runs[1]['ms']:.3f} "
+            f"ms/step (caps {sim.dense_cap} x {sim.brute_cells} cyclic "
+            f"cells fluid, {sim.dense_cap_boundary} boundary), dense "
+            f"{grid['ms']:.3f} ms/step (caps {dsim.dense_cap}/"
+            f"{dsim.dense_cap_boundary}, window {dsim.fitted_dims}), "
+            f"{steps} steps each")
+        log(f"{tag} iterations brute {brute['iters']} vs dense "
+            f"{grid['iters']}; step-1 contacts (ff, fb) {brute['first']} vs "
+            f"{grid['first']}; overflow {brute['overflow'][-1]} / "
+            f"{grid['overflow'][-1]}; max |dpos| {dpos:.3e} m (atol "
+            f"{BRUTE_POS_ATOL[name]}); dense launches "
+            f"{launches[f'dense_{name}']}")
+        assert brute["first"] == grid["first"], "step-1 contacts differ"
+        assert brute["iters"] == grid["iters"], "iterations differ"
+        assert not any(brute["overflow"]) and not any(grid["overflow"])
+        assert bool(torch.isfinite(brute["pos"]).all())
+        assert dpos <= BRUTE_POS_ATOL[name], f"positions differ by {dpos}"
+        for k in MAIN_PATH_KERNELS:
+            assert launches[f"dense_{name}"][k] > 0, f"dense {name}: {k}"
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1042,6 +1181,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["dfsph_full_grid"] = phase_full_grid(pair, sparse_run)
     log(f"[full grid] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths.update(phase_brute(pair))
+    log(f"[brute] phase took {time.perf_counter() - t0:.1f} s")
 
     records = []
     for name, k in kernels.items():

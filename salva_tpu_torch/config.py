@@ -108,8 +108,12 @@ class SimConfig:
     particle_radius: float = 0.05
     smoothing_factor: float = 2.0
     neighbors: NeighborConfig = NeighborConfig()
-    # "dense" (binned cell grid; needs ``domain``), "auto" (dense when a
-    # domain is set), "gather" / "brute": not ported, raise.
+    # "dense" (binned cell grid; needs ``domain``), "brute" (the all-pairs
+    # tier, ``geometry.dense_grid.brute_spec``: one exact capacity^2 pair
+    # block as a 1D cyclic grid of ``brute_cells`` cells; needs
+    # ``domain``), "auto" (dense when a domain is set, brute instead on a
+    # GPU when the capacities sit under ``brute_max_particles`` /
+    # ``brute_max_boundary``), "gather": not ported, raises.
     layout: str = "auto"
     brute_cells: int = 32
     brute_max_particles: int = 4096
@@ -151,9 +155,10 @@ class SimConfig:
     # Recompute boundary volumes (V_b = 1/sum W_bb) this step; the world
     # clears it for steps where no boundary changed.
     recompute_boundary_volumes: bool = True
-    # Half-stencil symmetry for the plain fluid-fluid passes (each +/-
-    # offset pair shares one pair block). The hand kernels always walk
-    # the full stencil.
+    # Half-stencil symmetry for the plain fluid-fluid passes on CPU
+    # tensors (each +/- offset pair shares one pair block); False runs
+    # the full-stencil plain folds there. The hand kernels always walk the
+    # full stencil.
     dense_half_stencil: bool = True
     # Kept for API parity with the JAX package; not read here (the kernel
     # choice depends on the tensors' device alone).

@@ -14,6 +14,11 @@ last and contiguous, which is the layout the hand kernels of
 JAX scatters with ``mode="drop"`` have no torch counterpart: every such
 scatter goes through :func:`_scatter_drop`, which routes out-of-range
 indices to one extra slot that is cut off afterwards.
+
+The brute all-pairs tier (:func:`brute_spec`, :func:`bin_particles_brute`)
+binds particles to a 1D cyclic "grid" by index alone; its layout
+shuffles gather through the binding's ``grid_src`` table, as the JAX
+package's do.
 """
 
 from __future__ import annotations
@@ -33,6 +38,12 @@ class DenseGridSpec:
     dims: Tuple[int, ...]  # number of cells per axis (incl. ghost ring)
     cap: int  # max particles per cell
     cell_width: float
+    # All-pairs brute tier (:func:`brute_spec`): ``dims`` is a 1D CYCLIC
+    # group of cells with no spatial meaning; offsets 0..C-1 of
+    # :func:`shift_j` pair every cell with every cell once, so every
+    # particle meets every other. Position binning is bypassed
+    # (:func:`bin_particles_brute`).
+    brute: bool = False
 
     def __post_init__(self):
         if any(d < 3 for d in self.dims):
@@ -91,12 +102,16 @@ class Binned(NamedTuple):
     - ``mask``: [cap, C] f32 slot occupancy;
     - ``overflow``: [] int32 particles dropped by full cells;
     - ``clamped``: [] int32 particles clamped into the interior box;
-    - the run table every layout shuffle into the grid reads
-      (:func:`to_grid`, :func:`to_grid_multi`, ``ops/binning.py``):
-      ``order`` [N] int32, the stable sort of the particles by cell, and
-      per column ``start`` [C] (first sorted index; 0 for an empty cell)
-      and ``count`` [C] (particles in the cell, also past ``cap``), both
-      int32.
+    - the run table every layout shuffle of a sorted binning into the
+      grid reads (:func:`to_grid`, :func:`to_grid_multi`,
+      ``ops/binning.py``): ``order`` [N] int32, the stable sort of the
+      particles by cell, and per column ``start`` [C] (first sorted index;
+      0 for an empty cell) and ``count`` [C] (particles in the cell, also
+      past ``cap``), both int32; None for the brute tier's identity
+      binding, which has no sorted order;
+    - ``grid_src``: [cap, C] int64 particle index feeding each slot
+      (N = empty), the brute tier's binding only: its layout shuffles
+      gather through it (None for the sorted binnings).
     """
 
     slot_of: torch.Tensor
@@ -104,9 +119,10 @@ class Binned(NamedTuple):
     mask: torch.Tensor
     overflow: torch.Tensor
     clamped: torch.Tensor
-    order: torch.Tensor
-    start: torch.Tensor
-    count: torch.Tensor
+    order: torch.Tensor = None
+    start: torch.Tensor = None
+    count: torch.Tensor = None
+    grid_src: torch.Tensor = None
 
 
 def _scatter_drop(size: int, fill, idx, values):
@@ -208,14 +224,73 @@ def bin_particles(spec: DenseGridSpec, positions, alive,
     )
 
 
+def brute_spec(capacity: int, cells: int = 32) -> DenseGridSpec:
+    """All-pairs "grid" of the brute small-N tier: ``cells`` cyclic cells
+    x ``ceil(capacity / cells)`` slots (``salva_tpu``'s ``brute_spec``).
+    One masked all-pairs block, as a 1D cyclic grid (offset k pairs cell
+    c with cell c + k mod C), is exact and shuffle-free and cannot
+    overflow; it reuses the dense roll machinery with capacity^2 pair
+    slots in all."""
+    cells = int(max(3, min(cells, capacity)))
+    cap = -(-int(capacity) // cells)
+    return DenseGridSpec(
+        origin=(0.0,), dims=(cells,), cap=cap, cell_width=1.0, brute=True
+    )
+
+
+def bin_particles_brute(spec: DenseGridSpec, alive) -> Binned:
+    """Identity binding of the brute tier: particle ``i`` feeds slot
+    (rank ``i // C``, cell ``i % C``), with no sort and no scatter.
+    Alive particles beyond ``C * cap`` (a mis-sized spec; the world sizes
+    ``cap`` from the capacity) surface as ``overflow``."""
+    C, cap = spec.dims[0], spec.cap
+    n = alive.shape[0]
+    dev = alive.device
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    cell = idx % C
+    rank = idx // C
+    fits = alive & (rank < cap)
+    slot = torch.where(fits, cell * cap + rank, C * cap).to(torch.int32)
+    # grid_src[r, c] = particle r * C + c, or n for an empty slot.
+    src = (torch.arange(cap, dtype=torch.int64, device=dev)[:, None] * C
+           + torch.arange(C, dtype=torch.int64, device=dev)[None, :])
+    src = torch.clamp(src, max=n)
+    alive_ext = torch.cat([alive, torch.zeros(1, dtype=torch.bool,
+                                              device=dev)])
+    src = torch.where(alive_ext[src], src, n)
+    return Binned(
+        slot_of=slot,
+        in_grid=fits,
+        mask=(src < n).to(torch.float32),
+        overflow=(alive & (rank >= cap)).sum(dtype=torch.int32),
+        clamped=torch.zeros((), dtype=torch.int32, device=dev),
+        grid_src=src,
+    )
+
+
+def _gather_grid(src, values, fill):
+    """``cat([values, fill])[src]`` per component: [N] -> [cap, C],
+    [N, D] -> [D, cap, C] (the JAX ``to_grid`` through ``grid_src``)."""
+    if values.ndim == 2:
+        return torch.stack([_gather_grid(src, values[:, d], fill)
+                            for d in range(values.shape[1])])
+    ext = torch.cat([values, torch.full((1,), fill, dtype=values.dtype,
+                                        device=values.device)])
+    return ext[src]
+
+
 def to_grid(spec, binned, values, fill=0.0):
     """Bring per-particle values into grid layout: [N] -> [cap, C];
-    [N, D] -> [D, cap, C]. One call of the binning's expansion
-    (``ops.binning.expand``). Integer and bool values (ids, interaction
+    [N, D] -> [D, cap, C]. On a sorted binning one call of its expansion
+    (``ops.binning.expand``): integer and bool values (ids, interaction
     bitmasks) expand exactly as two float32 channels, their low 16 bits
-    and the rest."""
+    and the rest. On the brute tier's identity binding a gather through
+    its ``grid_src`` (there is no sorted order to expand)."""
     from ..ops import binning
 
+    src = getattr(binned, "grid_src", None)
+    if src is not None:
+        return _gather_grid(src, values, fill)
     if values.dtype == torch.float32:
         return binning.expand(binned, [(values, fill)])[0]
     v, f = values.long(), int(fill)
@@ -229,9 +304,14 @@ def to_grid_multi(spec, binned, items):
     call of the binning's expansion (``ops.binning.expand``: the kernel for
     CUDA tensors, one launch for every channel; its plain version for CPU
     tensors). ``items``: list of ``(values, fill)`` with values [N] or
-    [N, D]; returns contiguous [cap, C'] / [D, cap, C'] grids."""
+    [N, D]; returns contiguous [cap, C'] / [D, cap, C'] grids. The brute
+    tier's identity binding gathers each item through ``grid_src``
+    (:func:`to_grid`)."""
     from ..ops import binning
 
+    src = getattr(binned, "grid_src", None)
+    if src is not None:
+        return [_gather_grid(src, v, f) for v, f in items]
     return binning.expand(binned, items)
 
 
@@ -403,8 +483,19 @@ def neighbor_table(spec: DenseGridSpec, owner_cells, cell_to_active_target):
     return cell_to_active_target[nc.long()]
 
 
+def stencil_offsets(spec: DenseGridSpec):
+    """The cell offsets a full-stencil fold walks: the 3^dim neighbor
+    offsets of a grid, or 0..C-1 of the brute tier's cyclic group (each
+    ordered cell pair once)."""
+    if spec.brute:
+        return [(k,) for k in range(spec.dims[0])]
+    return neighbor_offsets(spec.dim)
+
+
 def shift_j(spec: DenseGridSpec, arr, offset):
-    """View of a [..., C] grid array where cell c sees cell c + offset."""
+    """View of a [..., C] grid array where cell c sees cell c + offset
+    (a flat roll; on the brute tier's 1D cyclic grid, offset (k,) pairs
+    cell c with cell c + k mod C)."""
     s = spec.flat_shift(offset)
     if s == 0:
         return arr

@@ -10,17 +10,27 @@ boundary-owner passes over occupied boundary cells only, and the sparse
 fluid-boundary hoist over boundary-adjacent fluid columns) or full-grid
 (``False``: the boundaries bin into the fluid grid's cells).
 
+The brute all-pairs tier (a ``brute_spec`` fluid spec) binds both
+particle sets to a 1D cyclic grid by index and walks its cyclic offsets
+0..C-1 instead of a cell stencil; every view is a roll and every layout
+shuffle a gather through the binding's ``grid_src``.
+
 The four hot passes (``k_pass``, ``t_pass``, the ff hoist and the fb
-hoist) go through ``ops.pair``, and the binning's layout shuffles
-(``to_grid`` / ``to_grid_multi``) through ``ops.binning``: hand kernels
-for CUDA tensors, the plain versions for CPU tensors. Everything else,
-the non-pressure forces included, is plain torch.
+hoist) go through ``ops.pair`` (hand kernels for CUDA tensors, the plain
+half-stencil versions for CPU tensors), except where the reference runs
+its full-stencil plain folds (``solver/full_folds.py``): on the brute
+tier, on every device (the reference runs no Pallas kernel there, and
+no hand kernel runs here), and on a grid with
+``dense_half_stencil=False`` for CPU tensors (for CUDA tensors the
+kernels, which walk the full stencil). The sorted binnings' layout
+shuffles (``to_grid`` / ``to_grid_multi``) go through ``ops.binning``.
+Everything else, the non-pressure forces included, is plain torch.
 
 Not ported (each raises ``NotImplementedError`` naming its flag): the
 dense+spill structure (``dense_spill_columns``), the compact layout
-(``dense_compact``), frozen pair coefficients (``dense_frozen_pairs``)
-and the full-stencil plain folds (``dense_half_stencil=False``); the
-multi-device halo path has no counterpart yet.
+(``dense_compact``) and frozen pair coefficients
+(``dense_frozen_pairs``); the multi-device halo path has no counterpart
+yet.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from ..geometry import dense_grid as dg
 from ..kernels import get_kernel, w_dwr
 from ..ops import pair
 from ..ops.pair import fold_pairs
+from . import full_folds
 
 
 def per_fluid_mean_max_grid(values, fid, mask, num_fluids: int):
@@ -56,8 +67,6 @@ def _unsupported(sim: SimConfig):
     for flag in ("dense_compact", "dense_frozen_pairs", "dense_spill_columns"):
         if getattr(sim, flag, None):
             return flag
-    if not sim.dense_half_stencil:
-        return "dense_half_stencil=False (the full-stencil plain folds)"
     return None
 
 
@@ -91,15 +100,25 @@ class DenseCtx:
         self.h = sim.h
         self.kd = get_kernel(sim.kernel_density)
         self.kg = get_kernel(sim.kernel_gradient)
-        self.offsets = dg.neighbor_offsets(self.dim)
         dev = fluids.positions.device
         self.device = dev
+        # Brute all-pairs tier (``dense_grid.brute_spec``): a 1D cyclic
+        # grid whose offsets 0..C-1 pair every cell with every cell.
+        self.brute = spec_f.brute
+        self.offsets = dg.stencil_offsets(spec_f)
+        # The full-stencil plain folds run the hot passes on the brute
+        # tier (every device) and, for CPU tensors, on a grid without the
+        # half stencil; ``ops.pair`` runs them everywhere else.
+        self.use_full_folds = self.brute or (
+            not sim.dense_half_stencil and dev.type == "cpu"
+        )
         # Fluid-tracking grid window (config.fitted_dims): static dims,
         # origin recomputed here from the live fluid extent each substep.
         # Boundary particles outside the window are dropped from binning
         # (> h from any fluid by the margin) rather than clamped into the
         # border ring.
-        self.fitted = getattr(sim, "fitted_dims", None) is not None
+        self.fitted = (getattr(sim, "fitted_dims", None) is not None
+                       and not self.brute)
         self.drop_b = self.fitted
         self.origin_dyn = None
         if self.fitted:
@@ -128,9 +147,6 @@ class DenseCtx:
                 h, dtype=torch.float32, device=dev
             )
 
-        self.binf = dg.bin_particles(
-            spec_f, fluids.positions, fluids.alive, origin=self.origin_dyn,
-        )
         self.sf = spec_f
         offs = self.offsets
         self.jff = lambda arr, o: dg.shift_j(spec_f, arr, offs[o])
@@ -139,22 +155,36 @@ class DenseCtx:
         # the boundary arrays rematerialized onto the full grid, see
         # ``force_field_views``).
         self.jfb = self.jff
-        self.sparse_b = bool(sim.dense_sparse_boundary)
+        self.sparse_b = bool(sim.dense_sparse_boundary) and not self.brute
+        if self.brute:
+            # Identity bindings on the same cyclic columns: every view is
+            # a roll (the fitted window and the sparse tables stay off).
+            self.binf = dg.bin_particles_brute(spec_f, fluids.alive)
+            self.binb = dg.bin_particles_brute(spec_b, boundaries.alive)
+        else:
+            self.binf = dg.bin_particles(
+                spec_f, fluids.positions, fluids.alive,
+                origin=self.origin_dyn,
+            )
+            if not self.sparse_b:
+                # Full-grid boundary binning: the boundary grid is the
+                # fluid grid's [cap_b, C].
+                self.binb = dg.bin_particles(
+                    spec_b, boundaries.positions, boundaries.alive,
+                    drop_clamped=self.drop_b, origin=self.origin_dyn,
+                )
         if self.sparse_b:
             self._bin_boundaries_sparse(sim, spec_f, spec_b, boundaries)
         else:
-            # Full-grid boundary binning: the boundary grid is the fluid
-            # grid's [cap_b, C], so every fluid/boundary view is a roll.
-            self.binb = dg.bin_particles(
-                spec_b, boundaries.positions, boundaries.alive,
-                drop_clamped=self.drop_b, origin=self.origin_dyn,
-            )
+            # The boundary grid has the fluid grid's columns, so every
+            # fluid/boundary view is a roll.
             self.sb = spec_b
             self.jbf = self.jbb = self.jff
         self.maskf = self.binf.mask
         self.live = self.maskf > 0
-        # Per-cell live counts [C] (ranks fill from 0): what the hand
-        # kernels loop over instead of the cap padding.
+        # Per-cell live counts [C] (ranks fill from 0 on the sorted
+        # binnings): what the hand kernels loop over instead of the cap
+        # padding.
         self.counts = self.live.sum(dim=0, dtype=torch.int32)
         self.uniform = getattr(sim, "uniform_particles", None)
         f_items = [
@@ -267,23 +297,38 @@ class DenseCtx:
 
     def _hoist(self):
         dim, h = self.dim, self.h
-        rho_ff, Gf, sq_ff, s2_ff, cnt_ff = pair.hoist_ff(
-            self.spec_f, h, dim, self.sim.kernel_density,
-            self.sim.kernel_gradient, self.P, self.M, self.counts,
-            need_s2=self.need_s2,
-        )
-        # The fb hoist, one pass for the three branches of the reference:
-        # the sparse table (boundary-adjacent columns only), every column
-        # over the compact boundary table (near-dense adjacency or no
-        # boundaries), and the full-grid boundary binning (identity map).
-        rho_fb, Gb_raw, sq_fb, s2_fb, Sb_raw, cnt_fb = pair.hoist_fb(
-            self.spec_f, h, dim, self.sim.kernel_density,
-            self.sim.kernel_gradient, self.P, self.counts, self.Pb,
-            self.Volb, self.Vbvel, self.counts_b,
-            cell_to_col=self.binb.cell_to_active if self.sparse_b else None,
-            cols=self._fb_table() if self._fb_cols() else None,
-            need_s2=self.need_s2,
-        )
+        kd, kg = self.sim.kernel_density, self.sim.kernel_gradient
+        if self.use_full_folds:
+            rho_ff, Gf, sq_ff, s2_ff, cnt_ff = full_folds.hoist_ff(
+                self.spec_f, h, dim, kd, kg, self.P, self.M, self.maskf,
+                need_s2=self.need_s2,
+            )
+        else:
+            rho_ff, Gf, sq_ff, s2_ff, cnt_ff = pair.hoist_ff(
+                self.spec_f, h, dim, kd, kg, self.P, self.M, self.counts,
+                need_s2=self.need_s2,
+            )
+        if self.brute:
+            fb = full_folds.hoist_fb(
+                self.spec_f, h, dim, kd, kg, self.P, self.maskf, self.Pb,
+                self.maskb, self.Volb, self.Vbvel, need_s2=self.need_s2,
+            )
+        else:
+            # The fb hoist, one pass for the three grid branches of the
+            # reference (its fb hoist is a full fold with or without the
+            # half stencil): the sparse table (boundary-adjacent columns
+            # only), every column over the compact boundary table
+            # (near-dense adjacency or no boundaries), and the full-grid
+            # boundary binning (identity map).
+            fb = pair.hoist_fb(
+                self.spec_f, h, dim, kd, kg, self.P, self.counts, self.Pb,
+                self.Volb, self.Vbvel, self.counts_b,
+                cell_to_col=(self.binb.cell_to_active if self.sparse_b
+                             else None),
+                cols=self._fb_table() if self._fb_cols() else None,
+                need_s2=self.need_s2,
+            )
+        rho_fb, Gb_raw, sq_fb, s2_fb, Sb_raw, cnt_fb = fb
 
         R0 = self.R0
         self.rho = torch.where(self.live, rho_ff + R0 * rho_fb, R0)
@@ -346,17 +391,19 @@ class DenseCtx:
 
     def t_pass(self, Q):
         """T_i = sum_ff m_j (Q_j . grad_ij) for a per-slot vector Q."""
-        return pair.t_pass(
-            self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
-            self.P, self.M, Q, self.counts,
-        )
+        args = (self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
+                self.P, self.M, Q)
+        if self.use_full_folds:
+            return full_folds.t_pass(*args)
+        return pair.t_pass(*args, self.counts)
 
     def k_pass(self, K):
         """K_i = sum_ff k_j m_j grad_ij for a per-slot scalar k."""
-        return pair.k_pass(
-            self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
-            self.P, self.M, K, self.counts,
-        )
+        args = (self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
+                self.P, self.M, K)
+        if self.use_full_folds:
+            return full_folds.k_pass(*args)
+        return pair.k_pass(*args, self.counts)
 
     def delta_density(self, Vp):
         """sum m_j (v_i'-v_j').grad + boundary term via hoisted sums:

@@ -33,7 +33,9 @@ class DenseFields(NamedTuple):
 
     ``jff``/``jfb``/``jbf``: neighbor-view functions (fluid-fluid,
     fluid-owner/boundary-j, boundary-owner/fluid-j) — flat rolls of the
-    cell axis (see ``dense_common``)."""
+    cell axis (see ``dense_common``), one per offset: the 3^dim cell
+    stencil of a grid, or the ``brute_cells`` cyclic offsets of the brute
+    tier (``n_offsets``)."""
 
     jff: object
     jfb: object

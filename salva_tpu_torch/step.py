@@ -1,6 +1,7 @@
-"""The simulation step of the dense layout: binning -> hoisted sums ->
-pressure solver -> integration, as one Python function over the state
-tensors (``salva_tpu.step``, dense branch only).
+"""The simulation step of the dense layout (the binned grid, or the brute
+all-pairs tier): binning -> hoisted sums -> pressure solver ->
+integration, as one Python function over the state tensors
+(``salva_tpu.step``, dense branch only).
 
 The substep loop is that of ``src/liquid_world.rs:84-148``; the gather
 layout (worlds without a ``domain``) is not ported yet and raises.
@@ -59,7 +60,7 @@ def init_solver_state(solver_cfg, capacity: int, dim: int, device):
 def _dense_config(sim: SimConfig, solver_cfg, forces: ForceSet):
     """Resolve the dense-layout configuration, or None for the gather
     layout (``layout="auto"`` without a usable domain)."""
-    from .geometry.dense_grid import spec_for_aabb
+    from .geometry.dense_grid import brute_spec, spec_for_aabb
     from .solver.forces_dense import to_dense_forces
 
     if sim.layout == "gather":
@@ -77,10 +78,14 @@ def _dense_config(sim: SimConfig, solver_cfg, forces: ForceSet):
             )
         return None
     if sim.layout == "brute":
-        raise NotImplementedError(
-            "layout='brute' (the all-pairs tier) is not ported to "
-            "salva_tpu_torch"
-        )
+        # All-pairs tier: dense_cap / dense_cap_boundary carry the
+        # per-cyclic-cell slot counts (ceil(capacity / brute_cells),
+        # resolved by the world); a mis-sized explicit cap surfaces as bin
+        # overflow in the diagnostics, never as a silent drop.
+        cells = int(sim.brute_cells)
+        spec_f = brute_spec(sim.dense_cap * cells, cells)
+        spec_b = brute_spec(sim.dense_cap_boundary * cells, cells)
+        return spec_f, spec_b, dense_forces
 
     mins, maxs = sim.domain
     spec_f = spec_for_aabb(mins, maxs, sim.h, sim.dense_cap)

@@ -11,10 +11,11 @@ the caller asks for the CPU with ``device="cpu"``. On CUDA the four hot
 pair passes run as the hand kernels of ``ops/pair.py``; on the CPU as
 their plain versions.
 
-Solvers: DFSPH and IISPH on the dense layout, with the XSPH and
-artificial-viscosity non-pressure forces. Not ported (raise
-``NotImplementedError``): the gather layout and the brute tier,
-coupling, the other non-pressure forces, emitters and deletion.
+Solvers: DFSPH and IISPH on the dense layout and on the brute all-pairs
+tier (``layout="brute"``, and ``"auto"`` on a GPU for small worlds), with
+the XSPH and artificial-viscosity non-pressure forces. Not ported (raise
+``NotImplementedError``): the gather layout, coupling, the other
+non-pressure forces, emitters and deletion.
 """
 
 from __future__ import annotations
@@ -485,18 +486,28 @@ class LiquidWorld:
         self.step_with_coupling(dt, gravity, None)
 
     def _effective_sim(self) -> SimConfig:
-        """Resolve the auto-tuned dense layout for the next step: uniform
-        particles, cap tier, grid window, sparse fb table. With
+        """Resolve the layout for the next step. The brute all-pairs tier
+        (``_brute_active``) takes per-cyclic-cell caps from the capacities
+        and no grid machinery. The dense layout auto-tunes uniform
+        particles, cap tier, grid window and sparse fb table; with
         ``layout="auto"`` a grid far larger than the particle capacity
         resolves to the gather layout (not ported: the step raises)."""
         sim = self.sim
         if sim.domain is not None and self._brute_active():
-            raise NotImplementedError(
-                "the brute all-pairs tier is not ported to salva_tpu_torch "
-                "(it is the auto choice for capacities under "
-                f"{sim.brute_max_particles} fluid / "
-                f"{sim.brute_max_boundary} boundary particles on a GPU); "
-                "pass layout='dense'"
+            uniform = self._uniform_particles()
+            if sim.uniform_particles != uniform:
+                sim = sim.replace(uniform_particles=uniform)
+            cells = int(sim.brute_cells)
+            return sim.replace(
+                layout="brute",
+                dense_cap=-(-self.fluids_state.capacity // cells),
+                dense_cap_boundary=max(
+                    1, -(-self.boundaries_state.capacity // cells)
+                ),
+                use_pallas=False,
+                fitted_dims=None,
+                dense_spill_columns=None,
+                dense_fb_columns=None,
             )
         if sim.domain is not None:
             uniform = self._uniform_particles()
@@ -554,6 +565,8 @@ class LiquidWorld:
         overflow-check cadence)."""
         if not self._fit_grid or self.sim.domain is None:
             return
+        if self._brute_active():
+            return  # no grid window on the all-pairs tier
         d = self.last_diagnostics
         if d is None or d.fluid_min is None:
             return
@@ -732,9 +745,10 @@ class LiquidWorld:
         )
 
     def _brute_active(self) -> bool:
-        """Whether steps would run the brute all-pairs tier
-        (layout="brute", or "auto" on a GPU with capacities under the
-        brute ceilings)."""
+        """Whether steps run the brute all-pairs tier (layout="brute",
+        or "auto" on a CUDA world with capacities under the brute
+        ceilings, as the reference does on an accelerator; a CPU world
+        keeps the grid)."""
         sim = self.sim
         if sim.domain is None or sim.layout not in ("auto", "brute"):
             return False

@@ -452,3 +452,58 @@ def test_hoist_fb_with_no_columns_is_zero_and_not_counted(cuda):
     out = pair.hoist_fb(spec, H, 3, "cubic", "cubic", P, counts, *bnd, **kw)
     assert pair.LAUNCHES["hoist_fb"] == before  # nothing was launched
     assert all(int(torch.count_nonzero(o)) == 0 for o in out)
+
+
+def _small_dam_world(device, layout):
+    """``tests/test_brute.py``'s ``_dam_world`` at n=5 (125 particles on
+    a lattice 2 radii apart, falling at 2 m/s over a sampled floor)."""
+    from salva_tpu_torch import shapes
+    from salva_tpu_torch.sampling import shape_surface_sample
+    from salva_tpu_torch.world import Boundary, Fluid, LiquidWorld
+
+    r = 0.05
+    w = LiquidWorld(particle_radius=r, dim=3, layout=layout, fit_grid=False,
+                    domain=((-1.0, -0.4, -1.0), (1.0, 2.0, 1.0)),
+                    device=device)
+    ax = np.arange(5) * 2.0 * r
+    pos = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"),
+                   -1).reshape(-1, 3).astype(np.float32)
+    pos[:, 1] += 0.4
+    vel = np.zeros_like(pos)
+    vel[:, 1] = -2.0
+    w.add_fluid(Fluid(pos, velocities=vel))
+    floor = shape_surface_sample(shapes.Cuboid((0.8, 0.1, 0.8)), r, 3)
+    floor[:, 1] -= 0.1
+    w.add_boundary(Boundary(floor))
+    return w
+
+
+def test_auto_resolves_small_cuda_worlds_to_brute(cuda):
+    """A CUDA world under the brute ceilings resolves ``layout="auto"``
+    to the brute tier and steps, launching no hand kernel (the tier runs
+    the full-stencil plain folds, as the JAX package runs no Pallas
+    kernel there); the CPU twin of the same world keeps the grid."""
+    w = _small_dam_world(cuda, "auto")
+    assert w._effective_sim().layout == "brute"
+    assert _small_dam_world("cpu", "auto")._effective_sim().layout != "brute"
+    pair.reset_launches()
+    binning.reset_launches()
+    for _ in range(3):
+        w.step(1.0 / 200.0, (0.0, -9.81, 0.0))
+    d = w.last_diagnostics
+    assert int(d.neighbor_overflow) == 0 and int(d.ncontacts_ff) > 0
+    assert bool(torch.isfinite(w.fluids_state.positions).all())
+    assert not any(pair.LAUNCHES.values())
+    assert binning.LAUNCHES["expand"] == 0
+
+
+def test_full_stencil_grid_runs_the_kernels(cuda):
+    """A grid world with ``dense_half_stencil=False`` on CUDA tensors runs
+    the hand kernels (they walk the full stencil)."""
+    w = _small_dam_world(cuda, "dense")
+    w.sim = w.sim.replace(dense_half_stencil=False)
+    pair.reset_launches()
+    for _ in range(2):
+        w.step(1.0 / 200.0, (0.0, -9.81, 0.0))
+    for name in ("k_pass", "t_pass", "hoist_ff", "hoist_fb"):
+        assert pair.LAUNCHES[name] > 0, name

@@ -161,20 +161,28 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         _tiny_world().step_with_coupling(0.01, (0.0, -9.81), object())
     for flag in (dict(dense_spill_columns=512), dict(dense_compact=True),
-                 dict(dense_frozen_pairs=True),
-                 dict(dense_half_stencil=False)):
+                 dict(dense_frozen_pairs=True)):
         w = _tiny_world()
         w.sim = w.sim.replace(**flag)
         with pytest.raises(NotImplementedError):
             w.step(0.01, (0.0, -9.81))
     # Ported since the first slice: IISPH and the full-grid boundary
-    # binning step on the CPU.
+    # binning step on the CPU, and so do the full-stencil plain folds
+    # (dense_half_stencil=False) and the brute tier.
     w = _tiny_world(solver=st.IISPHConfig())
     w.sim = w.sim.replace(dense_sparse_boundary=False)
     for _ in range(2):
         w.step(0.01, (0.0, -9.81))
     assert w._solver_state.shape == (w.fluids_state.capacity,)
     assert int(w.last_diagnostics.ncontacts_fb) > 0
+    for flag in (dict(dense_half_stencil=False), dict(layout="brute")):
+        w = _tiny_world()
+        w.sim = w.sim.replace(**flag)
+        for _ in range(2):
+            w.step(0.01, (0.0, -9.81))
+        assert w._effective_sim().layout == flag.get("layout", "dense")
+        assert int(w.last_diagnostics.ncontacts_fb) > 0
+        assert int(w.last_diagnostics.neighbor_overflow) == 0
 
 
 def test_dense_ctx_layout_round_trips():

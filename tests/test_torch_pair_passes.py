@@ -22,6 +22,15 @@ fb hoist's three forms (full-grid boundary binning, the compact boundary
 table over every column, the compact table over the sparse hoist's
 adjacency columns) are held against each other.
 
+The full-stencil plain folds (``solver/full_folds.py``: ``t_pass``,
+``k_pass``, ``hoist_ff``, ``hoist_fb``), which the port runs on the brute
+tier and, for CPU tensors, on a grid with ``dense_half_stencil=False``,
+are held on the same seeded state to the JAX ``DenseCtx`` full folds on a
+3D grid with the half stencil off and on a brute spec: rtol 1e-4 / atol
+1e-5 per output (``tests/test_pallas_ops.py``), exact pair counts. The
+port's ``DenseCtx`` routes both configurations through them and never
+through ``ops.pair``.
+
 The CUDA kernels themselves are held against the plain versions on the
 card (``tests/test_torch_kernels.py``, ``gpu``-marked; ``chip_smoke.py``
 does the same at the 97k dam-break shapes).
@@ -45,7 +54,9 @@ from salva_tpu.ops.pallas_pair2 import (
 )
 from salva_tpu.solver.dense_common import DenseCtx
 from salva_tpu_torch.geometry import dense_grid as tdg
+from salva_tpu_torch.object.state import state_from_numpy
 from salva_tpu_torch.ops import pair
+from salva_tpu_torch.solver import full_folds
 
 # One intra-op thread: the parity tests run many tiny torch ops, and the
 # suite runs several test processes at once, where torch's spinning
@@ -61,9 +72,10 @@ HOIST_TOL = dict(rtol=1e-3, atol=1e-3)
 TILE = 128
 
 
-def _state(dim):
-    """Uniform background + tight clusters in distinct cells: several
-    cells hold 9..16 particles (cap 16, no overflow)."""
+def _particles(dim):
+    """(pos, alive, vel, bpos, bvel): a uniform background + tight
+    clusters in distinct cells (several cells hold 9..16 particles at
+    cap 16, no overflow), and a moving boundary layer."""
     rng = np.random.default_rng(7 + dim)
     lo, hi = 0.0, 0.8
     n_bg = 100 if dim == 3 else 40
@@ -87,8 +99,16 @@ def _state(dim):
     bpos = np.insert(grid_b, 1, 0.3, axis=1)
     bpos = (bpos + rng.uniform(-0.01, 0.01, size=bpos.shape)).astype(
         np.float32)
-    nb = len(bpos)
-    bvel = rng.normal(size=(nb, dim)).astype(np.float32)
+    bvel = rng.normal(size=(len(bpos), dim)).astype(np.float32)
+    return pos, alive, vel, bpos, bvel
+
+
+def _state(dim):
+    """The fixture of :func:`_particles` binned through the JAX DenseCtx
+    and its half-stencil folds."""
+    pos, alive, vel, bpos, bvel = _particles(dim)
+    n, nb = len(pos), len(bpos)
+    lo, hi = 0.0, 0.8
     sim = SimConfig(dim=dim, particle_radius=0.05, use_pallas=False,
                     dense_compact=False, dense_spill_auto=False,
                     dense_sparse_boundary=False,
@@ -287,3 +307,154 @@ def test_hoist_fb_plain_forms_agree(state):
     for a, b, c in zip(full, every, sparse):
         assert torch.equal(a, b) and torch.equal(a, c)
     assert int(full[5].sum()) > 0
+
+
+# -- the full-stencil plain folds ---------------------------------------------
+
+# The hoisted fields of ``DenseCtx`` the full folds feed (the ff and fb
+# hoist outputs combined as ``DenseCtx._hoist`` combines them).
+HOISTED = ("rho", "Gf", "Gb", "Sb", "sq_mm", "s2_ff", "s2_m")
+BRUTE_CELLS = 16
+
+
+def _full_state(kind):
+    """The 3D clustered fixture of :func:`_state`, bound as a grid with
+    the half stencil off (full-grid boundary binning) or as the brute
+    tier, and the JAX ``DenseCtx`` full folds on it."""
+    dim = 3
+    pos, alive, vel, bpos, bvel = _particles(dim)
+    n, nb = len(pos), len(bpos)
+    fl = FluidsState.empty(n, dim).replace(
+        positions=jnp.asarray(pos), velocities=jnp.asarray(vel),
+        volumes=jnp.full((n,), 1e-3, jnp.float32),
+        density0=jnp.full((n,), 1000.0, jnp.float32),
+        alive=jnp.asarray(alive),
+    )
+    bd = BoundariesState.empty(nb, dim).replace(
+        positions=jnp.asarray(bpos), velocities=jnp.asarray(bvel),
+        alive=jnp.ones((nb,), bool),
+    )
+    sim = SimConfig(dim=dim, particle_radius=0.05, use_pallas=False,
+                    dense_compact=False, dense_spill_auto=False,
+                    dense_sparse_boundary=False, dense_half_stencil=False,
+                    domain=((0.0,) * dim, (0.8,) * dim))
+    if kind == "brute":
+        spec_f = jdg.brute_spec(n, BRUTE_CELLS)
+        spec_b = jdg.brute_spec(nb, BRUTE_CELLS)
+        tspec = tdg.brute_spec(n, BRUTE_CELLS)
+        tspec_b = tdg.brute_spec(nb, BRUTE_CELLS)
+    else:
+        spec_f = jdg.spec_for_aabb((0.0,) * dim, (0.8,) * dim, H, cap=16)
+        spec_b = spec_f.replace(cap=8)
+        tspec = tdg.DenseGridSpec(spec_f.origin, spec_f.dims, spec_f.cap,
+                                  spec_f.cell_width)
+        tspec_b = tspec.replace(cap=8)
+
+    @jax.jit
+    def reference(fl, bd):
+        ctx = DenseCtx(sim, spec_f, spec_b, fl, bd)
+        K = ctx.rho * 1e-6
+        out = dict(P=ctx.P, M=ctx.M, V=ctx.V, K=K, R0=ctx.R0,
+                   mask=ctx.maskf, Pb=ctx.Pb, Volb=ctx.Volb,
+                   Vbvel=ctx.Vbvel, maskb=ctx.maskb,
+                   overflow=ctx.binf.overflow + ctx.binb.overflow,
+                   k=ctx.k_pass(K), t=ctx.t_pass(ctx.V),
+                   cnt_ff=ctx.cnt_ff, cnt_fb=ctx.cnt_fb)
+        out.update({f: getattr(ctx, f) for f in HOISTED})
+        return out
+
+    ref = {k: np.asarray(v) for k, v in reference(fl, bd).items()}
+    assert int(ref["overflow"]) == 0
+    t = {k: torch.from_numpy(ref[k].copy()) for k in
+         ("P", "M", "V", "K", "R0", "mask", "Pb", "Volb", "Vbvel", "maskb")}
+    states = tuple(
+        state_from_numpy({f: np.asarray(getattr(s, f))
+                          for f in s.__dataclass_fields__}, device="cpu")
+        for s in (fl, bd))
+    return (tspec, tspec_b), ref, t, states
+
+
+@pytest.fixture(scope="module", params=["grid_3d_full", "brute"])
+def full_state(request):
+    return (request.param,) + _full_state(request.param)
+
+
+def _port_hoisted(tspec, t, need_s2=True):
+    """The port's full ff and fb hoists on the reference grids, combined
+    as ``DenseCtx._hoist`` combines them."""
+    rho_ff, Gf, sq_ff, s2_ff, cnt_ff = full_folds.hoist_ff(
+        tspec, H, 3, "cubic", "cubic", t["P"], t["M"], t["mask"],
+        need_s2=need_s2)
+    rho_fb, Gb, sq_fb, s2_fb, Sb, cnt_fb = full_folds.hoist_fb(
+        tspec, H, 3, "cubic", "cubic", t["P"], t["mask"], t["Pb"],
+        t["maskb"], t["Volb"], t["Vbvel"], need_s2=need_s2)
+    R0, live = t["R0"], t["mask"] > 0
+    return dict(rho=torch.where(live, rho_ff + R0 * rho_fb, R0), Gf=Gf,
+                Gb=R0[None] * Gb, Sb=R0 * Sb,
+                sq_mm=sq_ff + R0 * R0 * sq_fb, s2_ff=s2_ff,
+                s2_m=s2_ff + R0 * s2_fb, cnt_ff=cnt_ff, cnt_fb=cnt_fb)
+
+
+def test_full_k_and_t_pass_match(full_state):
+    kind, (tspec, _), ref, t, _ = full_state
+    k = full_folds.k_pass(tspec, H, 3, "cubic", t["P"], t["M"], t["K"])
+    tt = full_folds.t_pass(tspec, H, 3, "cubic", t["P"], t["M"], t["V"])
+    assert float(np.abs(ref["k"]).max()) > 0
+    assert float(np.abs(ref["t"]).max()) > 0
+    _close(k.numpy(), ref["k"], KT_TOL)
+    _close(tt.numpy(), ref["t"], KT_TOL)
+
+
+def test_full_hoists_match(full_state):
+    kind, (tspec, _), ref, t, _ = full_state
+    got = _port_hoisted(tspec, t)
+    for f in HOISTED:
+        assert float(np.abs(ref[f]).max()) > 0, f  # channel exercised
+        _close(got[f].numpy(), ref[f], KT_TOL)
+    for f in ("cnt_ff", "cnt_fb"):
+        np.testing.assert_array_equal(got[f].numpy(), ref[f], err_msg=f)
+        assert int(got[f].sum()) > 0, f
+    # Without s2 (the DFSPH setting) the s2 channels are exactly zero.
+    no_s2 = _port_hoisted(tspec, t, need_s2=False)
+    assert int(torch.count_nonzero(no_s2["s2_ff"])) == 0
+    torch.testing.assert_close(no_s2["Gf"], got["Gf"], rtol=0, atol=0)
+
+
+def test_dense_ctx_runs_the_full_folds(full_state, monkeypatch):
+    """The port's ``DenseCtx`` on the same particle state: on the brute
+    tier and on the grid without the half stencil (CPU tensors) the
+    fluid-fluid passes are the full folds, bitwise. The brute tier never
+    calls ``ops.pair``; the grid's fb hoist stays ``ops.pair.hoist_fb``
+    (the reference's fb hoist is a full fold with the half stencil or
+    without; its plain version is that fold, bitwise)."""
+    from salva_tpu_torch.config import SimConfig as TSimConfig
+    from salva_tpu_torch.solver.dense_common import DenseCtx as TDenseCtx
+
+    kind, (tspec, tspec_b), ref, t, (fl, bd) = full_state
+
+    def refuse(*args, **kw):
+        raise AssertionError("ops.pair reached")
+
+    for name in ("k_pass", "t_pass", "hoist_ff", "k_pass_v2") + (
+            ("hoist_fb",) if kind == "brute" else ()):
+        monkeypatch.setattr(pair, name, refuse)
+    tsim = TSimConfig(dim=3, particle_radius=0.05, dense_compact=False,
+                      dense_sparse_boundary=False, dense_half_stencil=False,
+                      domain=((0.0,) * 3, (0.8,) * 3))
+    ctx = TDenseCtx(tsim, tspec, tspec_b, fl, bd, need_s2=True)
+    assert ctx.use_full_folds and ctx.brute == (kind == "brute")
+    # The port binds the state as the JAX package does (volumes: its
+    # own boundary fold, to the last bits).
+    for k, got in (("P", ctx.P), ("M", ctx.M), ("mask", ctx.maskf),
+                   ("Pb", ctx.Pb), ("maskb", ctx.maskb)):
+        assert torch.equal(got, t[k]), k
+    torch.testing.assert_close(ctx.Volb, t["Volb"], rtol=1e-6, atol=0)
+    t = dict(t, Volb=ctx.Volb)
+    want = _port_hoisted(tspec, t)
+    for f, w in want.items():
+        assert torch.equal(getattr(ctx, f), w), f
+    K = t["K"]
+    assert torch.equal(ctx.k_pass(K), full_folds.k_pass(
+        tspec, H, 3, "cubic", t["P"], t["M"], K))
+    assert torch.equal(ctx.t_pass(ctx.V), full_folds.t_pass(
+        tspec, H, 3, "cubic", t["P"], t["M"], ctx.V))
