@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """GPU smoke run of salva_tpu_torch, the PyTorch + CUDA port.
 
-Drives the port's main paths — the 3D dense dam break of ``bench.py``
-at 97,336 particles, solved with DFSPH and with IISPH, without and with
-the fluid's XSPH and artificial-viscosity forces — on one NVIDIA GPU,
-in these phases:
+Drives the port's main paths (``PATHS``) — the 3D dense dam break of
+``bench.py`` at 97,336 particles, solved with DFSPH and with IISPH,
+without and with the fluid's XSPH and artificial-viscosity forces, under
+the poly6 / spiky SPH kernels, with the Akinci, WCSPH and He 2014
+surface tensions and with the DFSPH implicit viscosity — on one NVIDIA
+GPU, in these phases:
 
 1. setup: the card's name and power limit, and the build of the hand
    CUDA kernels from ``salva_tpu_torch/csrc`` (one nvcc per source, all
@@ -14,9 +16,17 @@ in these phases:
 3. the IISPH main path: the same scene with ``solver=IISPHConfig()``,
    10 warm-up and 20 timed steps, its launch counts and per-step
    pressure iterations;
-4. the forces main paths: the same dam break whose fluid carries
+4. the other main paths: the same dam break whose fluid carries
    ``ArtificialViscosity(1.0, 0.0)`` and ``XSPHViscosity(0.5, 1.0)``,
    under DFSPH and under IISPH, 10 warm-up and 20 timed steps each;
+   DFSPH under ``kernel_density="poly6"`` / ``kernel_gradient="spiky"``
+   (10 + 20); faucet3's XSPH + Akinci tension under DFSPH and the WCSPH
+   + He 2014 tensions under IISPH and poly6 / spiky (10 + 10 each); and
+   ``DFSPHViscosity(0.5)`` under DFSPH (3 + 5, stopping at the first
+   step that leaves a non-finite position: the reference's iteration
+   diverges at its defaults), whose path is held to one application of
+   the force with one viscosity update at the DFSPH path's 97k state
+   (``phase_implicit_visc``);
 5. each kernel against its plain PyTorch version on identical tensors
    taken from the DFSPH world's state past impact (cells hold more than
    8 particles), both hoists with their IISPH ``s2`` channel and
@@ -33,8 +43,13 @@ in these phases:
    function, the device launches one call of each hoist makes (the
    profiler's count), and planted faults that each output's rule must
    catch (for the tiled ``k_pass``, ``t_pass`` and ``hoist_ff``, whose
-   tiling is logged, in the fullest cell on a tile's edge);
-6. each main path (DFSPH and IISPH, without and with the forces)
+   tiling is logged, in the fullest cell on a tile's edge); then every
+   SPH kernel name (``KERNEL_NAMES``) in each role: ``k_pass``,
+   ``t_pass`` and ``k_pass_v2`` under each non-cubic gradient kernel,
+   both hoists under the non-cubic ``HOIST_PAIRS``, each held, timed and
+   bounded (the planted faults on the poly6 / spiky instantiations);
+6. each main path (DFSPH and IISPH, without and with the viscosity
+   forces; DFSPH under poly6 / spiky and with faucet3's tension)
    stepped 5 times through the kernels and 5 times through the plain
    versions (substituted here, in the script), with identical iteration
    counts and matching positions required; the DFSPH path again with the
@@ -58,10 +73,11 @@ any phase fails. The last line of stdout is one JSON object:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's name and power limit, and the line
 before that the kernels' JSON record (``launches``: the count of the
-run named by ``launches_path`` — the DFSPH forces path, this slice's,
-and for ``k_pass_v2``, which no main path launches, its phase-5 checks
-and timing; ``launches_by_path``: every main path's, the brute paths'
-zeros included).
+run named by ``launches_path`` — the DFSPH forces path, and for
+``k_pass_v2``, which no main path launches, its phase-5 checks and
+timing; ``launches_by_path``: every main path's, the brute paths' zeros
+included; ``kernel_names``: the SPH kernel names held in phase 5, with
+their numbers under ``by_kernel``).
 """
 
 import json
@@ -134,6 +150,38 @@ BRUTE_POS_ATOL = {"dam_n5": 2e-6, "bench_16": PATH_POS_ATOL["dfsph"]}
 # nonzero boundary coefficient drives the fluid-boundary passes), as
 # (class name in salva_tpu_torch/forces.py, arguments).
 FORCES = (("ArtificialViscosity", (1.0, 0.0)), ("XSPHViscosity", (0.5, 1.0)))
+# faucet3's forces (salva_tpu/scenes.py:428-429): the Akinci adhesion runs
+# the fluid-boundary and boundary-fluid passes.
+FAUCET3 = (("XSPHViscosity", (0.5, 0.0)),
+           ("Akinci2013SurfaceTension", (1.0, 10.0)))
+# The WCSPH and He 2014 tensions of tests/test_dense.py:278-279.
+WCSPH_HE = (("WCSPHSurfaceTension", (1.0, 0.5)),
+            ("He2014SurfaceTension", (1.0, 0.5)))
+# The SPH kernel names every pair kernel takes, in each role.
+KERNEL_NAMES = ("cubic", "poly6", "spiky", "viscosity")
+# The main paths, all on the 97k dam break: solver, (kernel_density,
+# kernel_gradient), the fluid's forces, and (warm-up, timed) steps. The
+# last four are this slice's; the implicit viscosity iterates up to 50
+# times a step, so its path is short.
+PATHS = {
+    "dfsph": dict(solver="dfsph"),
+    "iisph": dict(solver="iisph"),
+    "dfsph_forces": dict(solver="dfsph", forces=FORCES),
+    "iisph_forces": dict(solver="iisph", forces=FORCES),
+    "dfsph_poly6_spiky": dict(solver="dfsph", kernels=("poly6", "spiky")),
+    "dfsph_tension": dict(solver="dfsph", forces=FAUCET3, steps=(10, 10)),
+    "iisph_tension_poly6_spiky": dict(
+        solver="iisph", kernels=("poly6", "spiky"), forces=WCSPH_HE,
+        steps=(10, 10)),
+    "dfsph_implicit_visc": dict(
+        solver="dfsph", forces=(("DFSPHViscosity", (0.5,)),),
+        steps=(3, 5)),
+}
+# The (kernel_density, kernel_gradient) pairs phase 5 holds the hoists
+# under: every pair a main path uses, and the viscosity kernel in both
+# roles (the gradient-only passes take every name of KERNEL_NAMES).
+HOIST_PAIRS = (("cubic", "cubic"), ("poly6", "spiky"),
+               ("viscosity", "viscosity"))
 REPLACES = {
     "k_pass": "salva_tpu/ops/pallas_pair.py:707",
     "t_pass": "salva_tpu/ops/pallas_pair.py:225",
@@ -151,14 +199,30 @@ MAIN_PATH_KERNELS = ("k_pass", "t_pass", "hoist_ff", "hoist_fb", "expand")
 # bandwidth and float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# Float32 operations per pair, counted from the kernel source (a sqrt or
-# rsqrt counts as one): the distance test every candidate pair needs
-# (dim subtractions, dim products, dim - 1 sums), and the rest of the
-# pair's arithmetic, needed only for pairs within h (cubic dW/dr / r: 14,
-# cubic W: 10, then each kernel's accumulations).
+# Float32 operations per pair, counted from the kernel source (a sqrt,
+# rsqrt or division counts as one): the distance test every candidate pair
+# needs (dim subtractions, dim products, dim - 1 sums), and the rest of
+# the pair's arithmetic, needed only for pairs within h: dW/dr / r of the
+# gradient kernel, W of the density kernel (the hoists), then each
+# pass's accumulations. Cubic: dW/dr / r 14 (one sqrt, one rsqrt), W 10
+# more from the same q; each other kernel takes its own sqrt of r^2,
+# shared by W and dW/dr / r when both roles name it.
 OPS_CANDIDATE = {2: 5, 3: 8}
-OPS_WITHIN = {"k_pass": 22, "t_pass": 22, "hoist_ff": 48, "hoist_fb": 57,
-              "k_pass_v2": 22}
+OPS_DWR = {"cubic": 14, "poly6": 8, "spiky": 6, "viscosity": 12}
+OPS_W = {"cubic": 11, "poly6": 6, "spiky": 5, "viscosity": 11}
+OPS_ACC = {"k_pass": 8, "t_pass": 8, "hoist_ff": 24, "hoist_fb": 33,
+           "k_pass_v2": 8}
+
+
+def ops_within(name, kd, kg):
+    """Float32 operations of one pair within h of pass ``name`` under the
+    density / gradient kernels ``kd`` / ``kg`` (the gradient-only passes
+    ignore ``kd``): 22, 48 and 57 for the cubic k_pass, hoist_ff and
+    hoist_fb."""
+    ops = OPS_ACC[name] + OPS_DWR[kg]
+    if name.startswith("hoist"):
+        ops += OPS_W[kd] - (1 if kd == kg else 0)
+    return ops
 
 
 def log(msg):
@@ -166,11 +230,14 @@ def log(msg):
 
 
 def reset_counts(pair):
-    """Set every kernel's launch count to 0 (pair passes and binning)."""
+    """Set every kernel's launch count to 0 (pair passes and binning), and
+    the iterative forces' iteration counts."""
+    from salva_tpu_torch import counters
     from salva_tpu_torch.ops import binning
 
     pair.reset_launches()
     binning.reset_launches()
+    counters.reset_force_iterations()
 
 
 def read_counts(pair):
@@ -180,9 +247,11 @@ def read_counts(pair):
     return dict(pair.LAUNCHES, **binning.LAUNCHES)
 
 
-def path_name(solver, forces=False, sparse_boundary=True):
-    return (solver + ("_forces" if forces else "")
-            + ("" if sparse_boundary else "_full_grid"))
+def force_iterations():
+    """The iterative forces' iterations since the last ``reset_counts``."""
+    from salva_tpu_torch import counters
+
+    return dict(counters.FORCE_ITERATIONS)
 
 
 def card_line() -> str:
@@ -195,13 +264,15 @@ def card_line() -> str:
 
 
 def dam_break_world(device, solver="dfsph", sparse_boundary=True,
-                    forces=False, n_target=N_TARGET, layout="auto",
-                    dense_caps=(None, None)):
+                    forces=(), n_target=N_TARGET, layout="auto",
+                    dense_caps=(None, None), kernels=("cubic", "cubic")):
     """The bench.py dam break (``run_config``): a cube of
     round(n_target^(1/3))^3 particles (46^3 by default) one radius above
     a sampled Cuboid floor, moving down at 2 m/s, in a static domain;
     caps (unless ``dense_caps`` names them), window and fb table
-    auto-resolve. ``forces``: the fluid carries FORCES."""
+    auto-resolve. ``forces``: the fluid's forces, as (class name in
+    salva_tpu_torch/forces.py, arguments) pairs; ``kernels``: the SPH
+    kernels (kernel_density, kernel_gradient)."""
     from salva_tpu_torch import forces as force_specs
     from salva_tpu_torch import shapes
     from salva_tpu_torch.config import DFSPHConfig, IISPHConfig
@@ -222,14 +293,15 @@ def dam_break_world(device, solver="dfsph", sparse_boundary=True,
                         smoothing_factor=2.0, dim=3, domain=domain,
                         layout=layout, dense_cap=dense_caps[0],
                         dense_cap_boundary=dense_caps[1], device=device)
-    if not sparse_boundary:
-        world.sim = world.sim.replace(dense_sparse_boundary=False)
+    world.sim = world.sim.replace(dense_sparse_boundary=sparse_boundary,
+                                  kernel_density=kernels[0],
+                                  kernel_gradient=kernels[1])
     pos = cube_fluid((n_side, n_side, n_side), radius)
     pos[:, 1] += half + radius
     vel = np.zeros_like(pos)
     vel[:, 1] = -2.0
-    nonpressure = ([getattr(force_specs, name)(*args)
-                    for name, args in FORCES] if forces else [])
+    nonpressure = [getattr(force_specs, name)(*args)
+                   for name, args in forces]
     world.add_fluid(Fluid(pos, density0=1000.0, velocities=vel,
                           nonpressure_forces=nonpressure))
     floor = shape_surface_sample(shapes.Cuboid((wall, 0.1, wall)), radius, 3)
@@ -375,14 +447,17 @@ def shift_flat(x, s):
     return out
 
 
-def bound(name, dim, read_bytes, written_bytes, candidates, within):
+def bound(name, dim, read_bytes, written_bytes, candidates, within,
+          kernels=("cubic", "cubic")):
     """(bound_ms, bound_by, ops): the larger of the bytes the call must
     move over the HBM rate and the float32 operations this state's pairs
-    need over the float32 rate. ``read_bytes`` counts each input element
-    the function needs read once (live slots only, from this run's
-    counts); ``written_bytes`` the output tensors it returns, each
-    element written once."""
-    ops = OPS_CANDIDATE[dim] * candidates + OPS_WITHIN[name] * within
+    need over the float32 rate, under the SPH ``kernels`` (density,
+    gradient). ``read_bytes`` counts each input element the function
+    needs read once (live slots only, from this run's counts);
+    ``written_bytes`` the output tensors it returns, each element written
+    once."""
+    ops = (OPS_CANDIDATE[dim] * candidates
+           + ops_within(name, *kernels) * within)
     t_bytes = (read_bytes + written_bytes) / HBM_BYTES_PER_S
     t_ops = ops / FP32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -408,61 +483,151 @@ def boundary_slots_within(cf, counts, visit, h, shifts):
     return int((hit & (rank < cb[None, :])).sum())
 
 
-def phase_main_path(pair, solver, forces=False):
-    """Phases 2-4: the dam break through LiquidWorld on the card, with
-    the launch counts of this run alone. Returns the world, past impact."""
-    tag = f"[main {path_name(solver, forces)}]"
-    world = dam_break_world("cuda", solver, forces=forces)
+def path_world(name, device="cuda", **kw):
+    """A fresh dam break of main path ``name`` (PATHS)."""
+    spec = PATHS[name]
+    return dam_break_world(device, spec["solver"],
+                           forces=spec.get("forces", ()),
+                           kernels=spec.get("kernels", ("cubic", "cubic")),
+                           **kw)
+
+
+def phase_main_path(pair, name):
+    """Phases 2-4: main path ``name`` (PATHS) through LiquidWorld on the
+    card, with the launch counts of this run alone; the step gates
+    (overflow, finite positions, peak density ratio) are asserted except
+    on the implicit-viscosity path, whose gates the caller reads (see
+    :func:`phase_implicit_visc`). Its steps stop at the first step that
+    leaves a non-finite position (the next binning would index with it).
+    Returns the world and the run's record."""
+    tag = f"[main {name}]"
+    spec = PATHS[name]
+    warm, steps = spec.get("steps", (10, 20))
+    world = path_world(name)
     assert world.device.type == "cuda"
     assert world.fluids_state.positions.device.type == "cuda"
     n = int(world.fluids_state.alive.sum())
+    visc = name == "dfsph_implicit_visc"
     reset_counts(pair)
+    iters, visc_iters, finite, taken = [], [], True, 0
     t0 = time.perf_counter()
-    for _ in range(10):
+    for i in range(warm + steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            refits0 = world.grid_refit_count
+            t0 = time.perf_counter()
+        before = force_iterations()["dfsph_viscosity"]
         world.step(DT, GRAVITY)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    steps = 20
-    iters = []
-    refits0 = world.grid_refit_count
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        world.step(DT, GRAVITY)
-        s = world.last_diagnostics.solver
-        iters.append((s.pressure_iters, s.divergence_iters))
+        taken += 1
+        s_ = world.last_diagnostics.solver
+        if i >= warm:
+            iters.append((s_.pressure_iters, s_.divergence_iters))
+        visc_iters.append(force_iterations()["dfsph_viscosity"] - before)
+        if visc and not bool(torch.isfinite(world.fluids_state.positions[
+                world.fluids_state.alive]).all()):
+            finite = False
+            break
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = read_counts(pair)
+    if taken <= warm:
+        warm_s, refits0, elapsed = elapsed, world.grid_refit_count, 0.0
 
     d = world.last_diagnostics
     overflow = int(d.neighbor_overflow)
     max_rho = float(d.max_density_ratio)
     pos = world.fluids_state.positions[world.fluids_state.alive]
-    finite = bool(torch.isfinite(pos).all())
-    ms = elapsed / steps * 1e3
+    finite = finite and bool(torch.isfinite(pos).all())
+    timed = max(taken - warm, 0)
+    ms = elapsed / timed * 1e3 if timed else float("nan")
     window = world._fitted_dims
-    log(f"{tag} N={n}: {ms:.3f} ms/step, {n * steps / elapsed:.6g} "
-        f"particle-steps/s over {steps} timed steps "
-        f"(10 warm-up steps took {warm_s:.2f} s)")
-    log(f"{tag} iterations per step (pressure, divergence): {iters}")
+    log(f"{tag} N={n}: {ms:.3f} ms/step, "
+        f"{n * timed / elapsed if timed else 0.0:.6g} particle-steps/s over "
+        f"{timed} timed steps ({warm} warm-up steps took {warm_s:.2f} s); "
+        f"kernels (density, gradient) {world.sim.kernel_density}, "
+        f"{world.sim.kernel_gradient}")
+    log(f"{tag} iterations per timed step (pressure, divergence): {iters}")
+    if any(visc_iters):
+        log(f"{tag} DFSPH viscosity iterations per step (all steps): "
+            f"{visc_iters}")
     log(f"{tag} caps {world._auto_caps}, window dims {window} "
         f"({int(np.prod(window)) if window else 'full domain'} cells), "
         f"fb table {world._fb_cols_cache}, grid refits "
         f"{world.grid_refit_count} ({world.grid_refit_count - refits0} "
         f"in the timed window)")
-    log(f"{tag} last step: overflow {overflow}, clamped "
-        f"{int(d.candidate_overflow)}, contacts ff {int(d.ncontacts_ff)} "
-        f"fb {int(d.ncontacts_fb)}, max density ratio {max_rho:.4f}")
-    log(f"{tag} kernel launches in this run (30 steps): {launches}")
-    if forces:
+    log(f"{tag} last step ({taken} of {warm + steps}): overflow {overflow}, "
+        f"clamped {int(d.candidate_overflow)}, contacts ff "
+        f"{int(d.ncontacts_ff)} fb {int(d.ncontacts_fb)}, max density ratio "
+        f"{max_rho:.4f}, positions finite {finite}")
+    log(f"{tag} kernel launches in this run ({taken} steps): {launches}")
+    if spec.get("forces"):
         log(f"{tag} non-pressure forces: {world._force_set}")
-        assert len(world._force_set.forces) == len(FORCES)
-    for name in MAIN_PATH_KERNELS:
-        assert launches[name] > 0, f"{name} was never launched on {tag}"
-    assert overflow < max(1, n // 1000), f"overflow {overflow} at N={n}"
-    assert finite, "non-finite fluid positions"
-    assert 0.9 < max_rho < 2.0, f"max density ratio {max_rho}"
-    return world, dict(n=n, ms=ms, launches=launches, iters=iters)
+        assert len(world._force_set.forces) == len(spec["forces"])
+    for k in MAIN_PATH_KERNELS:
+        assert launches[k] > 0, f"{k} was never launched on {tag}"
+    gates = {
+        f"overflow {overflow} < {max(1, n // 1000)}":
+            overflow < max(1, n // 1000),
+        "finite positions": finite,
+        f"max density ratio {max_rho} in (0.9, 2.0)": 0.9 < max_rho < 2.0,
+    }
+    if not visc:
+        for what, ok in gates.items():
+            assert ok, f"{tag} gate failed: {what}"
+    return world, dict(n=n, ms=ms, launches=launches, iters=iters,
+                       visc_iters=visc_iters, gates=gates, steps=taken)
+
+
+def phase_implicit_visc(pair, world):
+    """The implicit-viscosity path's rule. ``salva_tpu`` documents the
+    reference's DFSPH viscosity iteration as unstable on free blobs
+    (tests/test_dense.py:110-114), and at its defaults (up to 50
+    iterations) both packages diverge to non-finite values on the 7^3
+    dam break on the CPU (tests/test_torch_kernel_choice_dam_break.py)
+    and on the 2D field fixture (tests/test_torch_tension_forces.py). The
+    path's step gates are logged; the path is held to one application of
+    the force at the 97k state of ``world`` (the DFSPH main path's, past
+    impact) with one viscosity update (``max_viscosity_iter=1``, the
+    single application the CPU tests hold): a finite acceleration, its
+    iterations and time logged."""
+    from salva_tpu_torch.solver.forces_dense import DFSPHViscosityDense
+
+    vworld, run = phase_main_path(pair, "dfsph_implicit_visc")
+    del vworld
+    failed = [what for what, ok in run["gates"].items() if not ok]
+    ctx = step_ctx(world)
+    V = ctx.V
+    dt = torch.tensor(DT, dtype=torch.float32, device="cuda")
+    force = DFSPHViscosityDense((0.5,), (1,), max_viscosity_iter=1)
+    reset_counts(pair)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    accel, fb = ctx.apply_forces((force,), world.fluids_state, V, dt,
+                                 1.0 / dt, torch.zeros_like(ctx.P))
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    iters = force_iterations()["dfsph_viscosity"]
+    live = ctx.maskf > 0
+    a_live = accel[:, live]
+    finite = bool(torch.isfinite(a_live).all())
+    peak = float(a_live.abs().max()) if finite else float("nan")
+    log(f"[main dfsph_implicit_visc] step gates: "
+        + ", ".join(f"{w}: {'ok' if ok else 'FAILED'}"
+                    for w, ok in run["gates"].items()))
+    log(f"[main dfsph_implicit_visc] one application at the DFSPH path's "
+        f"97k state ({int(live.sum())} live slots, max_viscosity_iter=1):"
+        f" {iters} iterations, "
+        f"{apply_s:.3f} s, acceleration finite {finite}, peak |a| "
+        f"{peak:.6g} m/s^2")
+    assert fb is None
+    assert finite, "the DFSPH viscosity gave a non-finite acceleration"
+    if failed:
+        log(f"[main dfsph_implicit_visc] step gates failed ({failed}): "
+            f"held to the single application above (the reference's "
+            f"implicit viscosity is unstable on free blobs)")
+    return dict(run, failed_gates=failed, apply_iters=iters,
+                apply_s=apply_s, apply_peak=peak)
 
 
 def drop_last(counts, cells):
@@ -520,6 +685,32 @@ def hold_kernel(name, label, kern, plain, tol, copy_back=None):
             f"dropped particle (max abs err {err_drop:.4e}), "
             f"x {FAULT_SCALE} (max abs err {err_scale:.4e})")
     return out, max(abs_errs)
+
+
+def hold_outputs(name, label, kern, plain, tol, counts_ref=None):
+    """Hold ``kern()`` to ``plain()`` output by output (pair counts
+    exact, and equal to ``counts_ref``, the cubic run's, where given: the
+    count's rule does not depend on the kernel), with a bitwise rerun.
+    Returns (outputs, max abs err)."""
+    out, ref = as_tuple(kern()), as_tuple(plain())
+    for a, b in zip(out, as_tuple(kern())):
+        assert torch.equal(a, b), f"{label}: not bitwise deterministic"
+    names = OUTPUTS[name]
+    if len(out) > len(names):
+        assert torch.equal(out[-1], ref[-1]), f"{label}: pair counts differ"
+        if counts_ref is not None:
+            assert torch.equal(out[-1], counts_ref), \
+                f"{label}: pair counts differ from the cubic kernel's"
+    errs = {}
+    for i, o in enumerate(names):
+        if o == "s2" and not bool((ref[i] != 0).any()):
+            assert not bool((out[i] != 0).any()), f"{label}: s2 not zero"
+            continue
+        errs[o] = check_output(f"{label}.{o}", out[i], ref[i], tol)[0]
+    log(f"[kernels] {label}: max abs err " + ", ".join(
+        f"{o} {e:.4e}" for o, e in errs.items()) + f" (tol {tol})"
+        + ("; pair counts exact" if len(out) > len(names) else ""))
+    return out, max(errs.values())
 
 
 def hold_without_s2(label, names, out, ref, tol):
@@ -682,6 +873,7 @@ def phase_kernels(pair, world):
     for name in results:
         r = results[name]
         read, written = r.pop("read"), r.pop("written")
+        r["read_bytes"], r["written"] = read, written
         r["bound_ms"], r["bound_by"], ops = bound(name, dim, read, written,
                                                   n_eval, ff_within)
         log(f"[kernels] {name}: bound {r['bound_ms']:.5f} ms "
@@ -689,6 +881,86 @@ def phase_kernels(pair, world):
             f"{ops:.4g} float32 operations over {n_eval} candidate / "
             f"{ff_within} within-h pairs); kernel / bound "
             f"{r['ms'] / r['bound_ms']:.1f}")
+
+    # Every SPH kernel name (KERNEL_NAMES): k_pass, t_pass and k_pass_v2
+    # under each non-cubic gradient kernel, hoist_ff (with and without s2)
+    # under the non-cubic HOIST_PAIRS. The planted faults run on the
+    # poly6 / spiky instantiations (the non-cubic main paths'). Bounds
+    # count each kernel's own float32 operations (ops_within).
+    passes = {"k_pass": (K, pair.k_pass_plain, short_k, copy_k),
+              "t_pass": (Q, pair.t_pass_plain, short_t, copy_t),
+              "k_pass_v2": (K, pair.k_pass_plain, short_v2, copy_v2)}
+    by_kernel = {name: {} for name in
+                 ("k_pass", "t_pass", "k_pass_v2", "hoist_ff", "hoist_fb")}
+    rw = {name: (results[name]["read_bytes"], results[name]["written"])
+          for name in ("k_pass", "t_pass", "k_pass_v2", "hoist_ff")}
+    for name in ("k_pass", "t_pass", "k_pass_v2"):
+        r = results[name]
+        by_kernel[name]["cubic"] = {k: r[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    for kg in KERNEL_NAMES[1:]:
+        for name, (X, plain_fn, short, copy) in passes.items():
+            def kern(f=False, name=name, X=X, short=short, kg=kg):
+                return getattr(pair, name)(spec, h, dim, kg, P, M, X,
+                                           short if f else counts)
+
+            def plain(plain_fn=plain_fn, X=X, kg=kg):
+                return plain_fn(spec, h, dim, kg, P, M, X, counts)
+
+            label = f"{name} ({kg})"
+            if kg == "spiky":
+                out, err = hold_kernel(name, label, kern, plain, KT_TOL,
+                                       copy)
+            else:
+                out, err = hold_outputs(name, label, kern, plain, KT_TOL)
+            ms = cuda_ms(kern, 50)
+            plain_ms = cuda_ms(plain, 5)
+            b_ms, b_by, ops = bound(name, dim, *rw[name], n_eval, ff_within,
+                                    (kg, kg))
+            by_kernel[name][kg] = dict(max_abs_err=err, ms=ms,
+                                       plain_ms=plain_ms, bound_ms=b_ms,
+                                       bound_by=b_by)
+            log(f"[kernels] {label}: kernel {ms:.4f} ms device time (cubic "
+                f"{results[name]['ms']:.4f}), plain {plain_ms:.4f} ms; bound "
+                f"{b_ms:.5f} ms ({b_by}, {ops:.4g} float32 operations); "
+                f"kernel / bound {ms / b_ms:.1f}")
+    by_kernel["hoist_ff"]["cubic/cubic"] = {k: results["hoist_ff"][k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    cnt_cubic = pair.hoist_ff(spec, h, dim, "cubic", "cubic", P, M,
+                              counts)[-1]
+    for kd, kg in HOIST_PAIRS[1:]:
+        def kern(f=False, s2=True, kd=kd, kg=kg):
+            return pair.hoist_ff(spec, h, dim, kd, kg, P, M,
+                                 short_ff if f else counts, need_s2=s2)
+
+        def plain(s2=True, kd=kd, kg=kg):
+            return pair.hoist_ff_plain(spec, h, dim, kd, kg, P, M, counts,
+                                       need_s2=s2)
+
+        label = f"hoist_ff ({kd}/{kg})"
+        if (kd, kg) == ("poly6", "spiky"):
+            out, err = hold_kernel("hoist_ff", label, kern, plain,
+                                   HOIST_TOL, copy_ff)
+            assert torch.equal(out[-1], cnt_cubic)
+        else:
+            out, err = hold_outputs("hoist_ff", label, kern, plain,
+                                    HOIST_TOL, cnt_cubic)
+        err = max(err, hold_outputs(
+            "hoist_ff", f"{label} (need_s2=False)", lambda: kern(s2=False),
+            lambda: plain(s2=False), HOIST_TOL, cnt_cubic)[1])
+        ms = cuda_ms(kern, 50)
+        ms0 = cuda_ms(lambda: kern(s2=False), 50)
+        plain_ms = cuda_ms(plain, 5)
+        b_ms, b_by, ops = bound("hoist_ff", dim, *rw["hoist_ff"], n_eval,
+                                ff_within, (kd, kg))
+        by_kernel["hoist_ff"][f"{kd}/{kg}"] = dict(
+            max_abs_err=err, ms=ms, ms_without_s2=ms0, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by)
+        log(f"[kernels] {label}: kernel {ms:.4f} ms device time with s2, "
+            f"{ms0:.4f} without (cubic {results['hoist_ff']['ms']:.4f}), "
+            f"plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}, "
+            f"{ops:.4g} float32 operations); kernel / bound "
+            f"{ms / b_ms:.1f}")
 
     # hoist_fb on both boundary layouts. The dam-break floor is static
     # (boundary velocities 0, so Sb = 0); seeded random boundary
@@ -788,6 +1060,41 @@ def phase_kernels(pair, world):
         fb[layout] = dict(max_abs_err=err, ms=ms, call_ms=one,
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                           fill_ms=fill_ms, launches_per_call=n_dev)
+        cnt_cubic = out[-1]
+        for kd, kg in HOIST_PAIRS[1:]:
+            nc = (spec, h, dim, kd, kg) + args[5:]
+
+            def kern_nc(f=False, s2=True, nc=nc, kw=kw, cb=c.counts_b,
+                        short_b=short_b):
+                return pair.hoist_fb(*nc, short_b if f else cb,
+                                     **dict(kw, need_s2=s2))
+
+            def plain_nc(s2=True, nc=nc, kw=kw, cb=c.counts_b):
+                return pair.hoist_fb_plain(*nc, cb, **dict(kw, need_s2=s2))
+
+            label = f"hoist_fb ({layout}, {kd}/{kg})"
+            if (kd, kg) == ("poly6", "spiky") and layout == "sparse":
+                o_nc, e_nc = hold_kernel("hoist_fb", label, kern_nc,
+                                         plain_nc, HOIST_TOL)
+                assert torch.equal(o_nc[-1], cnt_cubic)
+            else:
+                o_nc, e_nc = hold_outputs("hoist_fb", label, kern_nc,
+                                          plain_nc, HOIST_TOL, cnt_cubic)
+            e_nc = max(e_nc, hold_outputs(
+                "hoist_fb", f"{label} (need_s2=False)",
+                lambda: kern_nc(s2=False), lambda: plain_nc(s2=False),
+                HOIST_TOL, cnt_cubic)[1])
+            ms_nc = cuda_ms(kern_nc, 50)
+            plain_nc_ms = cuda_ms(plain_nc, 5)
+            b_nc, by_nc, ops_nc = bound("hoist_fb", dim, read, written,
+                                        cand, within, (kd, kg))
+            by_kernel["hoist_fb"].setdefault(f"{kd}/{kg}", {})[layout] = dict(
+                max_abs_err=e_nc, ms=ms_nc, plain_ms=plain_nc_ms,
+                bound_ms=b_nc, bound_by=by_nc)
+            log(f"[kernels] {label}: kernel {ms_nc:.4f} ms device time "
+                f"(cubic {ms:.4f}), plain {plain_nc_ms:.4f} ms; bound "
+                f"{b_nc:.5f} ms ({by_nc}, {ops_nc:.4g} float32 operations);"
+                f" kernel / bound {ms_nc / b_nc:.1f}")
         log(f"[kernels] hoist_fb ({layout}): kernel {ms:.4f} ms device time "
             f"({one:.4f} ms a call), plain {plain_ms:.4f} ms; bound "
             f"{b_ms:.5f} ms ({b_by}; {read} B read: {n_pf} fluid slots, "
@@ -796,12 +1103,27 @@ def phase_kernels(pair, world):
             f"operations over {cand} candidate / {within} within-h "
             f"pairs); kernel / bound {ms / b_ms:.1f}")
     # The main path runs the sparse layout: its numbers go in the record.
+    by_kernel["hoist_fb"]["cubic/cubic"] = {
+        layout: {k: fb[layout][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        for layout in fb}
     results["hoist_fb"] = dict(
         fb["sparse"],
-        max_abs_err=max(fb["sparse"]["max_abs_err"],
-                        fb["full"]["max_abs_err"]),
+        max_abs_err=max([fb["sparse"]["max_abs_err"],
+                         fb["full"]["max_abs_err"]]
+                        + [r["max_abs_err"]
+                           for pk in by_kernel["hoist_fb"].values()
+                           for r in pk.values()]),
         full_grid=fb["full"],
     )
+    for name, rec in by_kernel.items():
+        results[name]["by_kernel"] = rec
+        results[name]["kernel_names"] = sorted(
+            {k for pk in rec for k in pk.split("/")},
+            key=KERNEL_NAMES.index)
+        if name != "hoist_fb":
+            results[name]["max_abs_err"] = max(
+                r["max_abs_err"] for r in rec.values())
     results["expand"] = phase_expand(world, ctx)
     return results
 
@@ -915,10 +1237,10 @@ def phase_expand(world, ctx):
     return dict(rec["fluid"], boundary=rec["boundary"])
 
 
-def run_steps(solver, steps=5, sparse_boundary=True, forces=False):
-    """A fresh dam break stepped ``steps`` times: (iterations per step,
-    live positions, last diagnostics)."""
-    world = dam_break_world("cuda", solver, sparse_boundary, forces=forces)
+def run_steps(name, steps=5, sparse_boundary=True):
+    """A fresh dam break of main path ``name`` stepped ``steps`` times:
+    (iterations per step, live positions, last diagnostics)."""
+    world = path_world(name, sparse_boundary=sparse_boundary)
     iters = []
     for _ in range(steps):
         world.step(DT, GRAVITY)
@@ -946,26 +1268,29 @@ class substituted:
             setattr(mod, name, fn)
 
 
-def phase_path_parity(pair, solver, forces=False):
-    """Phase 6: 5 steps through the kernels vs 5 through the plain
-    versions (substituted for the wrappers here, in the script: the pair
-    passes' ``*_plain`` and the binning's ``expand_plain``). Returns the
-    kernel run."""
+def phase_path_parity(pair, name):
+    """Phase 6: main path ``name`` stepped 5 times through the kernels vs
+    5 times through the plain versions (substituted for the wrappers
+    here, in the script: the pair passes' ``*_plain`` and the binning's
+    ``expand_plain``). Returns the kernel run."""
     from salva_tpu_torch.ops import binning
 
-    tag = f"[parity {path_name(solver, forces)}]"
+    tag = f"[parity {name}]"
+    solver = PATHS[name]["solver"]
     names = ("k_pass", "t_pass", "hoist_ff", "hoist_fb")
-    kernel_run = run_steps(solver, forces=forces)
+    t0 = time.perf_counter()
+    kernel_run = run_steps(name)
     it_k, pos_k, _ = kernel_run
     subs = {(pair, n): getattr(pair, n + "_plain") for n in names}
     subs[(binning, "expand")] = binning.expand_plain
     reset_counts(pair)
     with substituted(subs):
-        it_p, pos_p, _ = run_steps(solver, forces=forces)
+        it_p, pos_p, _ = run_steps(name)
     assert not any(read_counts(pair).values()), "the plain run launched"
     dpos = float((pos_k - pos_p).abs().max())
     log(f"{tag} iterations kernels {it_k} vs plain {it_p}; "
-        f"max |dpos| {dpos:.3e} m (atol {PATH_POS_ATOL[solver]})")
+        f"max |dpos| {dpos:.3e} m (atol {PATH_POS_ATOL[solver]}); "
+        f"{time.perf_counter() - t0:.1f} s")
     assert it_k == it_p, "iteration counts differ between kernels and plain"
     assert dpos <= PATH_POS_ATOL[solver], f"positions differ by {dpos}"
     return kernel_run
@@ -1158,14 +1483,20 @@ def main() -> int:
     world, dfsph = phase_main_path(pair, "dfsph")
     paths["dfsph"] = dfsph["launches"]
     log(f"[main dfsph] phase took {time.perf_counter() - t0:.1f} s")
-    for solver, forces in (("iisph", False), ("dfsph", True),
-                           ("iisph", True)):
+    for name in PATHS:
+        if name in ("dfsph", "dfsph_implicit_visc"):
+            continue
         t0 = time.perf_counter()
-        other, run = phase_main_path(pair, solver, forces)
+        other, run = phase_main_path(pair, name)
         del other
-        paths[path_name(solver, forces)] = run["launches"]
-        log(f"[main {path_name(solver, forces)}] phase took "
-            f"{time.perf_counter() - t0:.1f} s")
+        paths[name] = run["launches"]
+        log(f"[main {name}] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    visc = phase_implicit_visc(pair, world)
+    paths["dfsph_implicit_visc"] = visc["launches"]
+    torch.cuda.empty_cache()
+    log(f"[main dfsph_implicit_visc] phase took "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels = phase_kernels(pair, world)
     del world
@@ -1174,9 +1505,9 @@ def main() -> int:
     t0 = time.perf_counter()
     sparse_run = phase_path_parity(pair, "dfsph")
     phase_expand_vs_gather(pair, sparse_run)
-    phase_path_parity(pair, "iisph")
-    phase_path_parity(pair, "dfsph", forces=True)
-    phase_path_parity(pair, "iisph", forces=True)
+    for name in ("iisph", "dfsph_forces", "iisph_forces",
+                 "dfsph_poly6_spiky", "dfsph_tension"):
+        phase_path_parity(pair, name)
     log(f"[parity] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths["dfsph_full_grid"] = phase_full_grid(pair, sparse_run)
@@ -1192,7 +1523,9 @@ def main() -> int:
                 k["check_launches"]
         else:
             on, launches = "dfsph_forces", paths["dfsph_forces"][name]
-        extra = {key: k[key] for key in ("full_grid", "boundary") if key in k}
+        extra = {key: k[key] for key in ("kernel_names", "by_kernel",
+                                         "full_grid", "boundary")
+                 if key in k}
         records.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches,

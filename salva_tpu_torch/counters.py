@@ -14,11 +14,23 @@ as ``salva_tpu.counters``.
 
 Per-step solver iteration counts and error norms are returned in
 ``StepDiagnostics``; device-side stage times come from ``torch.profiler``.
+
+``FORCE_ITERATIONS`` counts the iterations of the iterative non-pressure
+forces (the DFSPH viscosity's strain-rate evaluations) since the last
+``reset_force_iterations``, over every world, as ``ops.pair.LAUNCHES``
+counts kernel launches.
 """
 
 from __future__ import annotations
 
 import time
+
+FORCE_ITERATIONS = {"dfsph_viscosity": 0}
+
+
+def reset_force_iterations():
+    for k in FORCE_ITERATIONS:
+        FORCE_ITERATIONS[k] = 0
 
 
 class Timer:

@@ -74,7 +74,9 @@
 //    butterfly of shuffles.
 //  - The spline only within h: a lane first runs over its candidate pairs
 //    computing r^2 only, and queues (in shared memory) those with
-//    q2 = r^2 * inv_h2 <= 1, q2 exactly as cubic_dwr computes it; it
+//    q2 = r^2 * inv_h2 <= 1, q2 exactly as cubic_dwr computes it (the
+//    cubic's rule; the other SPH kernels queue on their own, see "Pair
+//    math" below); it
 //    then adds the queued pairs in the order it found them, all lanes of
 //    the warp together, so the warp runs the spline about once per pair
 //    within h instead of once per candidate. The skip is exact: for
@@ -162,27 +164,59 @@
 // fixed order (stencil rows or offsets, then rank); there are no
 // atomics, so results are bitwise identical from run to run.
 //
-// Pair math: the fused cubic spline of salva_tpu (dense_common.w_dwr,
-// pallas_pair._grad_scale_fn / _w_scale_fn): W and dW/dr / r from r^2
-// with one sqrtf and one rsqrtf.
+// Pair math: the SPH kernel of each role is a template parameter (Kern:
+// cubic, poly6, spiky, viscosity; ops/pair.py passes kernel_gradient for
+// dW/dr / r and kernel_density for W by name). The cubic spline is the
+// fused one of salva_tpu (dense_common.w_dwr, pallas_pair._grad_scale_fn
+// / _w_scale_fn): W and dW/dr / r from r^2 with one sqrtf and one rsqrtf.
+// The other three are those of salva_tpu/kernels/sph.py as
+// _grad_scale_fn / _w_scale_fn evaluate them: r = sqrtf(r^2), W = w(r),
+// dW/dr / r = dw(r) / r as an IEEE division (no fast math:
+// ops/_build.py) and 0 for r <= EPSILON; each w / dw cuts on r <= h
+// itself, and the viscosity kernel guards its divisions by r and r^2
+// with r > 0, as written there. Their normalizers and constants are
+// folded in float64 on the host (ops/pair.py _pair_params), as the
+// cubic's are. The tiled passes queue a pair for the spline on its
+// kernel's own rule (Sph<K>::queue): the cubic's q2 = r^2 / h^2 <= 1, the
+// others' r^2 <= queue_r2, a bound the host sets just above h^2 so that
+// every pair with sqrtf(r^2) <= h is queued (on the lattice's r = h pairs
+// q2 <= 1 and sqrtf(r^2) <= h round apart). A queued pair outside the
+// support adds exactly +-0, as a skipped one would: each branch returns
+// 0 there, so W = 0 and dW/dr / r = 0 / r = +0.
 
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+#include <string.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
-struct Cubic {
+// The constants of every kernel, filled by the host in this order
+// (ops/pair.py _pair_params).
+struct Params {
   float inv_h2;     // 1 / h^2
   float w_norm;     // cubic normalizer (8 / (pi h^3) in 3D)
   float dwr_scale;  // w_norm / h^2
-  float h2;         // h^2: pair-count radius
+  float h2;         // h^2: pair-count radius; poly6's and viscosity's h^2
+  float h;          // h: the support r <= h of the non-cubic kernels
+  float queue_r2;   // every pair with sqrtf(r^2) <= h has r^2 <= queue_r2
+  float poly6_n;    // poly6 normalizer
+  float spiky_n;    // spiky normalizer
+  float visc_n;     // Mueller viscosity normalizer
+  float two_h;      // 2 h
+  float two_hhh;    // 2 h^3
 };
+constexpr int kParams = sizeof(Params) / sizeof(float);
+
+// salva_tpu's EPSILON (float32 machine epsilon): a pair closer than this
+// has a zero gradient (kernel.rs:19-26).
+constexpr float kEpsilon = 1.1920928955078125e-07f;
 
 // W and dW/dr / r of the pair at r^2, from one sqrtf of q2.
-__device__ __forceinline__ void cubic_w_dwr(float r2, const Cubic& k,
+__device__ __forceinline__ void cubic_w_dwr(float r2, const Params& k,
                                             float& w, float& dwr) {
   const float q2 = r2 * k.inv_h2;
   const float q = sqrtf(q2);
@@ -197,10 +231,140 @@ __device__ __forceinline__ void cubic_w_dwr(float r2, const Cubic& k,
   w = k.w_norm * (q <= 0.5f ? near_w : (q <= 1.0f ? far_w : 0.0f));
 }
 
-__device__ __forceinline__ float cubic_dwr(float r2, const Cubic& k) {
+__device__ __forceinline__ float cubic_dwr(float r2, const Params& k) {
   float w, dwr;
   cubic_w_dwr(r2, k, w, dwr);  // w is dead code here
   return dwr;
+}
+
+// The SPH kernels by id (ops/pair.py _KERNEL_IDS).
+enum Kern { kCubic = 0, kPoly6 = 1, kSpiky = 2, kVisc = 3 };
+
+template <int K>
+struct Sph;
+
+template <>
+struct Sph<kCubic> {
+  __device__ static float w(float r2, const Params& k) {
+    float w, dwr;
+    cubic_w_dwr(r2, k, w, dwr);
+    return w;
+  }
+  __device__ static float dwr(float r2, const Params& k) {
+    return cubic_dwr(r2, k);
+  }
+  // q2 exactly as cubic_w_dwr computes it: beyond 1 both are +-0.
+  __device__ static bool queue(float r2, const Params& k) {
+    return r2 * k.inv_h2 <= 1.0f;
+  }
+};
+
+// dW/dr / r of the non-cubic kernel S: dw(r) / r, 0 for r <= EPSILON.
+template <class S>
+__device__ __forceinline__ float dw_over_r(float r2, const Params& k) {
+  const float r = sqrtf(r2);
+  return r > kEpsilon ? S::dw(r, k) / r : 0.0f;
+}
+
+// What the three non-cubic kernels share: dW/dr / r and the queue rule.
+template <class S>
+struct NonCubic {
+  __device__ static float dwr(float r2, const Params& k) {
+    return dw_over_r<S>(r2, k);
+  }
+  __device__ static bool queue(float r2, const Params& k) {
+    return r2 <= k.queue_r2;
+  }
+};
+
+// Poly6 (poly6_kernel.rs:12-40).
+template <>
+struct Sph<kPoly6> : NonCubic<Sph<kPoly6>> {
+  __device__ static float w(float r2, const Params& k) {
+    const float r = sqrtf(r2);
+    const float a = k.h2 - r * r;
+    return r <= k.h ? k.poly6_n * a * a * a : 0.0f;
+  }
+  __device__ static float dw(float r, const Params& k) {
+    const float a = k.h2 - r * r;
+    return r <= k.h ? k.poly6_n * a * a * r * -6.0f : 0.0f;
+  }
+};
+
+// Spiky (spiky_kernel.rs:12-40).
+template <>
+struct Sph<kSpiky> : NonCubic<Sph<kSpiky>> {
+  __device__ static float w(float r2, const Params& k) {
+    const float r = sqrtf(r2);
+    const float h_r = k.h - r;
+    return r <= k.h ? k.spiky_n * h_r * h_r * h_r : 0.0f;
+  }
+  __device__ static float dw(float r, const Params& k) {
+    const float h_r = k.h - r;
+    return r <= k.h ? -k.spiky_n * h_r * h_r * 3.0f : 0.0f;
+  }
+};
+
+// Mueller viscosity (viscosity_kernel.rs:12-51): zero at r = 0 and beyond
+// h; its divisions by r and r^2 are taken for r > 0 only.
+template <>
+struct Sph<kVisc> : NonCubic<Sph<kVisc>> {
+  __device__ static float w(float r2, const Params& k) {
+    const float r = sqrtf(r2);
+    if (!(r > 0.0f && r <= k.h)) return 0.0f;
+    const float rr_hh = r * r / k.h2;
+    return k.visc_n *
+           (rr_hh * (1.0f - r / k.two_h) + k.h / (2.0f * r) - 1.0f);
+  }
+  __device__ static float dw(float r, const Params& k) {
+    if (!(r > 0.0f && r <= k.h)) return 0.0f;
+    const float rr = r * r;
+    return k.visc_n *
+           (-3.0f * rr / k.two_hhh + 2.0f * r / k.h2 - k.h / (2.0f * rr));
+  }
+};
+
+// W of the density kernel Kd and dW/dr / r of the gradient kernel Kg at
+// r^2 (cubic with cubic: both from one sqrtf, as before the other kernels
+// were added).
+template <int Kd, int Kg>
+__device__ __forceinline__ void pair_w_dwr(float r2, const Params& k,
+                                           float& w, float& dwr) {
+  if constexpr (Kd == kCubic && Kg == kCubic) {
+    cubic_w_dwr(r2, k, w, dwr);
+  } else {
+    w = Sph<Kd>::w(r2, k);
+    dwr = Sph<Kg>::dwr(r2, k);
+  }
+}
+
+// Whether a pass that evaluates kernels Kd and Kg queues the pair at r^2:
+// either kernel's rule.
+template <int Kd, int Kg>
+__device__ __forceinline__ bool queue_either(float r2, const Params& k) {
+  if constexpr (Kd == Kg) {
+    return Sph<Kg>::queue(r2, k);
+  } else {
+    return Sph<Kg>::queue(r2, k) || Sph<Kd>::queue(r2, k);
+  }
+}
+
+// Calls fn(std::integral_constant<int, K>()) for the kernel id K = id.
+template <class Fn>
+int with_kernel(int id, Fn&& fn) {
+  switch (id) {
+    case kCubic: return fn(std::integral_constant<int, kCubic>());
+    case kPoly6: return fn(std::integral_constant<int, kPoly6>());
+    case kSpiky: return fn(std::integral_constant<int, kSpiky>());
+    case kVisc: return fn(std::integral_constant<int, kVisc>());
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+Params load_params(const float* params) {
+  Params k;
+  memcpy(&k, params, sizeof(Params));
+  return k;
 }
 
 // Flat-index delta of stencil offset o (row-major, dx outermost), the
@@ -238,13 +402,13 @@ struct Stencil {
 // thread-per-slot design (the file note): the same pairs, read through
 // L1/L2 behind dependent count loads, the full spline for every
 // candidate, and the dead slots of live groups.
-template <int DIM>
+template <int DIM, int Kg>
 __global__ void k_pass_v2_kernel(const float* __restrict__ P,
                                  const float* __restrict__ M,
                                  const float* __restrict__ K,
                                  const int* __restrict__ count,
                                  float* __restrict__ out, int cap, int C,
-                                 int ny, int nz, Cubic k) {
+                                 int ny, int nz, Params k) {
   const int lane = threadIdx.x & 31;
   const long long item =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -281,7 +445,7 @@ __global__ void k_pass_v2_kernel(const float* __restrict__ P,
           float r2 = dp[0] * dp[0];
 #pragma unroll
           for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
-          const float coeff = (M[js] * K[js]) * cubic_dwr(r2, k);
+          const float coeff = (M[js] * K[js]) * Sph<Kg>::dwr(r2, k);
 #pragma unroll
           for (int d = 0; d < DIM; ++d) acc[d] += dp[d] * coeff;
         }
@@ -324,8 +488,9 @@ __device__ __forceinline__ float word(const float4& v, int i) {
 // (p_j, (m k)_j), (m k)_j = M[js] * K[js] premultiplied as the pair term
 // takes it. A block: 8 warps and at most 56 KB of shared memory, 4 blocks
 // resident on an H100 SM (228 KB, 1 KB of it reserved per block); the
-// fastest of the sizes measured at the 97k dam break (PERF.md).
-template <int DIM>
+// fastest of the sizes measured at the 97k dam break (PERF.md). Kg: the
+// gradient kernel.
+template <int DIM, int Kg>
 struct KPass {
   static constexpr int kWords = 1;  // float4 words of a staged slot
   static constexpr int kOut = DIM;  // float output channels
@@ -348,9 +513,12 @@ struct KPass {
     w[DIM] = v[DIM] * v[DIM + 1];
     s[0] = make_float4(w[0], w[1], w[2], w[3]);
   }
+  __device__ static bool queue(float r2, const Params& k) {
+    return Sph<Kg>::queue(r2, k);
+  }
   __device__ static void add(float (&acc)[kOut], const float (&dp)[DIM],
-                             float r2, const float4* s, const Cubic& k) {
-    const float coeff = word(s[0], DIM) * cubic_dwr(r2, k);
+                             float r2, const float4* s, const Params& k) {
+    const float coeff = word(s[0], DIM) * Sph<Kg>::dwr(r2, k);
 #pragma unroll
     for (int d = 0; d < DIM; ++d) acc[d] += dp[d] * coeff;
   }
@@ -359,7 +527,7 @@ struct KPass {
 // t_pass: (p_j, m_j) and Q_j, two float4 words. Its slots are twice
 // k_pass's, so a block takes 16 warps and up to 100 KB (2 per SM) to reach
 // tiles as long.
-template <int DIM>
+template <int DIM, int Kg>
 struct TPass {
   static constexpr int kWords = 2;
   static constexpr int kOut = 1;
@@ -389,12 +557,15 @@ struct TPass {
     s[0] = make_float4(w[0], w[1], w[2], w[3]);
     s[1] = make_float4(q[0], q[1], q[2], q[3]);
   }
+  __device__ static bool queue(float r2, const Params& k) {
+    return Sph<Kg>::queue(r2, k);
+  }
   __device__ static void add(float (&acc)[kOut], const float (&dp)[DIM],
-                             float r2, const float4* s, const Cubic& k) {
+                             float r2, const float4* s, const Params& k) {
     float t = word(s[1], 0) * dp[0];
 #pragma unroll
     for (int d = 1; d < DIM; ++d) t = t + word(s[1], d) * dp[d];
-    acc[0] += t * cubic_dwr(r2, k) * word(s[0], DIM);
+    acc[0] += t * Sph<Kg>::dwr(r2, k) * word(s[0], DIM);
   }
 };
 
@@ -403,8 +574,9 @@ struct TPass {
 // count, DIM + 4 output words a slot. A block: 16 warps and up to 100 KB,
 // 2 resident on an H100 SM (registers set it), tiles of 16 cells at cap
 // 16: faster at the 97k dam break than k_pass's 8 warps and 56 KB (tiles
-// of 15 cells, 4 a SM) and than 8 warps with 48 or 72 KB (PERF.md).
-template <int DIM, bool kS2>
+// of 15 cells, 4 a SM) and than 8 warps with 48 or 72 KB (PERF.md). Kd,
+// Kg: the density and gradient kernels.
+template <int DIM, bool kS2, int Kd, int Kg>
 struct HoistFF {
   static constexpr int kWords = 1;
   static constexpr int kOut = DIM + 3;
@@ -425,11 +597,14 @@ struct HoistFF {
     for (int d = 0; d <= DIM; ++d) w[d] = v[d];
     s[0] = make_float4(w[0], w[1], w[2], w[3]);
   }
+  __device__ static bool queue(float r2, const Params& k) {
+    return queue_either<Kd, Kg>(r2, k);
+  }
   __device__ static void add(float (&acc)[kOut], const float (&dp)[DIM],
-                             float r2, const float4* s, const Cubic& k) {
+                             float r2, const float4* s, const Params& k) {
     const float mj = word(s[0], DIM);
     float w, dwr;
-    cubic_w_dwr(r2, k, w, dwr);
+    pair_w_dwr<Kd, Kg>(r2, k, w, dwr);
     acc[0] += mj * w;
     float gsq = 0.0f;
 #pragma unroll
@@ -507,7 +682,7 @@ __global__ void __launch_bounds__(Pass::kThreads)
     tile_pass_kernel(const float* __restrict__ P, const float* __restrict__ M,
                      const float* __restrict__ X,
                      const int* __restrict__ count, float* __restrict__ out,
-                     int cap, int C, int ny, int nz, int tile, Cubic k) {
+                     int cap, int C, int ny, int nz, int tile, Params k) {
   using R = Rows<DIM>;
   constexpr int kW = Pass::kWords;
   constexpr int kWarps = Pass::kThreads / 32;
@@ -671,11 +846,11 @@ __global__ void __launch_bounds__(Pass::kThreads)
       for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
       return r2;
     };
-    // Queue the pair if q2, exactly as cubic_dwr computes it, is at most 1:
-    // beyond, the pair term is +-0 (file note), so skipping the pair
-    // changes no sum. hoist_ff counts the pair on its own rule.
+    // Queue the pair on its kernels' rule (Pass::queue): beyond it the
+    // pair term is +-0 (file note), so skipping the pair changes no sum.
+    // hoist_ff counts the pair on its own rule.
     auto visit = [&](int idx, float r2, float mj) {
-      if (r2 * k.inv_h2 <= 1.0f) q[len++ * 32] = (unsigned short)idx;
+      if (Pass::queue(r2, k)) q[len++ * 32] = (unsigned short)idx;
       if (Pass::kCount) pairs += (r2 <= k.h2 && mj != 0.0f) ? 1 : 0;
     };
     // Add the queued pairs, in the order they were found, two at a time
@@ -781,7 +956,7 @@ cudaError_t tile_setup(int cap, int C, TileShape* t) {
 template <int DIM, class Pass>
 int launch_tile_pass(const float* P, const float* M, const float* X,
                      const int* count, float* out, int cap, int C, int ny,
-                     int nz, const Cubic& k, cudaStream_t s) {
+                     int nz, const Params& k, cudaStream_t s) {
   TileShape t;
   const cudaError_t err = tile_setup<DIM, Pass>(cap, C, &t);
   if (err != cudaSuccess) return (int)err;
@@ -822,8 +997,9 @@ constexpr int kFbQueue = 16;
 // `out` is [DIM + 5, cap, C] (rho, Gb, sq, s2, Sb, then the count's int32
 // plane), zero-filled by the caller: a warp writes the live slots of its
 // item only. Item w = entry t (of `cols`, or column t when cols is null)
-// and 8-slot group g, w = t * groups + g.
-template <int DIM>
+// and 8-slot group g, w = t * groups + g. Kd, Kg: the density and
+// gradient kernels.
+template <int DIM, int Kd, int Kg>
 __global__ void __launch_bounds__(kFbThreads)
     hoist_fb_warps(const float* __restrict__ P, const int* __restrict__ count,
                    const int* __restrict__ cols, int n_cols,
@@ -833,7 +1009,7 @@ __global__ void __launch_bounds__(kFbThreads)
                    const int* __restrict__ count_b,
                    const int* __restrict__ cell_to_col,
                    float* __restrict__ out, int cap, int C, int cap_b,
-                   int Cb, int ny, int nz, int need_s2, Cubic k) {
+                   int Cb, int ny, int nz, int need_s2, Params k) {
   constexpr int kWarps = kFbThreads / 32;
   constexpr int kOut = DIM + 4;  // float channels: rho, Gb, sq, s2, Sb
   __shared__ int queues[kWarps][kFbQueue][32];
@@ -891,7 +1067,7 @@ __global__ void __launch_bounds__(kFbThreads)
     const float r2 = dist2(js, dp);
     const float vj = Volb[js];
     float w, dwr;
-    cubic_w_dwr(r2, k, w, dwr);
+    pair_w_dwr<Kd, Kg>(r2, k, w, dwr);
     acc[0] += vj * w;
     float gsq = 0.0f, vdotg = 0.0f;
 #pragma unroll
@@ -959,15 +1135,15 @@ __global__ void __launch_bounds__(kFbThreads)
 // The passes of tile_pass_kernel, as salva_pass_tiling names them.
 enum TiledPass { kTileK = 0, kTileT = 1, kTileHoist = 2, kTileHoistS2 = 3 };
 
-template <int DIM>
+template <int DIM, int Kd, int Kg>
 int query_tiling(int pass, int cap, int C, int* shape) {
   switch (pass) {
-    case kTileK: return query_tile_pass<DIM, KPass<DIM>>(cap, C, shape);
-    case kTileT: return query_tile_pass<DIM, TPass<DIM>>(cap, C, shape);
+    case kTileK: return query_tile_pass<DIM, KPass<DIM, Kg>>(cap, C, shape);
+    case kTileT: return query_tile_pass<DIM, TPass<DIM, Kg>>(cap, C, shape);
     case kTileHoist:
-      return query_tile_pass<DIM, HoistFF<DIM, false>>(cap, C, shape);
+      return query_tile_pass<DIM, HoistFF<DIM, false, Kd, Kg>>(cap, C, shape);
     case kTileHoistS2:
-      return query_tile_pass<DIM, HoistFF<DIM, true>>(cap, C, shape);
+      return query_tile_pass<DIM, HoistFF<DIM, true, Kd, Kg>>(cap, C, shape);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -981,101 +1157,125 @@ extern "C" {
 // Each entry point launches on `stream` and returns cudaGetLastError()
 // (0 = success) so that the Python wrapper can raise on a refused launch,
 // or kNotLaunched when the grid is empty and there is nothing to launch
-// (the outputs are then complete as the wrapper allocated them).
+// (the outputs are then complete as the wrapper allocated them). `kd` /
+// `kg` are the density / gradient kernel ids (Kern; an unknown id is
+// refused with cudaErrorInvalidValue) and `params` the kParams floats of
+// Params, in its order.
 static const int kNotLaunched = -1;
+
+// The number of floats salva_* entry points read from `params`.
+int salva_pair_params() { return kParams; }
 
 int salva_k_pass(const float* P, const float* M, const float* K,
                  const int* count, float* out, int dim, int cap, int C,
-                 int ny, int nz, float inv_h2, float w_norm,
-                 float dwr_scale, float h2, void* stream) {
+                 int ny, int nz, int kg, const float* params, void* stream) {
   if (cap <= 0 || C <= 0) return kNotLaunched;
-  const Cubic k{inv_h2, w_norm, dwr_scale, h2};
+  const Params k = load_params(params);
   cudaStream_t s = (cudaStream_t)stream;
-  if (dim == 3) {
-    return launch_tile_pass<3, KPass<3>>(P, M, K, count, out, cap, C, ny, nz,
-                                         k, s);
-  }
-  if (dim == 2) {
-    return launch_tile_pass<2, KPass<2>>(P, M, K, count, out, cap, C, ny, nz,
-                                         k, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return with_kernel(kg, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    if (dim == 3) {
+      return launch_tile_pass<3, KPass<3, G>>(P, M, K, count, out, cap, C,
+                                              ny, nz, k, s);
+    }
+    if (dim == 2) {
+      return launch_tile_pass<2, KPass<2, G>>(P, M, K, count, out, cap, C,
+                                              ny, nz, k, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 int salva_t_pass(const float* P, const float* M, const float* Q,
                  const int* count, float* out, int dim, int cap, int C,
-                 int ny, int nz, float inv_h2, float w_norm,
-                 float dwr_scale, float h2, void* stream) {
+                 int ny, int nz, int kg, const float* params, void* stream) {
   if (cap <= 0 || C <= 0) return kNotLaunched;
-  const Cubic k{inv_h2, w_norm, dwr_scale, h2};
+  const Params k = load_params(params);
   cudaStream_t s = (cudaStream_t)stream;
-  if (dim == 3) {
-    return launch_tile_pass<3, TPass<3>>(P, M, Q, count, out, cap, C, ny, nz,
-                                         k, s);
-  }
-  if (dim == 2) {
-    return launch_tile_pass<2, TPass<2>>(P, M, Q, count, out, cap, C, ny, nz,
-                                         k, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return with_kernel(kg, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    if (dim == 3) {
+      return launch_tile_pass<3, TPass<3, G>>(P, M, Q, count, out, cap, C,
+                                              ny, nz, k, s);
+    }
+    if (dim == 2) {
+      return launch_tile_pass<2, TPass<2, G>>(P, M, Q, count, out, cap, C,
+                                              ny, nz, k, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 // How salva_k_pass (pass 0), salva_t_pass (1) or salva_hoist_ff (2: without
-// s2, 3: with it) tiles a [cap, C] grid: shape[0..3] = cells a block owns,
-// bytes of shared memory a block takes, blocks launched, blocks resident
-// on one SM of the current device. Returns a CUDA error code (0 =
-// success).
-int salva_pass_tiling(int pass, int dim, int cap, int C, int* shape) {
+// s2, 3: with it) tiles a [cap, C] grid under kernels kd / kg: shape[0..3]
+// = cells a block owns, bytes of shared memory a block takes, blocks
+// launched, blocks resident on one SM of the current device. Returns a
+// CUDA error code (0 = success).
+int salva_pass_tiling(int pass, int dim, int cap, int C, int kd, int kg,
+                      int* shape) {
   if (cap <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  if (dim == 3) return query_tiling<3>(pass, cap, C, shape);
-  if (dim == 2) return query_tiling<2>(pass, cap, C, shape);
-  return (int)cudaErrorInvalidValue;
+  return with_kernel(kd, [&](auto d) {
+    return with_kernel(kg, [&](auto g) {
+      constexpr int D = decltype(d)::value, G = decltype(g)::value;
+      if (dim == 3) return query_tiling<3, D, G>(pass, cap, C, shape);
+      if (dim == 2) return query_tiling<2, D, G>(pass, cap, C, shape);
+      return (int)cudaErrorInvalidValue;
+    });
+  });
 }
 
 // `out` is [dim + 4, cap, C]: rho, Gf (dim planes), sq, s2, and the pair
 // count as int32; every slot is written.
 int salva_hoist_ff(const float* P, const float* M, const int* count,
                    float* out, int dim, int cap, int C, int ny, int nz,
-                   int need_s2, float inv_h2, float w_norm, float dwr_scale,
-                   float h2, void* stream) {
+                   int need_s2, int kd, int kg, const float* params,
+                   void* stream) {
   if (cap <= 0 || C <= 0) return kNotLaunched;
-  const Cubic k{inv_h2, w_norm, dwr_scale, h2};
+  const Params k = load_params(params);
   cudaStream_t s = (cudaStream_t)stream;
-  if (dim == 3) {
-    return need_s2 ? launch_tile_pass<3, HoistFF<3, true>>(
-                         P, M, nullptr, count, out, cap, C, ny, nz, k, s)
-                   : launch_tile_pass<3, HoistFF<3, false>>(
-                         P, M, nullptr, count, out, cap, C, ny, nz, k, s);
-  }
-  if (dim == 2) {
-    return need_s2 ? launch_tile_pass<2, HoistFF<2, true>>(
-                         P, M, nullptr, count, out, cap, C, ny, nz, k, s)
-                   : launch_tile_pass<2, HoistFF<2, false>>(
-                         P, M, nullptr, count, out, cap, C, ny, nz, k, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return with_kernel(kd, [&](auto d) {
+    return with_kernel(kg, [&](auto g) {
+      constexpr int D = decltype(d)::value, G = decltype(g)::value;
+      if (dim == 3) {
+        return need_s2 ? launch_tile_pass<3, HoistFF<3, true, D, G>>(
+                             P, M, nullptr, count, out, cap, C, ny, nz, k, s)
+                       : launch_tile_pass<3, HoistFF<3, false, D, G>>(
+                             P, M, nullptr, count, out, cap, C, ny, nz, k, s);
+      }
+      if (dim == 2) {
+        return need_s2 ? launch_tile_pass<2, HoistFF<2, true, D, G>>(
+                             P, M, nullptr, count, out, cap, C, ny, nz, k, s)
+                       : launch_tile_pass<2, HoistFF<2, false, D, G>>(
+                             P, M, nullptr, count, out, cap, C, ny, nz, k, s);
+      }
+      return (int)cudaErrorInvalidValue;
+    });
+  });
 }
 
 int salva_k_pass_v2(const float* P, const float* M, const float* K,
                     const int* count, float* out, int dim, int cap, int C,
-                    int ny, int nz, float inv_h2, float w_norm,
-                    float dwr_scale, float h2, void* stream) {
+                    int ny, int nz, int kg, const float* params,
+                    void* stream) {
   if (cap <= 0 || C <= 0) return kNotLaunched;
-  const Cubic k{inv_h2, w_norm, dwr_scale, h2};
+  const Params k = load_params(params);
   cudaStream_t s = (cudaStream_t)stream;
   const long long warps = (long long)((cap + 7) / 8) * C;
   const int per_block = kThreads / 32;
   const dim3 grid((unsigned)((warps + per_block - 1) / per_block));
-  if (dim == 3) {
-    k_pass_v2_kernel<3><<<grid, kThreads, 0, s>>>(P, M, K, count, out, cap,
-                                                   C, ny, nz, k);
-  } else if (dim == 2) {
-    k_pass_v2_kernel<2><<<grid, kThreads, 0, s>>>(P, M, K, count, out, cap,
-                                                   C, ny, nz, k);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return with_kernel(kg, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    if (dim == 3) {
+      k_pass_v2_kernel<3, G><<<grid, kThreads, 0, s>>>(P, M, K, count, out,
+                                                       cap, C, ny, nz, k);
+    } else if (dim == 2) {
+      k_pass_v2_kernel<2, G><<<grid, kThreads, 0, s>>>(P, M, K, count, out,
+                                                       cap, C, ny, nz, k);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
 // `cols` may be null (visit all C columns; n_cols = C) and `cell_to_col`
@@ -1087,30 +1287,34 @@ int salva_hoist_fb(const float* P, const int* count, const int* cols,
                    const float* Vb, const int* count_b,
                    const int* cell_to_col, float* out, int dim, int cap,
                    int C, int cap_b, int Cb, int ny, int nz, int need_s2,
-                   float inv_h2, float w_norm, float dwr_scale, float h2,
-                   void* stream) {
+                   int kd, int kg, const float* params, void* stream) {
   if (cap <= 0 || C <= 0 || n_cols <= 0 || cap_b <= 0 || Cb <= 0) {
     return kNotLaunched;
   }
   // A queued boundary slot is an int index j * Cb + b.
   if ((long long)cap_b * Cb > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const Cubic k{inv_h2, w_norm, dwr_scale, h2};
+  const Params k = load_params(params);
   cudaStream_t s = (cudaStream_t)stream;
   const long long warps = (long long)n_cols * ((cap + 7) / 8);
   const int per_block = kFbThreads / 32;
   const dim3 grid((unsigned)((warps + per_block - 1) / per_block));
-  if (dim == 3) {
-    hoist_fb_warps<3><<<grid, kFbThreads, 0, s>>>(
-        P, count, cols, n_cols, Pb, Volb, Vb, count_b, cell_to_col, out, cap,
-        C, cap_b, Cb, ny, nz, need_s2, k);
-  } else if (dim == 2) {
-    hoist_fb_warps<2><<<grid, kFbThreads, 0, s>>>(
-        P, count, cols, n_cols, Pb, Volb, Vb, count_b, cell_to_col, out, cap,
-        C, cap_b, Cb, ny, nz, need_s2, k);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return with_kernel(kd, [&](auto d) {
+    return with_kernel(kg, [&](auto g) {
+      constexpr int D = decltype(d)::value, G = decltype(g)::value;
+      if (dim == 3) {
+        hoist_fb_warps<3, D, G><<<grid, kFbThreads, 0, s>>>(
+            P, count, cols, n_cols, Pb, Volb, Vb, count_b, cell_to_col, out,
+            cap, C, cap_b, Cb, ny, nz, need_s2, k);
+      } else if (dim == 2) {
+        hoist_fb_warps<2, D, G><<<grid, kFbThreads, 0, s>>>(
+            P, count, cols, n_cols, Pb, Volb, Vb, count_b, cell_to_col, out,
+            cap, C, cap_b, Cb, ny, nz, need_s2, k);
+      } else {
+        return (int)cudaErrorInvalidValue;
+      }
+      return (int)cudaGetLastError();
+    });
+  });
 }
 
 }  // extern "C"

@@ -3,6 +3,8 @@
 from .sph import (
     EPSILON,
     KERNELS,
+    adhesion_kernel,
+    cohesion_kernel,
     cubic_dw,
     cubic_w,
     get_kernel,
@@ -18,6 +20,8 @@ from .sph import (
 __all__ = [
     "EPSILON",
     "KERNELS",
+    "adhesion_kernel",
+    "cohesion_kernel",
     "cubic_w",
     "cubic_dw",
     "poly6_w",

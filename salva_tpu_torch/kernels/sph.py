@@ -2,7 +2,8 @@
 
 Port of ``salva_tpu.kernels.sph`` (the reference kernel set,
 ``src/kernel/``): cubic spline (the default for every solver), Poly6,
-Spiky and Müller viscosity kernels. Every function is a branch-free
+Spiky and Müller viscosity kernels, and the Akinci 2013 cohesion and
+adhesion kernels of its surface tension. Every function is a branch-free
 (``torch.where``) elementwise map over tensors of any shape.
 
 All kernels take ``r`` (non-negative distances, float32), the support
@@ -137,6 +138,38 @@ def viscosity_dw(r, h, dim: int):
         -3.0 * rr / (2.0 * hhh) + 2.0 * r / hh - _rdiv(h, 2.0 * rr_safe)
     )
     return torch.where((r > 0.0) & (r <= h), val, 0.0)
+
+
+# --- Akinci 2013 surface-tension kernels -----------------------------------
+
+
+def cohesion_kernel(r, h, dim: int):
+    """Akinci 2013 cohesion kernel C(r)
+    (`akinci2013_surface_tension.rs:71-88`, including the reference's 2D
+    normalizer choice)."""
+    if dim == 2:
+        normalizer = 32.0 / (math.pi * h**8)
+    else:
+        normalizer = 32.0 / (math.pi * h**9)
+    h_r = h - r
+    hr3 = h_r * h_r * h_r
+    r3 = r * r * r
+    near = 2.0 * hr3 * r3 - (h**6) / 64.0
+    far = hr3 * r3
+    coeff = torch.where(r <= h * 0.5, near, torch.where(r <= h, far, 0.0))
+    return normalizer * coeff
+
+
+def adhesion_kernel(r, h, dim: int):
+    """Akinci 2013 boundary adhesion kernel A(r)
+    (`akinci2013_surface_tension.rs:90-111`)."""
+    if dim == 2:
+        normalizer = 0.007 / h**2.25
+    else:
+        normalizer = 0.007 / h**3.25
+    inner = torch.clamp(-4.0 * r * r / h + 6.0 * r - 2.0 * h, min=0.0)
+    coeff = inner**0.25
+    return torch.where((r > h * 0.5) & (r <= h), normalizer * coeff, 0.0)
 
 
 KERNELS = {

@@ -39,23 +39,22 @@ _NOT_LAUNCHED = -1  # the C entries' kNotLaunched: nothing to launch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 # Argument types of every C entry point (pointers and the stream as
 # c_void_p: ctypes would otherwise pass Python ints as 32-bit ints).
+# The pair passes take their SPH kernels as ids and their constants as a
+# float array (``ops/pair.py``: ``_KERNEL_IDS``, ``_pair_params``).
 _SIGNATURES = {
-    "salva_k_pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _F, _F, _F, _F, _P],
-    "salva_t_pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _F, _F, _F, _F, _P],
-    "salva_hoist_ff": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _F, _F, _F, _F, _P],
+    "salva_k_pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "salva_t_pass": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "salva_hoist_ff": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P, _P],
     "salva_hoist_fb": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _I,
-                       _F, _F, _F, _F, _P],
-    "salva_k_pass_v2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _F, _F, _F, _F, _P],
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "salva_k_pass_v2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                        _P],
     "salva_expand": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    "salva_pass_tiling": [_I, _I, _I, _I, _P],
+    "salva_pass_tiling": [_I, _I, _I, _I, _I, _I, _P],
+    "salva_pair_params": [],
 }
 
 

@@ -25,7 +25,10 @@ JAX package, no solver calls it.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback. Every launch adds
 one to ``LAUNCHES[name]``, so a run can show which passes went through
-the kernels.
+the kernels. Every pass takes the SPH kernel of each of its roles by name
+(``kernel_gradient`` for dW/dr / r, and for the hoists ``kernel_density``
+for W): ``"cubic"``, ``"poly6"``, ``"spiky"`` or ``"viscosity"``, on both
+devices; an unknown name raises ``KeyError``.
 
 The fluid-fluid plain versions are the half-stencil folds of
 ``salva_tpu.solver.dense_common.DenseCtx`` (``_k_pass_half``,
@@ -44,12 +47,21 @@ side's counts ``counts_b`` the same way).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ..geometry import dense_grid as dg
-from ..kernels.sph import _cubic_normalizer, get_kernel, w_dwr
+from ..kernels.sph import (
+    _cubic_normalizer,
+    _poly6_normalizer,
+    _spiky_normalizer,
+    _viscosity_normalizer,
+    get_kernel,
+    w_dwr,
+)
 
 LAUNCHES = {"k_pass": 0, "t_pass": 0, "hoist_ff": 0, "hoist_fb": 0,
             "k_pass_v2": 0}
@@ -316,13 +328,8 @@ def _check(name, spec, dim, kernel_names, channels, counts):
     whether the operands lie on the CPU."""
     P = channels[0][0]
     on_cpu = _is_cpu(P)
-    if not on_cpu:
-        for kn in kernel_names:
-            if kn != "cubic":
-                raise NotImplementedError(
-                    f"{name}: the CUDA kernel implements the cubic spline "
-                    f"only, got kernel {kn!r}"
-                )
+    for kn in kernel_names:
+        get_kernel(kn)  # KeyError for an unknown name
     if dim not in (2, 3) or spec.dim != dim:
         raise ValueError(f"{name}: dim {dim} does not match the grid spec")
     if P.ndim != 3:
@@ -360,10 +367,33 @@ def _scl(dim, cap, C):
     return (cap, C)
 
 
-def _cubic_args(h, dim):
+# The kernels' ids in the CUDA source (``Kern``).
+_KERNEL_IDS = {"cubic": 0, "poly6": 1, "spiky": 2, "viscosity": 3}
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_params(h, dim):
+    """The constants of every SPH kernel as the C entry points take them:
+    the floats of ``Params`` in ``csrc/pair_passes.cu``, in its order,
+    folded in float64 and rounded to float32 once (as ``kernels/sph.py``
+    hands its Python-float constants to float32 tensors). ``queue_r2``
+    bounds r^2 of every pair with sqrtf(r^2) <= float32(h) (such an r is
+    below h (1 + 2^-24)): rounded up from (h (1 + 2^-22))^2."""
+    import ctypes
+
+    from . import _build
+
     inv_h2 = 1.0 / (h * h)
     norm = _cubic_normalizer(h, dim)
-    return inv_h2, norm, norm * inv_h2, h * h
+    hf = float(np.float32(h))
+    queue_r2 = np.nextafter(np.float32((hf * (1.0 + 2.0**-22)) ** 2),
+                            np.float32(np.inf))
+    vals = (inv_h2, norm, norm * inv_h2, h * h, h, float(queue_r2),
+            _poly6_normalizer(h, dim), _spiky_normalizer(h, dim),
+            _viscosity_normalizer(h, dim), 2.0 * h, 2.0 * (h * h * h))
+    if len(vals) != _build.load().salva_pair_params():
+        raise RuntimeError("pair passes: the kernels read another Params")
+    return (ctypes.c_float * len(vals))(*vals)
 
 
 def _grid_args(spec, dim, P):
@@ -388,12 +418,13 @@ _TILED = {("k_pass", False): 0, ("t_pass", False): 1,
           ("hoist_ff", False): 2, ("hoist_ff", True): 3}
 
 
-def tiling(name, dim, cap, C, need_s2=False):
+def tiling(name, dim, cap, C, need_s2=False, kernel_density="cubic",
+           kernel_gradient="cubic"):
     """How the ``k_pass``, ``t_pass`` or ``hoist_ff`` (with or without
-    ``need_s2``) kernel tiles a [cap, C] grid on the current CUDA device:
-    ``tile`` (consecutive cells a block owns), ``smem`` (bytes of shared
-    memory a block takes), ``blocks`` (blocks a launch runs) and
-    ``per_sm`` (blocks resident on one SM)."""
+    ``need_s2``) kernel of the named SPH kernels tiles a [cap, C] grid on
+    the current CUDA device: ``tile`` (consecutive cells a block owns),
+    ``smem`` (bytes of shared memory a block takes), ``blocks`` (blocks a
+    launch runs) and ``per_sm`` (blocks resident on one SM)."""
     import ctypes
 
     from . import _build
@@ -403,8 +434,9 @@ def tiling(name, dim, cap, C, need_s2=False):
         raise ValueError(f"only k_pass, t_pass and hoist_ff are tiled, not "
                          f"{name!r}")
     shape = (ctypes.c_int * 4)()
-    err = _build.load().salva_pass_tiling(_TILED[key], dim, cap, C,
-                                          ctypes.addressof(shape))
+    err = _build.load().salva_pass_tiling(
+        _TILED[key], dim, cap, C, _KERNEL_IDS[kernel_density],
+        _KERNEL_IDS[kernel_gradient], ctypes.addressof(shape))
     if err != 0:
         raise RuntimeError(f"{name}: no tiling for dim {dim}, cap {cap} "
                            f"(CUDA error {err})")
@@ -421,7 +453,8 @@ def k_pass(spec, h, dim, kernel_gradient, P, M, K, counts):
     out = torch.empty_like(P)
     _launch("k_pass", "salva_k_pass", P.data_ptr(), M.data_ptr(),
             K.data_ptr(), counts.data_ptr(), out.data_ptr(),
-            *_grid_args(spec, dim, P), *_cubic_args(h, dim), device=P.device)
+            *_grid_args(spec, dim, P), _KERNEL_IDS[kernel_gradient],
+            _pair_params(h, dim), device=P.device)
     return out
 
 
@@ -434,7 +467,8 @@ def k_pass_v2(spec, h, dim, kernel_gradient, P, M, K, counts):
     out = torch.empty_like(P)
     _launch("k_pass_v2", "salva_k_pass_v2", P.data_ptr(), M.data_ptr(),
             K.data_ptr(), counts.data_ptr(), out.data_ptr(),
-            *_grid_args(spec, dim, P), *_cubic_args(h, dim), device=P.device)
+            *_grid_args(spec, dim, P), _KERNEL_IDS[kernel_gradient],
+            _pair_params(h, dim), device=P.device)
     return out
 
 
@@ -447,7 +481,8 @@ def t_pass(spec, h, dim, kernel_gradient, P, M, Q, counts):
     out = torch.empty_like(M)
     _launch("t_pass", "salva_t_pass", P.data_ptr(), M.data_ptr(),
             Q.data_ptr(), counts.data_ptr(), out.data_ptr(),
-            *_grid_args(spec, dim, P), *_cubic_args(h, dim), device=P.device)
+            *_grid_args(spec, dim, P), _KERNEL_IDS[kernel_gradient],
+            _pair_params(h, dim), device=P.device)
     return out
 
 
@@ -465,7 +500,9 @@ def hoist_ff(spec, h, dim, kernel_density, kernel_gradient, P, M, counts,
                       device=P.device)
     _launch("hoist_ff", "salva_hoist_ff", P.data_ptr(), M.data_ptr(),
             counts.data_ptr(), out.data_ptr(), *_grid_args(spec, dim, P),
-            int(bool(need_s2)), *_cubic_args(h, dim), device=P.device)
+            int(bool(need_s2)), _KERNEL_IDS[kernel_density],
+            _KERNEL_IDS[kernel_gradient], _pair_params(h, dim),
+            device=P.device)
     return (out[0], out[1:1 + dim], out[1 + dim], out[2 + dim],
             out[3 + dim].view(torch.int32))
 
@@ -539,6 +576,8 @@ def hoist_fb(spec, h, dim, kernel_density, kernel_gradient, P, counts, Pb,
             counts_b.data_ptr(),
             None if cell_to_col is None else cell_to_col.data_ptr(),
             out.data_ptr(), dim_, cap, C, cap_b, Cb, ny, nz,
-            int(bool(need_s2)), *_cubic_args(h, dim), device=P.device)
+            int(bool(need_s2)), _KERNEL_IDS[kernel_density],
+            _KERNEL_IDS[kernel_gradient], _pair_params(h, dim),
+            device=P.device)
     return (out[0], out[1:1 + dim], out[1 + dim], out[2 + dim], out[3 + dim],
             out[4 + dim].view(torch.int32))

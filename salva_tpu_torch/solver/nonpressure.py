@@ -4,7 +4,9 @@ Each force *type* is applied once, vectorized across all fluids:
 per-fluid coefficients are stored in static tuples (one slot per fluid,
 0 for fluids that don't carry the force), as in
 ``salva_tpu.solver.nonpressure``. For every built-in force a zero
-coefficient is exactly a no-op. ``CustomForce`` is not ported.
+coefficient is exactly a no-op. ``CustomForce`` is the user-extension
+point's name only: its forces run on the gather layout, which is not
+ported, so ``LiquidWorld.add_fluid`` refuses them.
 """
 
 from __future__ import annotations
@@ -36,3 +38,14 @@ class ForceSet:
 
     def __bool__(self):
         return bool(self.forces)
+
+
+class CustomForce:
+    """User-extensible non-pressure force (``salva_tpu.solver.nonpressure.
+    CustomForce``, the reference's ``NonPressureForce`` trait,
+    `nonpressure_force.rs:10-30`): subclass and implement ``apply(ctx)``
+    over the gather layout's step context. That layout is not ported, so
+    a fluid carrying one is refused."""
+
+    def apply(self, ctx):
+        raise NotImplementedError

@@ -1,5 +1,5 @@
-"""Viscosity force configurations: XSPH and artificial (Monaghan)
-viscosity.
+"""Viscosity force configurations: XSPH, artificial (Monaghan) and DFSPH
+(implicit strain-rate projection) viscosity.
 
 The merged per-type configurations of ``salva_tpu.solver.viscosity``
 (one coefficient per fluid, 0 for fluids that do not carry the force).
@@ -42,3 +42,26 @@ class ArtificialViscosityForce:
     betas: Tuple[float, ...]
     speeds_of_sound: Tuple[float, ...]
     kind: str = dataclasses.field(default="artificial_viscosity", init=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class DFSPHViscosityForce:
+    """Implicit strain-rate projection viscosity (`dfsph_viscosity.rs`).
+
+    Per-fluid viscosity coefficients in [0, 1]; fluids with
+    ``participating = 0`` are excluded from both the solve and the error
+    mean (one joint loop whose termination uses the max over the
+    participating fluids' mean errors, as in ``salva_tpu``).
+    Fluid-internal only: no boundary term (`dfsph_viscosity.rs:82-86`).
+
+    As ``salva_tpu`` documents, the reference's iteration diverges at its
+    own gain on free blobs (`dfsph_viscosity.rs:308-313`); the port is
+    faithful to that behavior.
+    """
+
+    viscosity_coefficients: Tuple[float, ...]
+    participating: Tuple[int, ...]
+    min_viscosity_iter: int = 1
+    max_viscosity_iter: int = 50
+    max_viscosity_error: float = 0.01
+    kind: str = dataclasses.field(default="dfsph_viscosity", init=False)

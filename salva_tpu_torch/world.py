@@ -13,9 +13,12 @@ their plain versions.
 
 Solvers: DFSPH and IISPH on the dense layout and on the brute all-pairs
 tier (``layout="brute"``, and ``"auto"`` on a GPU for small worlds), with
-the XSPH and artificial-viscosity non-pressure forces. Not ported (raise
-``NotImplementedError``): the gather layout, coupling, the other
-non-pressure forces, emitters and deletion.
+every SPH kernel choice (``SimConfig.kernel_density`` /
+``kernel_gradient``) and the XSPH, artificial-viscosity, DFSPH-viscosity
+and Akinci 2013 / WCSPH / He 2014 surface-tension non-pressure forces.
+Not ported (raise ``NotImplementedError``): the gather layout, coupling,
+the elasticity and custom forces (both wait for the gather layout),
+emitters and deletion.
 """
 
 from __future__ import annotations
@@ -36,7 +39,16 @@ from .object.interaction_groups import InteractionGroups
 from .object.state import BoundariesState, FluidsState
 from .solver.dense_common import fold_pairs
 from .solver.nonpressure import ForceSet, merge_per_fluid
-from .solver.viscosity import ArtificialViscosityForce, XSPHViscosityForce
+from .solver.surface_tension import (
+    Akinci2013SurfaceTensionForce,
+    He2014SurfaceTensionForce,
+    WCSPHSurfaceTensionForce,
+)
+from .solver.viscosity import (
+    ArtificialViscosityForce,
+    DFSPHViscosityForce,
+    XSPHViscosityForce,
+)
 from .step import (
     StepDiagnostics,
     build_step_fn,
@@ -105,8 +117,18 @@ class _BoundaryRecord:
 
 
 # The non-pressure forces a fluid may carry (``forces.py``): the dense
-# layout runs these two; the others raise in ``add_fluid``.
-_PORTED_FORCES = (force_specs.XSPHViscosity, force_specs.ArtificialViscosity)
+# layout runs these. The others raise in ``add_fluid``: the elasticity and
+# ``CustomForce`` wait for the gather layout (the elasticity's rest
+# contacts come from its neighbour search, and a custom force's ``apply``
+# reads its step context).
+_PORTED_FORCES = (
+    force_specs.XSPHViscosity,
+    force_specs.ArtificialViscosity,
+    force_specs.DFSPHViscosity,
+    force_specs.Akinci2013SurfaceTension,
+    force_specs.WCSPHSurfaceTension,
+    force_specs.He2014SurfaceTension,
+)
 
 
 def _next_capacity(needed: int, minimum: int = 64) -> int:
@@ -318,8 +340,9 @@ class LiquidWorld:
             if not isinstance(force, _PORTED_FORCES):
                 raise NotImplementedError(
                     f"{type(force).__name__} is not ported to "
-                    "salva_tpu_torch: fluids may carry XSPHViscosity and "
-                    "ArtificialViscosity"
+                    "salva_tpu_torch: the elasticity and custom forces "
+                    "wait for the gather layout; fluids may carry "
+                    + ", ".join(f.__name__ for f in _PORTED_FORCES)
                 )
         handle = len(self._fluid_records)
         self._fluid_records.append(
@@ -461,6 +484,38 @@ class LiquidWorld:
                         col("alpha", 1.0),
                         col("beta", 0.0),
                         col("speed_of_sound", 10.0),
+                    )
+                )
+            elif ftype is force_specs.DFSPHViscosity:
+                any_inst = next(iter(inst.values()))
+                merged.append(
+                    DFSPHViscosityForce(
+                        col("viscosity_coefficient"),
+                        tuple(1 if i in inst else 0 for i in range(nf)),
+                        min_viscosity_iter=any_inst.min_viscosity_iter,
+                        max_viscosity_iter=any_inst.max_viscosity_iter,
+                        max_viscosity_error=any_inst.max_viscosity_error,
+                    )
+                )
+            elif ftype is force_specs.Akinci2013SurfaceTension:
+                merged.append(
+                    Akinci2013SurfaceTensionForce(
+                        col("fluid_tension_coefficient"),
+                        col("boundary_adhesion_coefficient"),
+                    )
+                )
+            elif ftype is force_specs.He2014SurfaceTension:
+                merged.append(
+                    He2014SurfaceTensionForce(
+                        col("fluid_tension_coefficient"),
+                        col("boundary_tension_coefficient"),
+                    )
+                )
+            elif ftype is force_specs.WCSPHSurfaceTension:
+                merged.append(
+                    WCSPHSurfaceTensionForce(
+                        col("fluid_tension_coefficient"),
+                        col("boundary_tension_coefficient"),
                     )
                 )
         return ForceSet(tuple(merged))

@@ -65,7 +65,8 @@ def _forces(module, forces):
     return [getattr(module, name)(**kw) for name, kw in forces]
 
 
-def _jax_world(solver="dfsph", sparse_boundary=True, forces=()):
+def _jax_world(solver="dfsph", sparse_boundary=True, forces=(),
+               kernels=("cubic", "cubic")):
     from salva_tpu import forces as force_specs
     from salva_tpu import shapes
     from salva_tpu.config import DFSPHConfig, IISPHConfig
@@ -79,14 +80,17 @@ def _jax_world(solver="dfsph", sparse_boundary=True, forces=()):
                     domain=domain, layout="dense")
     w.sim = w.sim.replace(use_pallas=False, dense_spill_auto=False,
                           dense_compact=False,
-                          dense_sparse_boundary=sparse_boundary)
+                          dense_sparse_boundary=sparse_boundary,
+                          kernel_density=kernels[0],
+                          kernel_gradient=kernels[1])
     w.add_fluid(Fluid(pos, density0=1000.0, velocities=vel,
                       nonpressure_forces=_forces(force_specs, forces)))
     w.add_boundary(Boundary(floor))
     return w, floor
 
 
-def _torch_world(solver="dfsph", sparse_boundary=True, forces=()):
+def _torch_world(solver="dfsph", sparse_boundary=True, forces=(),
+                 kernels=("cubic", "cubic")):
     from salva_tpu_torch import forces as force_specs
     from salva_tpu_torch import shapes
     from salva_tpu_torch.sampling import shape_surface_sample
@@ -96,7 +100,9 @@ def _torch_world(solver="dfsph", sparse_boundary=True, forces=()):
     cfg = {"dfsph": st.DFSPHConfig, "iisph": st.IISPHConfig}[solver]()
     w = st.LiquidWorld(solver=cfg, particle_radius=RADIUS,
                        dim=3, domain=domain, layout="dense", device="cpu")
-    w.sim = w.sim.replace(dense_sparse_boundary=sparse_boundary)
+    w.sim = w.sim.replace(dense_sparse_boundary=sparse_boundary,
+                          kernel_density=kernels[0],
+                          kernel_gradient=kernels[1])
     w.add_fluid(st.Fluid(pos, density0=1000.0, velocities=vel,
                          nonpressure_forces=_forces(force_specs, forces)))
     w.add_boundary(st.Boundary(floor))
@@ -131,16 +137,18 @@ def _snapshot(w, jax_side):
     )
 
 
-def run_both(solver="dfsph", sparse_boundary=True, forces=()):
-    """Step the JAX and the port's world side by side; per-step
-    snapshots of both. ``forces``: the fluid's non-pressure forces, as
-    (class name in ``forces.py``, kwargs) pairs."""
-    wj, floor_j = _jax_world(solver, sparse_boundary, forces)
-    wt, floor_t = _torch_world(solver, sparse_boundary, forces)
+def run_both(solver="dfsph", sparse_boundary=True, forces=(),
+             kernels=("cubic", "cubic"), steps=STEPS):
+    """Step the JAX and the port's world side by side ``steps`` times;
+    per-step snapshots of both. ``forces``: the fluid's non-pressure
+    forces, as (class name in ``forces.py``, kwargs) pairs; ``kernels``:
+    (``kernel_density``, ``kernel_gradient``) of both worlds."""
+    wj, floor_j = _jax_world(solver, sparse_boundary, forces, kernels)
+    wt, floor_t = _torch_world(solver, sparse_boundary, forces, kernels)
     init = (_jax_fields(wj.fluids_state), _jax_fields(wj.boundaries_state),
             wt.fluids_state, wt.boundaries_state)
     jax_steps, torch_steps = [], []
-    for _ in range(STEPS):
+    for _ in range(steps):
         wj.step(DT, GRAVITY)
         wt.step(DT, GRAVITY)
         jax_steps.append(_snapshot(wj, True))

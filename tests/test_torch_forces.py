@@ -105,8 +105,9 @@ def _grids(dim):
     return spec, {k: v.numpy() for k, v in g.items()}
 
 
-def _fields(pkg, spec, g):
-    """``pkg``'s DenseFields over the numpy grids ``g`` (roll views)."""
+def _fields(pkg, spec, g, kernels=("cubic", "cubic")):
+    """``pkg``'s DenseFields over the numpy grids ``g`` (roll views), with
+    the SPH kernels ``kernels`` (density, gradient)."""
     if pkg == "jax":
         dg, fd, arr = jdg, jfd, jnp.asarray
         spec = jdg.DenseGridSpec(spec.origin, spec.dims, spec.cap,
@@ -122,8 +123,8 @@ def _fields(pkg, spec, g):
         jff=roll, jfb=roll, jbf=roll, n_offsets=len(offs),
         **{k: arr(v) for k, v in g.items()}, h=H, dim=spec.dim,
         dt=arr(np.array(DT, np.float32)),
-        inv_dt=arr(np.array(1.0 / DT, np.float32)), kernel_density="cubic",
-        kernel_gradient="cubic",
+        inv_dt=arr(np.array(1.0 / DT, np.float32)),
+        kernel_density=kernels[0], kernel_gradient=kernels[1],
     )
 
 

@@ -421,10 +421,96 @@ def test_kernels_are_bitwise_deterministic(cuda):
                        pair.k_pass_v2(*args, K, counts))
 
 
+# (kernel_density, kernel_gradient) pairs beside cubic/cubic: each
+# non-cubic kernel in each role, with itself and with another kernel.
+KERNEL_PAIRS = [("poly6", "spiky"), ("spiky", "viscosity"),
+                ("viscosity", "poly6"), ("poly6", "poly6"),
+                ("spiky", "spiky"), ("viscosity", "viscosity"),
+                ("cubic", "spiky"), ("poly6", "cubic")]
+
+
+def _assert_close_peak(got, want, tol, label):
+    """Every element within ``atol * peak + rtol * |want|``, ``peak`` =
+    max(1, max |want|) of this output (``chip_smoke.py``'s rule: an
+    output is a sum of terms that cancel, and the viscosity kernel's
+    dW/dr / r grows as 1 / r^3 between close pairs)."""
+    peak = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=tol["rtol"],
+                               atol=tol["atol"] * peak, msg=label)
+
+
+@pytest.mark.parametrize("kd,kg", KERNEL_PAIRS)
+@pytest.mark.parametrize("dim", [2, 3])
+def test_non_cubic_kernels_match_plain(cuda, dim, kd, kg):
+    """Every pass under non-cubic kernels: ``k_pass``, ``t_pass`` and
+    ``k_pass_v2`` with ``kg`` as the gradient kernel, both hoists (with
+    and without s2; ``hoist_fb`` on both boundary layouts) with ``kd`` /
+    ``kg``, each a launch of its kernel, held to the plain version per
+    output, pair counts exact, bitwise reruns."""
+    spec, P, M, V, K, counts = _grid(dim, cuda)
+    before = dict(pair.LAUNCHES)
+    for name, X in (("k_pass", K), ("t_pass", V), ("k_pass_v2", K)):
+        args = (spec, H, dim, kg, P, M, X, counts)
+        out = getattr(pair, name)(*args)
+        plain = pair.k_pass_plain if name == "k_pass_v2" else getattr(
+            pair, name + "_plain")
+        want = plain(*args)
+        assert float(want.abs().max()) > 0
+        _assert_close_peak(out, want, KT_TOL, f"{name} {kd}/{kg}")
+        assert torch.equal(out, getattr(pair, name)(*args))
+    for need_s2 in (False, True):
+        args = (spec, H, dim, kd, kg, P, M, counts)
+        out = pair.hoist_ff(*args, need_s2=need_s2)
+        ref = pair.hoist_ff_plain(*args, need_s2=need_s2)
+        for i, (o, r) in enumerate(zip(out[:4], ref[:4])):
+            _assert_close_peak(o, r, HOIST_TOL, f"hoist_ff[{i}] {kd}/{kg}")
+        assert torch.equal(out[4], ref[4])
+        assert bool((out[0] != 0).any()) and int(out[4].sum()) > 0
+        for layout in ("full", "sparse"):
+            bnd, kw = _boundary(spec, cuda, layout)
+            fb = (spec, H, dim, kd, kg, P, counts, *bnd)
+            out = pair.hoist_fb(*fb, need_s2=need_s2, **kw)
+            ref = pair.hoist_fb_plain(*fb, need_s2=need_s2, **kw)
+            for i, (o, r) in enumerate(zip(out[:5], ref[:5])):
+                _assert_close_peak(o, r, HOIST_TOL,
+                                   f"hoist_fb[{i}] {layout} {kd}/{kg}")
+            assert torch.equal(out[5], ref[5]) and int(out[5].sum()) > 0
+            again = pair.hoist_fb(*fb, need_s2=need_s2, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert {n: pair.LAUNCHES[n] - before[n] for n in before} == {
+        "k_pass": 2, "t_pass": 2, "k_pass_v2": 2, "hoist_ff": 2,
+        "hoist_fb": 8}
+
+
+@pytest.mark.parametrize("kd,kg", KERNEL_PAIRS)
+def test_non_cubic_tiled_kernels_on_tile_edges(cuda, kd, kg):
+    """The tiled passes under non-cubic kernels on a grid cut to their
+    tiles (the fullest cells on tile edges, cap 16)."""
+    spec, P, M, Q, K, counts, full = _tiled_grid(3, 16, "ragged", cuda)
+    for name, X in (("k_pass", K), ("t_pass", Q)):
+        args = (spec, H, 3, kg, P, M, X, counts)
+        _assert_close_peak(getattr(pair, name)(*args),
+                           getattr(pair, name + "_plain")(*args), KT_TOL,
+                           f"{name} {kg}")
+    t = pair.tiling("hoist_ff", 3, 16, spec.num_cells, need_s2=True,
+                    kernel_density=kd, kernel_gradient=kg)
+    assert t == pair.tiling("hoist_ff", 3, 16, spec.num_cells, need_s2=True)
+    args = (spec, H, 3, kd, kg, P, M, counts)
+    out = pair.hoist_ff(*args, need_s2=True)
+    ref = pair.hoist_ff_plain(*args, need_s2=True)
+    for i, (o, r) in enumerate(zip(out[:4], ref[:4])):
+        _assert_close_peak(o, r, HOIST_TOL, f"hoist_ff[{i}] {kd}/{kg}")
+    assert torch.equal(out[4], ref[4])
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     spec, P, M, V, K, counts = _grid(3, cuda)
-    with pytest.raises(NotImplementedError):
-        pair.k_pass(spec, H, 3, "poly6", P, M, K, counts)
+    before = dict(pair.LAUNCHES)
+    with pytest.raises(KeyError):  # an unknown SPH kernel name
+        pair.k_pass(spec, H, 3, "gaussian", P, M, K, counts)
+    with pytest.raises(KeyError):
+        pair.hoist_ff(spec, H, 3, "cubic", "gaussian", P, M, counts)
+    assert pair.LAUNCHES == before
     with pytest.raises(ValueError):
         pair.t_pass(spec, H, 3, "cubic", P, M, V.transpose(1, 2)
                     .contiguous().transpose(1, 2), counts)

@@ -152,12 +152,21 @@ def test_unported_paths_raise():
             st.Fluid(np.zeros((4, 2), np.float32),
                      nonpressure_forces=[object()])
         )
-    # The forces the port does not run yet are refused by name.
-    with pytest.raises(NotImplementedError, match="DFSPHViscosity"):
-        _tiny_world().add_fluid(
-            st.Fluid(np.zeros((4, 2), np.float32),
-                     nonpressure_forces=[forces.DFSPHViscosity(0.5)])
-        )
+    # The forces the port does not run yet are refused by name: both
+    # wait for the gather layout.
+    from salva_tpu_torch.solver.nonpressure import CustomForce
+
+    class Push(CustomForce):
+        pass
+
+    for force, name in ((forces.Becker2009Elasticity(1e5, 0.3),
+                         "Becker2009Elasticity"), (Push(), "Push")):
+        with pytest.raises(NotImplementedError,
+                           match=f"{name}.*gather layout"):
+            _tiny_world().add_fluid(
+                st.Fluid(np.zeros((4, 2), np.float32),
+                         nonpressure_forces=[force])
+            )
     with pytest.raises(NotImplementedError):
         _tiny_world().step_with_coupling(0.01, (0.0, -9.81), object())
     for flag in (dict(dense_spill_columns=512), dict(dense_compact=True),
@@ -243,3 +252,32 @@ def test_kernel_build_is_keyed_by_source_hash():
         assert path.parent.parent.name == "salva_tpu_torch"
         assert path.parent.parent.parent.name == "build"
         assert len(path.parent.name) == 16
+
+
+@pytest.mark.parametrize("force", [
+    forces.Akinci2013SurfaceTension(1.0, 10.0),
+    forces.WCSPHSurfaceTension(1.0, 0.5),
+    forces.He2014SurfaceTension(1.0, 0.5),
+    forces.DFSPHViscosity(0.5, max_viscosity_iter=2),
+], ids=lambda f: type(f).__name__)
+def test_ported_forces_are_accepted_and_step(force):
+    """``add_fluid`` accepts each force this slice ported; a CPU world
+    whose second fluid carries it, under poly6 / spiky, merges it into its
+    force set and steps (finite positions), launching no kernel."""
+    w = _tiny_world()
+    w.sim = w.sim.replace(kernel_density="poly6", kernel_gradient="spiky")
+    xs = (np.arange(4) * 0.1 + 0.7).astype(np.float32)
+    pos = np.stack(np.meshgrid(xs, xs + 0.1, indexing="ij"), -1)
+    w.add_fluid(st.Fluid(pos.reshape(-1, 2), density0=800.0,
+                         nonpressure_forces=[force]))
+    pair.reset_launches()
+    for _ in range(2):
+        w.step(0.01, (0.0, -9.81))
+    (merged,) = w._force_set
+    assert type(merged).__name__ == type(force).__name__ + "Force"
+    coeffs = next(v for k, v in vars(merged).items()
+                  if k.endswith("coefficients"))
+    assert coeffs[0] == 0.0 and coeffs[1] > 0.0  # only fluid 1 carries it
+    assert bool(torch.isfinite(w.fluids_state.positions).all())
+    assert int(w.last_diagnostics.ncontacts_fb) > 0
+    assert not any(pair.LAUNCHES.values())

@@ -103,16 +103,18 @@ def _particles(dim):
     return pos, alive, vel, bpos, bvel
 
 
-def _state(dim):
+def _state(dim, kernels=("cubic", "cubic")):
     """The fixture of :func:`_particles` binned through the JAX DenseCtx
-    and its half-stencil folds."""
+    and its half-stencil folds, under the SPH kernels ``kernels``
+    (density, gradient)."""
     pos, alive, vel, bpos, bvel = _particles(dim)
     n, nb = len(pos), len(bpos)
     lo, hi = 0.0, 0.8
     sim = SimConfig(dim=dim, particle_radius=0.05, use_pallas=False,
                     dense_compact=False, dense_spill_auto=False,
                     dense_sparse_boundary=False,
-                    domain=((lo,) * dim, (hi,) * dim))
+                    domain=((lo,) * dim, (hi,) * dim),
+                    kernel_density=kernels[0], kernel_gradient=kernels[1])
     spec = jdg.spec_for_aabb((lo,) * dim, (hi,) * dim, H, cap=16)
 
     @jax.jit
@@ -250,8 +252,8 @@ def test_cpu_wrappers_run_the_plain_versions(state):
     assert pair.LAUNCHES == before
 
 
-def _fb_args(tspec, dim, t):
-    return (tspec, H, dim, "cubic", "cubic", t["P"], t["counts"], t["Pb"],
+def _fb_args(tspec, dim, t, kernels=("cubic", "cubic")):
+    return (tspec, H, dim, *kernels, t["P"], t["counts"], t["Pb"],
             t["Volb"], t["Vbvel"], t["counts_b"])
 
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of one salva_tpu_torch step goes, on one CUDA device.
 
-Runs the 97k dam break of ``chip_smoke.py`` (DFSPH or IISPH; with
-``--forces`` the fluid carries its XSPH and artificial viscosity) for 10
-warm-up steps, then:
+Runs a 97k dam-break main path of ``chip_smoke.py`` (``--path``, one of
+its ``PATHS``: DFSPH or IISPH, with or without the fluid's forces, under
+the cubic or the poly6 / spiky kernels) for 10 warm-up steps, then:
 
 1. stage timing: each leaf stage of the step (binning, layout shuffles,
    the pair passes, boundary volumes and forces, the non-pressure
@@ -20,9 +20,9 @@ warm-up steps, then:
 
 Usage, from the repository root on a machine with a CUDA device:
 
-    python3 tools/torch_step_profile.py --solver dfsph
-    python3 tools/torch_step_profile.py --solver iisph --json out.json
-    python3 tools/torch_step_profile.py --solver dfsph --forces
+    python3 tools/torch_step_profile.py --path dfsph
+    python3 tools/torch_step_profile.py --path iisph --json out.json
+    python3 tools/torch_step_profile.py --path dfsph_tension
 
 Prints one table per part and, with ``--json``, writes the numbers.
 """
@@ -116,9 +116,8 @@ def _card():
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--solver", choices=("dfsph", "iisph"), default="dfsph")
-    ap.add_argument("--forces", action="store_true",
-                    help="the fluid carries chip_smoke.FORCES")
+    ap.add_argument("--path", choices=tuple(chip_smoke.PATHS),
+                    default="dfsph", help="a main path of chip_smoke.PATHS")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
@@ -127,9 +126,8 @@ def main() -> int:
         return 2
     card = _card()
     print(f"card: {card}", flush=True)
-    world = chip_smoke.dam_break_world("cuda", args.solver,
-                                       forces=args.forces)
-    path = chip_smoke.path_name(args.solver, args.forces)
+    path = args.path
+    world = chip_smoke.path_world(path)
     for _ in range(10):
         world.step(chip_smoke.DT, chip_smoke.GRAVITY)
     torch.cuda.synchronize()
@@ -211,7 +209,8 @@ def main() -> int:
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(
-                card=card, solver=args.solver, path=path, steps=args.steps,
+                card=card, solver=chip_smoke.PATHS[path]["solver"],
+                path=path, steps=args.steps,
                 iters=iters, ms_per_step=plain_ms, sync_ms_per_step=sync_ms,
                 stages=[dict(stage=l, ms=m, calls=c) for l, m, c in stages],
                 rest_ms=rest, profiler_device_ms_3_steps=device_ms,
