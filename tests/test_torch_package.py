@@ -254,18 +254,22 @@ def test_kernel_build_is_keyed_by_source_hash():
         assert len(path.parent.name) == 16
 
 
+@pytest.mark.parametrize("layout", ["dense", "brute"])
 @pytest.mark.parametrize("force", [
     forces.Akinci2013SurfaceTension(1.0, 10.0),
     forces.WCSPHSurfaceTension(1.0, 0.5),
     forces.He2014SurfaceTension(1.0, 0.5),
     forces.DFSPHViscosity(0.5, max_viscosity_iter=2),
 ], ids=lambda f: type(f).__name__)
-def test_ported_forces_are_accepted_and_step(force):
+def test_ported_forces_are_accepted_and_step(force, layout):
     """``add_fluid`` accepts each force this slice ported; a CPU world
-    whose second fluid carries it, under poly6 / spiky, merges it into its
-    force set and steps (finite positions), launching no kernel."""
+    whose second fluid carries it, under poly6 / spiky, on the grid and
+    on the brute tier (whose force views are its cyclic offsets), merges
+    it into its force set and steps (finite positions), launching no
+    kernel."""
     w = _tiny_world()
-    w.sim = w.sim.replace(kernel_density="poly6", kernel_gradient="spiky")
+    w.sim = w.sim.replace(kernel_density="poly6", kernel_gradient="spiky",
+                          layout=layout)
     xs = (np.arange(4) * 0.1 + 0.7).astype(np.float32)
     pos = np.stack(np.meshgrid(xs, xs + 0.1, indexing="ij"), -1)
     w.add_fluid(st.Fluid(pos.reshape(-1, 2), density0=800.0,
@@ -280,4 +284,5 @@ def test_ported_forces_are_accepted_and_step(force):
     assert coeffs[0] == 0.0 and coeffs[1] > 0.0  # only fluid 1 carries it
     assert bool(torch.isfinite(w.fluids_state.positions).all())
     assert int(w.last_diagnostics.ncontacts_fb) > 0
+    assert w._effective_sim().layout == layout
     assert not any(pair.LAUNCHES.values())
