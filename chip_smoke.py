@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """GPU smoke run of salva_tpu_torch, the PyTorch + CUDA port.
 
-Drives the port's main paths (``PATHS``) — the 3D dense dam break of
-``bench.py`` at 97,336 particles, solved with DFSPH and with IISPH,
-without and with the fluid's XSPH and artificial-viscosity forces, under
-the poly6 / spiky SPH kernels, with the Akinci, WCSPH and He 2014
-surface tensions and with the DFSPH implicit viscosity — on one NVIDIA
-GPU, in these phases:
+Drives the port's main paths (``PATHS``) — the 3D dam break of
+``bench.py`` at 97,336 particles, on the dense layout solved with DFSPH
+and with IISPH, without and with the fluid's XSPH and
+artificial-viscosity forces, under the poly6 / spiky SPH kernels, with
+the Akinci, WCSPH and He 2014 surface tensions, with the DFSPH implicit
+viscosity and with the Becker 2009 elasticity, and on the gather layout
+(Morton grid, [N, K] neighbour tables) — on one NVIDIA GPU, in these
+phases:
 
 1. setup: the card's name and power limit, and the build of the hand
    CUDA kernels from ``salva_tpu_torch/csrc`` (one nvcc per source, all
@@ -26,7 +28,25 @@ GPU, in these phases:
    step that leaves a non-finite position: the reference's iteration
    diverges at its defaults), whose path is held to one application of
    the force with one viscosity update at the DFSPH path's 97k state
-   (``phase_implicit_visc``);
+   (``phase_implicit_visc``); elasticity3's softer block
+   (``Becker2009Elasticity(1e5, 0.3, True)`` + ``XSPHViscosity(0.5,
+   1.0)``, ``dense_elastic``: the elasticity as ``ParticleWiseForce``
+   beside the pair kernels, 10 + 10), with the device time of its
+   ``apply_particles`` and of the batched SVD inside it;
+4b. (run last, after phase 8: see ``main``) the gather layout
+   (``phase_gather_path``): DFSPH; IISPH with the
+   viscosity forces; DFSPH with faucet3's forces, with custom_forces3's
+   two attractors (``CustomForce``, which has no dense form: the dense
+   layout must refuse it, ``auto`` resolve to gather, and the masked
+   force equal a float64 evaluation) and with the elasticity; each 1 +
+   9 warm-up + 10 timed + 2 profiled steps (the device's busy share),
+   launching no pair kernel, beside its dense twin (the same world on
+   the dense layout), held after one step to identical iterations and
+   ff contacts and to the JAX package's dense-vs-gather bounds, the gap
+   after the last step logged; the DFSPH path run twice, bitwise equal;
+   then the WCSPH + He 2014 tensions under poly6 / spiky and the DFSPH
+   viscosity at one iteration, 8 gather steps each (``GATHER_ONE_STEP``),
+   through the step gates;
 5. each kernel against its plain PyTorch version on identical tensors
    taken from the DFSPH world's state past impact (cells hold more than
    8 particles), both hoists with their IISPH ``s2`` channel and
@@ -75,9 +95,11 @@ the line before it is the card's name and power limit, and the line
 before that the kernels' JSON record (``launches``: the count of the
 run named by ``launches_path`` — the DFSPH forces path, and for
 ``k_pass_v2``, which no main path launches, its phase-5 checks and
-timing; ``launches_by_path``: every main path's, the brute paths' zeros
-included; ``kernel_names``: the SPH kernel names held in phase 5, with
-their numbers under ``by_kernel``).
+timing; ``launches_by_path``: every main path's, the brute paths' and
+the gather paths' zeros included — a gather path's ``expand`` count is
+its world's one-time full-extent boundary-volume pass in its first step;
+``kernel_names``: the SPH kernel names held in phase 5, with their
+numbers under ``by_kernel``).
 """
 
 import json
@@ -159,10 +181,21 @@ WCSPH_HE = (("WCSPHSurfaceTension", (1.0, 0.5)),
             ("He2014SurfaceTension", (1.0, 0.5)))
 # The SPH kernel names every pair kernel takes, in each role.
 KERNEL_NAMES = ("cubic", "poly6", "spiky", "viscosity")
+# elasticity3's softer block (salva_tpu/scenes.py:339-356): the Becker
+# 2009 elasticity, Green strain, and the elasticity scenes' XSPH.
+ELASTIC = (("Becker2009Elasticity", (100_000.0, 0.3, True)),
+           ("XSPHViscosity", (0.5, 1.0)))
+# custom_forces3's two attractors (salva_tpu/scenes.py:367-384), as
+# (class name in salva_tpu_torch/scenes.py, arguments).
+ATTRACTORS = (("AttractorForce", ((1.0, 0.0, 0.0),)),
+              ("AttractorForce", ((-1.0, 0.0, 0.0),)))
 # The main paths, all on the 97k dam break: solver, (kernel_density,
-# kernel_gradient), the fluid's forces, and (warm-up, timed) steps. The
-# last four are this slice's; the implicit viscosity iterates up to 50
-# times a step, so its path is short.
+# kernel_gradient), the fluid's forces, the layout (the dense grid unless
+# named), and (warm-up, timed) steps. The implicit viscosity iterates up
+# to 50 times a step, so its path is short. The gather paths run the
+# Morton grid and [N, K] neighbour tables (plain PyTorch: the JAX
+# package's gather layout reaches no Pallas kernel) and launch no pair
+# kernel; dense_elastic runs the elasticity beside the pair kernels.
 PATHS = {
     "dfsph": dict(solver="dfsph"),
     "iisph": dict(solver="iisph"),
@@ -176,6 +209,39 @@ PATHS = {
     "dfsph_implicit_visc": dict(
         solver="dfsph", forces=(("DFSPHViscosity", (0.5,)),),
         steps=(3, 5)),
+    "gather_dfsph": dict(solver="dfsph", layout="gather", steps=(9, 10)),
+    "gather_iisph_visc": dict(solver="iisph", layout="gather", forces=FORCES,
+                              steps=(9, 10)),
+    "gather_tension": dict(solver="dfsph", layout="gather", forces=FAUCET3,
+                           steps=(9, 10)),
+    "gather_custom": dict(solver="dfsph", layout="gather", forces=ATTRACTORS,
+                          steps=(9, 10)),
+    "dense_elastic": dict(solver="dfsph", forces=ELASTIC, steps=(10, 10)),
+    "gather_elastic": dict(solver="dfsph", layout="gather", forces=ELASTIC,
+                           steps=(9, 10)),
+}
+# Dense vs gather after one step from the same world: the JAX package's
+# own bounds (tests/test_dense.py:94-97), positions (m) and velocities
+# (m/s). They hold on bench.py's 97k lattice. They need no particle on a
+# dense cell edge: there a pair at exactly r = h spans two cells, outside
+# the dense 3^dim stencil, while the gather layout counts it. W and its
+# gradient vanish there, but the DFSPH neighbour-count gate flips: the
+# same dam break at 12^3 counts 44,488 ff contacts on the gather layout
+# and 43,912 on the dense one, and its two steps end 2.0e-3 m and 0.40
+# m/s apart, in both packages (tests/test_torch_gather_dam_break.py).
+TWIN_POS_ATOL, TWIN_VEL_ATOL = 5e-4, 5e-3
+# The remaining forces on the gather layout, 8 steps each (the block
+# meets the floor at step ~5; the first steps' lattice holds the cubic
+# spline's density at 0.894 of rest, under the density gate): the WCSPH
+# and He 2014 tensions under poly6 / spiky, and the DFSPH viscosity at
+# one iteration.
+GATHER_SHORT_STEPS = 8
+GATHER_ONE_STEP = {
+    "gather_wcsph_he": dict(solver="dfsph", layout="gather", forces=WCSPH_HE,
+                            kernels=("poly6", "spiky")),
+    "gather_dfsph_visc_1": dict(
+        solver="dfsph", layout="gather",
+        forces=(("DFSPHViscosity", (0.5, 1, 1)),)),
 }
 # The (kernel_density, kernel_gradient) pairs phase 5 holds the hoists
 # under: every pair a main path uses, and the viscosity kernel in both
@@ -271,13 +337,12 @@ def dam_break_world(device, solver="dfsph", sparse_boundary=True,
     a sampled Cuboid floor, moving down at 2 m/s, in a static domain;
     caps (unless ``dense_caps`` names them), window and fb table
     auto-resolve. ``forces``: the fluid's forces, as (class name in
-    salva_tpu_torch/forces.py, arguments) pairs; ``kernels``: the SPH
-    kernels (kernel_density, kernel_gradient)."""
+    salva_tpu_torch/forces.py or scenes.py, arguments) pairs; ``kernels``:
+    the SPH kernels (kernel_density, kernel_gradient)."""
     from salva_tpu_torch import forces as force_specs
-    from salva_tpu_torch import shapes
+    from salva_tpu_torch import scenes, shapes
     from salva_tpu_torch.config import DFSPHConfig, IISPHConfig
     from salva_tpu_torch.sampling import shape_surface_sample
-    from salva_tpu_torch.scenes import cube_fluid
     from salva_tpu_torch.world import Boundary, Fluid, LiquidWorld
 
     n_side = max(2, round(n_target ** (1.0 / 3.0)))
@@ -296,12 +361,13 @@ def dam_break_world(device, solver="dfsph", sparse_boundary=True,
     world.sim = world.sim.replace(dense_sparse_boundary=sparse_boundary,
                                   kernel_density=kernels[0],
                                   kernel_gradient=kernels[1])
-    pos = cube_fluid((n_side, n_side, n_side), radius)
+    pos = scenes.cube_fluid((n_side, n_side, n_side), radius)
     pos[:, 1] += half + radius
     vel = np.zeros_like(pos)
     vel[:, 1] = -2.0
-    nonpressure = [getattr(force_specs, name)(*args)
-                   for name, args in forces]
+    nonpressure = [getattr(force_specs, name, None)
+                   or getattr(scenes, name) for name, _ in forces]
+    nonpressure = [cls(*args) for cls, (_, args) in zip(nonpressure, forces)]
     world.add_fluid(Fluid(pos, density0=1000.0, velocities=vel,
                           nonpressure_forces=nonpressure))
     floor = shape_surface_sample(shapes.Cuboid((wall, 0.1, wall)), radius, 3)
@@ -484,8 +550,10 @@ def boundary_slots_within(cf, counts, visit, h, shifts):
 
 
 def path_world(name, device="cuda", **kw):
-    """A fresh dam break of main path ``name`` (PATHS)."""
-    spec = PATHS[name]
+    """A fresh dam break of main path ``name`` (PATHS, or GATHER_ONE_STEP);
+    ``kw`` may override its layout."""
+    spec = dict(PATHS.get(name) or GATHER_ONE_STEP[name])
+    kw.setdefault("layout", spec.get("layout", "auto"))
     return dam_break_world(device, spec["solver"],
                            forces=spec.get("forces", ()),
                            kernels=spec.get("kernels", ("cubic", "cubic")),
@@ -628,6 +696,334 @@ def phase_implicit_visc(pair, world):
             f"implicit viscosity is unstable on free blobs)")
     return dict(run, failed_gates=failed, apply_iters=iters,
                 apply_s=apply_s, apply_peak=peak)
+
+
+def busy_share(world, steps=2):
+    """``torch.profiler`` over ``steps`` steps of ``world``: (device time
+    summed over kernels and fills / profiled wall clock, device ms per
+    step); (None, None) when the profile came back without device
+    events."""
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            world.step(DT, GRAVITY)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    if device_us <= 0:
+        return None, None
+    return device_us / 1e3 / wall_ms, device_us / 1e3 / steps
+
+
+def step_gates(world, n):
+    """The main paths' step gates on ``world``'s last step: neighbour
+    overflow under N // 1000, finite positions, peak density ratio in
+    (0.9, 2.0)."""
+    d = world.last_diagnostics
+    overflow, max_rho = int(d.neighbor_overflow), float(d.max_density_ratio)
+    pos = world.fluids_state.positions[world.fluids_state.alive]
+    return {
+        f"overflow {overflow} < {max(1, n // 1000)}":
+            overflow < max(1, n // 1000),
+        "finite positions": bool(torch.isfinite(pos).all()),
+        f"max density ratio {max_rho} in (0.9, 2.0)": 0.9 < max_rho < 2.0,
+    }
+
+
+def live_state(world):
+    fl = world.fluids_state
+    return fl.positions[fl.alive], fl.velocities[fl.alive]
+
+
+def twin_gap(gather, dense):
+    """(max |dpos|, max |dvel|) between two worlds of one scene."""
+    (pg, vg), (pd, vd) = live_state(gather), live_state(dense)
+    return (float((pg - pd).abs().max()), float((vg - vd).abs().max()))
+
+
+def hold_custom_force(world):
+    """The gather_custom path's hold: a CustomForce has no dense form, so
+    ``layout="dense"`` must raise and ``"auto"`` resolve to the gather
+    layout; and the force set's masked attractors, on the card at the
+    path's state, must equal custom_forces3's attraction evaluated in
+    float64 on the host."""
+    from types import SimpleNamespace
+
+    from salva_tpu_torch.step import _dense_config
+
+    auto = path_world("gather_custom", layout="auto")
+    auto._prepare()
+    assert _dense_config(auto._effective_sim(), auto.solver_config,
+                         auto._force_set) is None, "auto kept the grid"
+    del auto
+    dense = path_world("gather_custom", layout="dense")
+    try:
+        dense.step(DT, GRAVITY)
+    except ValueError as e:
+        log(f"[main gather_custom] layout='dense' raises: {e}")
+    else:
+        raise AssertionError("a CustomForce ran on the dense layout")
+    del dense
+    ctx = SimpleNamespace(fluids=world.fluids_state,
+                          boundaries=world.boundaries_state)
+    got = sum(f.apply(ctx)[0] for f in world._force_set.forces)
+    pos = world.fluids_state.positions.double().cpu()
+    want = torch.zeros_like(pos)
+    for _, (origin,) in ATTRACTORS:
+        d = torch.tensor(origin, dtype=torch.float64) - pos
+        dist = d.norm(dim=-1, keepdim=True)
+        want += torch.where(dist > 0.1, d / dist ** 2, 0.0)
+    want = want * world.fluids_state.alive.cpu()[:, None]
+    err = float((got.double().cpu() - want).abs().max())
+    log(f"[main gather_custom] masked attractors vs float64: max |da| "
+        f"{err:.3e} m/s^2 (peak {float(want.abs().max()):.4f})")
+    assert err <= 1e-5 * max(1.0, float(want.abs().max()))
+
+
+def elastic_share(world, ms_step, tag):
+    """Device time of the elasticity's ``apply_particles`` and of its
+    batched SVD (``torch.linalg.svd`` of the [N, 3, 3] APQ matrices) at
+    the state of ``world``, beside the path's ms/step."""
+    from salva_tpu_torch.solver import elasticity
+
+    force = next(f for f in world._force_set.forces
+                 if isinstance(f, elasticity.Becker2009ElasticityForce))
+    fl, es = world.fluids_state, world._elasticity_state
+    apply_ms = cuda_ms(lambda: force.apply_particles(fl, es, 3), 5)
+    j, mask = es.rest_j, es.rest_mask
+    p_ji = fl.positions[j] - fl.positions[:, None, :]
+    p0_ji = es.positions0[j] - es.positions0[:, None, :]
+    a_pq = torch.einsum("nk,nkd,nke->nde", es.rest_w * fl.masses[j] * mask,
+                        p_ji, p0_ji)
+    svd_ms = cuda_ms(lambda: torch.linalg.svd(a_pq, full_matrices=False), 5)
+    polar_ms = cuda_ms(lambda: elasticity._polar_rotation(a_pq, 3), 5)
+    log(f"{tag} elasticity at this state ({int(es.rest_valid.any(1).sum())}"
+        f" elastic particles): apply_particles {apply_ms:.3f} ms, of which "
+        f"the polar decomposition {polar_ms:.3f} ms (its SVD {svd_ms:.3f} "
+        f"ms); the path's step {ms_step:.3f} ms")
+    return dict(apply_ms=apply_ms, polar_ms=polar_ms, svd_ms=svd_ms)
+
+
+def gather_stages(world, tag):
+    """Device time of the gather layout's plain-torch passes at the state
+    of ``world`` (the next step's inputs): the Morton grid and the ff and
+    fb neighbour tables, the boundary volumes' W sums, the contacts'
+    kernel evaluation, the boundary-force scatter (its table and one
+    scatter), and one DFSPH pressure iteration (the predicted densities
+    and the stiffness's velocity update)."""
+    from salva_tpu_torch import geometry as g
+    from salva_tpu_torch.kernels import get_kernel
+    from salva_tpu_torch.solver import common, dfsph
+
+    fl, bd = world.fluids_state, world.boundaries_state
+    h, nb = world.h, world.sim.neighbors
+    w_fn, dw_fn = get_kernel("cubic")
+    fgr, bgr = fl.groups(), bd.groups()
+
+    def grid_ff():
+        grid = g.build_grid(fl.positions, fl.alive, h, 3)
+        return g.find_neighbors(fl.positions, fl.alive, fgr, grid,
+                                fl.positions, fl.alive, fgr, h, 3,
+                                nb.max_neighbors, nb.max_candidates, True,
+                                nb.query_chunk)
+
+    def grid_fb():
+        grid = g.build_grid(bd.positions, bd.alive, h, 3)
+        return g.find_neighbors(fl.positions, fl.alive, fgr, grid,
+                                bd.positions, bd.alive, bgr, h, 3,
+                                nb.max_neighbors, nb.max_candidates, False,
+                                nb.query_chunk)
+
+    def volumes():
+        grid = g.build_grid(bd.positions, bd.alive, h, 3)
+        return g.weighted_sum_over_neighbors(
+            bd.positions, bd.alive, bgr, grid, bd.positions, bd.alive, bgr,
+            h, 3, nb.max_candidates, True, w_fn, nb.query_chunk)
+
+    ff_nl, fb_nl = grid_ff(), grid_fb()
+
+    def contacts():
+        return (g.evaluate_contacts(fl.positions, fl.positions, ff_nl, h, 3,
+                                    w_fn, dw_fn),
+                g.evaluate_contacts(fl.positions, bd.positions, fb_nl, h, 3,
+                                    w_fn, dw_fn))
+
+    ff, fb = contacts()
+    dt = torch.tensor(DT, dtype=torch.float32, device="cuda")
+    ctx = common.StepContext(fluids=fl, boundaries=bd, ff=ff, fb=fb,
+                             densities=torch.zeros_like(fl.volumes), dt=dt,
+                             inv_dt=1.0 / dt, dim=3, h=h, num_fluids=1)
+    ctx = ctx.replace(densities=common.compute_densities(ctx))
+    alphas = dfsph.compute_alphas(ctx)
+    dv = torch.zeros_like(fl.positions)
+    contrib = fb.grad * fb.mask[..., None]
+
+    def scatter():
+        fb._table = None
+        return common.scatter_boundary_forces(bd.forces, fb, contrib)
+
+    def pressure_iteration():
+        predicted, _ = dfsph.compute_predicted_densities(ctx, dv)
+        ki = torch.clamp((predicted - fl.density0) * alphas, min=0.0)
+        return dfsph._apply_pressure_kappa(ctx, dv, ki)
+
+    times = {name: cuda_ms(fn, 3) for name, fn in (
+        ("grid + ff table", grid_ff), ("grid + fb table", grid_fb),
+        ("boundary volumes", volumes), ("contacts (ff, fb)", contacts),
+        ("fb scatter (table + one)", scatter),
+        ("one pressure iteration", pressure_iteration))}
+    log(f"{tag} gather stages at this state, device ms (3 runs each): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f"; fb scatter table kmax {fb.scatter_table(bd.capacity).shape[1]}")
+    return times
+
+
+def phase_gather_path(pair, name, rerun=False):
+    """A gather-layout main path (PATHS, ``layout="gather"``) on bench.py's
+    dam break. Its dense twin (the same world on the dense layout, whose
+    hand kernels run; gather_custom has none, see hold_custom_force) takes
+    the first step beside it, held to identical iterations and ff
+    contacts and to TWIN_POS_ATOL / TWIN_VEL_ATOL, and follows it step
+    for step, the gap after the last step logged. The gather world runs
+    its warm-up and timed steps, two profiled steps (the device's busy
+    share) and its step gates; it launches no pair kernel, and ``expand``
+    only in its first step (the world's one-time full-extent boundary
+    volume pass over a domain, as the JAX world runs it). With ``rerun``,
+    a second fresh world takes the same steps and must end bitwise
+    equal. Returns the run's record."""
+    tag = f"[main {name}]"
+    spec = PATHS[name]
+    warm, steps = spec["steps"]
+    total = 1 + warm + steps + 2
+    world = path_world(name)
+    twin = None if name == "gather_custom" else path_world(name,
+                                                           layout="dense")
+    n = int(world.fluids_state.alive.sum())
+    if twin is not None:
+        twin.step(DT, GRAVITY)
+    reset_counts(pair)
+    world.step(DT, GRAVITY)
+    torch.cuda.synchronize()
+    first_launches = read_counts(pair)
+    gap1 = None
+    if twin is not None:
+        seen = [((w.last_diagnostics.solver.pressure_iters,
+                  w.last_diagnostics.solver.divergence_iters),
+                 int(w.last_diagnostics.ncontacts_ff)) for w in (world, twin)]
+        gap1 = twin_gap(world, twin)
+        log(f"{tag} step 1, gather vs dense twin: iterations {seen[0][0]} / "
+            f"{seen[1][0]}, ff contacts {seen[0][1]} / {seen[1][1]}, max "
+            f"|dpos| {gap1[0]:.3e} m (atol {TWIN_POS_ATOL}), max |dvel| "
+            f"{gap1[1]:.3e} m/s (atol {TWIN_VEL_ATOL})")
+        assert seen[0] == seen[1], f"{tag} twin iterations / ff contacts"
+        assert gap1[0] <= TWIN_POS_ATOL and gap1[1] <= TWIN_VEL_ATOL, \
+            f"{tag} dense twin gap {gap1}"
+    iters = []
+    t0 = time.perf_counter()
+    for i in range(warm + steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        world.step(DT, GRAVITY)
+        s_ = world.last_diagnostics.solver
+        if i >= warm:
+            iters.append((s_.pressure_iters, s_.divergence_iters))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    busy, device_ms = busy_share(world)
+    launches = read_counts(pair)
+    gates = step_gates(world, n)
+    d = world.last_diagnostics
+    log(f"{tag} N={n}: {ms:.3f} ms/step over {steps} timed steps ({warm} "
+        f"warm-up steps took {warm_s:.2f} s); device busy share "
+        f"{busy if busy is None else round(busy, 4)} over 2 profiled steps "
+        f"({device_ms if device_ms is None else round(device_ms, 3)} ms of "
+        f"device time a step); kernels (density, gradient) "
+        f"{world.sim.kernel_density}, {world.sim.kernel_gradient}")
+    log(f"{tag} iterations per timed step (pressure, divergence): {iters}")
+    log(f"{tag} last step ({total}): overflow {int(d.neighbor_overflow)}, "
+        f"candidate overflow {int(d.candidate_overflow)}, contacts ff "
+        f"{int(d.ncontacts_ff)} fb {int(d.ncontacts_fb)}, max density ratio "
+        f"{float(d.max_density_ratio):.4f}; forces {world._force_set}")
+    log(f"{tag} kernel launches ({total} steps; step 1: {first_launches}): "
+        f"{launches}")
+    assert launches == first_launches, f"{tag} a step after the first " \
+        "launched a kernel"
+    assert not any(v for k, v in launches.items() if k != "expand"), \
+        f"{tag} launched a pair kernel"
+    for what, ok in gates.items():
+        assert ok, f"{tag} gate failed: {what}"
+    gap = None
+    if twin is not None:
+        for _ in range(total - 1):
+            twin.step(DT, GRAVITY)
+        gap = twin_gap(world, twin)
+        log(f"{tag} after step {total}, gather vs dense twin: max |dpos| "
+            f"{gap[0]:.3e} m, max |dvel| {gap[1]:.3e} m/s (logged only)")
+        del twin
+    if name == "gather_custom":
+        hold_custom_force(world)
+    extra = {}
+    if spec.get("forces") == ELASTIC:
+        extra = elastic_share(world, ms, tag)
+    if name == "gather_dfsph":
+        extra = dict(stages=gather_stages(world, tag))
+    if rerun:
+        again = path_world(name)
+        for _ in range(total):
+            again.step(DT, GRAVITY)
+        same = torch.equal(world.fluids_state.positions,
+                           again.fluids_state.positions)
+        log(f"{tag} a second run of the {total} steps: positions bitwise "
+            f"equal {same}")
+        assert same, f"{tag} two runs differ"
+        del again
+    torch.cuda.empty_cache()
+    return dict(n=n, ms=ms, launches=launches, iters=iters,
+                twin_gap_step1=gap1, twin_gap_last=gap, busy=busy,
+                device_ms=device_ms, **extra)
+
+
+def phase_gather_short(pair, name):
+    """A remaining force on the gather layout (GATHER_ONE_STEP):
+    GATHER_SHORT_STEPS steps, finite after each, through the step gates,
+    no pair kernel launched."""
+    tag = f"[short {name}]"
+    world = path_world(name)
+    n = int(world.fluids_state.alive.sum())
+    reset_counts(pair)
+    iters = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GATHER_SHORT_STEPS):
+        world.step(DT, GRAVITY)
+        s_ = world.last_diagnostics.solver
+        iters.append((s_.pressure_iters, s_.divergence_iters))
+        assert bool(torch.isfinite(world.fluids_state.positions).all()), \
+            f"{tag} non-finite positions at step {len(iters)}"
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / GATHER_SHORT_STEPS * 1e3
+    gates = step_gates(world, n)
+    launches = read_counts(pair)
+    log(f"{tag} N={n}: {ms:.3f} ms/step over {GATHER_SHORT_STEPS} steps "
+        f"(the first included), iterations {iters}, DFSPH viscosity "
+        f"iterations {force_iterations()['dfsph_viscosity']}, kernels "
+        f"(density, gradient) {world.sim.kernel_density}, "
+        f"{world.sim.kernel_gradient}; launches {launches}; gates "
+        + ", ".join(f"{w}: {'ok' if ok else 'FAILED'}"
+                    for w, ok in gates.items()))
+    assert not any(v for k, v in launches.items() if k != "expand"), \
+        f"{tag} launched a pair kernel"
+    for what, ok in gates.items():
+        assert ok, f"{tag} gate failed: {what}"
+    del world
+    torch.cuda.empty_cache()
+    return dict(n=n, ms=ms, iters=iters, launches=launches)
 
 
 def drop_last(counts, cells):
@@ -1483,12 +1879,16 @@ def main() -> int:
     world, dfsph = phase_main_path(pair, "dfsph")
     paths["dfsph"] = dfsph["launches"]
     log(f"[main dfsph] phase took {time.perf_counter() - t0:.1f} s")
-    for name in PATHS:
-        if name in ("dfsph", "dfsph_implicit_visc"):
+    for name, spec in PATHS.items():
+        if (name in ("dfsph", "dfsph_implicit_visc")
+                or spec.get("layout") == "gather"):
             continue
         t0 = time.perf_counter()
         other, run = phase_main_path(pair, name)
+        if spec.get("forces") == ELASTIC:
+            elastic_share(other, run["ms"], f"[main {name}]")
         del other
+        torch.cuda.empty_cache()
         paths[name] = run["launches"]
         log(f"[main {name}] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1515,6 +1915,20 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(phase_brute(pair))
     log(f"[brute] phase took {time.perf_counter() - t0:.1f} s")
+    # The gather phases come last: their busy share profiles the steps,
+    # and with those profiles taken before phase 5, its profiles of one
+    # hoist call came back without device events on an H100.
+    for name, spec in PATHS.items():
+        if spec.get("layout") != "gather":
+            continue
+        t0 = time.perf_counter()
+        run = phase_gather_path(pair, name, rerun=name == "gather_dfsph")
+        paths[name] = run["launches"]
+        log(f"[main {name}] phase took {time.perf_counter() - t0:.1f} s")
+    for name in GATHER_ONE_STEP:
+        t0 = time.perf_counter()
+        paths[name] = phase_gather_short(pair, name)["launches"]
+        log(f"[short {name}] phase took {time.perf_counter() - t0:.1f} s")
 
     records = []
     for name, k in kernels.items():

@@ -6,11 +6,14 @@ NVIDIA Hopper (``ops/pair.py``, ``csrc/pair_passes.cu``). The module
 layout and names follow ``salva_tpu``, the JAX package this port is held
 against.
 
-Ported so far: the 3D/2D DFSPH and IISPH dense layout, with sparse or
-full-grid boundary binning — ``LiquidWorld`` with ``add_fluid`` /
-``add_boundary`` / ``step`` over a static ``domain``, on a CUDA device
-(the default) or on the CPU when asked (``device="cpu"``). Everything
-else raises ``NotImplementedError`` (see ``ROADMAP.md``).
+Ported so far: 3D/2D DFSPH and IISPH on the dense layout (with sparse
+or full-grid boundary binning, over a static ``domain``), the brute
+all-pairs tier and the gather layout (Morton grid, [N, K] neighbour
+tables; every world without a domain), with the seven non-pressure forces
+and ``CustomForce`` — ``LiquidWorld`` with ``add_fluid`` /
+``add_boundary`` / ``step``, on a CUDA device (the default) or on the
+CPU when asked (``device="cpu"``). Everything else raises
+``NotImplementedError`` (see ``ROADMAP.md``).
 
 This package imports torch and numpy only; the CUDA kernels build at
 their first launch, never at import.

@@ -23,11 +23,9 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class NeighborConfig:
-    """Static configuration of the gather-layout neighbor search.
-
-    Kept for API parity: the dense layout of this package does not read
-    it (the gather layout is not ported yet).
-    """
+    """Static configuration of the gather-layout neighbor search (the
+    [N, K] table width, the candidate window per query, and the query
+    rows per block). The dense layout does not read it."""
 
     max_neighbors: int = 64
     max_candidates: int = 288
@@ -80,7 +78,8 @@ class IISPHConfig:
     Defaults mirror the reference (``iisph_solver.rs``): 1..50 relaxed
     Jacobi pressure iterations with 5% density tolerance and relaxation
     factor ``omega`` 0.5. Runs on the dense layout
-    (``solver/iisph_dense.py``)."""
+    (``solver/iisph_dense.py``) and the gather layout
+    (``solver/iisph.py``)."""
 
     min_pressure_iter: int = 1
     max_pressure_iter: int = 50
@@ -113,7 +112,9 @@ class SimConfig:
     # block as a 1D cyclic grid of ``brute_cells`` cells; needs
     # ``domain``), "auto" (dense when a domain is set, brute instead on a
     # GPU when the capacities sit under ``brute_max_particles`` /
-    # ``brute_max_boundary``), "gather": not ported, raises.
+    # ``brute_max_boundary``), "gather" (the Morton grid and [N, K]
+    # neighbour tables; what "auto" resolves to without a domain, for a
+    # mostly empty grid, or with a force that has no dense form).
     layout: str = "auto"
     brute_cells: int = 32
     brute_max_particles: int = 4096

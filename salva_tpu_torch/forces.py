@@ -4,9 +4,8 @@ These mirror the constructors of the reference's force objects
 (``src/solver/{viscosity,surface_tension,elasticity}``); the world merges
 the per-fluid instances into the vectorized per-type configurations in
 ``solver/``. A copy of ``salva_tpu.forces`` (which imports no JAX), so
-that a scene reads the same in both packages. The port runs every force
-here but the Becker 2009 elasticity, which ``LiquidWorld.add_fluid``
-refuses (its rest contacts come from the gather layout).
+that a scene reads the same in both packages; the port runs every force
+here, on every layout.
 """
 
 from __future__ import annotations

@@ -8,6 +8,7 @@ from .sph import (
     cubic_dw,
     cubic_w,
     get_kernel,
+    grad_from_dpos,
     poly6_dw,
     poly6_w,
     spiky_dw,
@@ -31,5 +32,6 @@ __all__ = [
     "viscosity_w",
     "viscosity_dw",
     "get_kernel",
+    "grad_from_dpos",
     "w_dwr",
 ]

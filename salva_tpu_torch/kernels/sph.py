@@ -140,6 +140,18 @@ def viscosity_dw(r, h, dim: int):
     return torch.where((r > 0.0) & (r <= h), val, 0.0)
 
 
+def grad_from_dpos(dpos, h, dim: int, dw_fn=cubic_dw):
+    """Kernel gradient with respect to the first point of
+    ``dpos = p_i - p_j`` (``Kernel::apply_diff``, `kernel.rs:19-26`):
+    ``dir(dpos) * dW/dr(|dpos|)``, zero when ``|dpos|`` is below f32
+    epsilon (the self-contact). dpos: [..., dim]; returns
+    ([...], [..., dim]) = (r, gradient)."""
+    r = torch.sqrt(torch.sum(dpos * dpos, dim=-1))
+    safe_r = torch.where(r > EPSILON, r, 1.0)
+    dw = dw_fn(r, h, dim)
+    return r, dpos * torch.where(r > EPSILON, dw / safe_r, 0.0)[..., None]
+
+
 # --- Akinci 2013 surface-tension kernels -----------------------------------
 
 

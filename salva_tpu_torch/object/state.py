@@ -59,6 +59,12 @@ class FluidsState:
         """Per-particle mass = volume * rest density (`fluid.rs:183-187`)."""
         return self.volumes * self.density0
 
+    def groups(self):
+        """The gather layout's interaction-group view (model: fluid id)."""
+        from ..geometry.neighbors import GroupInfo
+
+        return GroupInfo(self.memberships, self.filter, self.fluid_id)
+
     def replace(self, **kw) -> "FluidsState":
         return dataclasses.replace(self, **kw)
 
@@ -101,6 +107,13 @@ class BoundariesState:
     @property
     def device(self) -> torch.device:
         return self.positions.device
+
+    def groups(self):
+        """The gather layout's interaction-group view (model: boundary
+        id)."""
+        from ..geometry.neighbors import GroupInfo
+
+        return GroupInfo(self.memberships, self.filter, self.boundary_id)
 
     def replace(self, **kw) -> "BoundariesState":
         return dataclasses.replace(self, **kw)

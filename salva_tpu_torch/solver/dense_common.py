@@ -478,25 +478,35 @@ class DenseCtx:
                                              device=self.device)
         return self.to_f(fluids.volumes)
 
-    def apply_forces(self, dense_forces, fluids, V, dt, inv_dt, A):
+    def apply_forces(self, dense_forces, fluids, V, dt, inv_dt, A, es=None):
         """The non-pressure stage of predict_advection: ``A`` plus each
         dense force's acceleration on the live slots, in order, and the
         summed boundary feedback of the forces in the native boundary
         layout (None when no force feeds back). ``V``: the velocities the
-        forces read (DFSPH: after the divergence solve)."""
-        from .forces_dense import DenseFields
+        forces read (DFSPH: after the divergence solve). A
+        ``ParticleWiseForce`` (the elasticity) runs in particle layout on
+        ``fluids`` and the elasticity state ``es``, and is binned into the
+        grid; the pair forces' field views are built only when one runs."""
+        from .forces_dense import DenseFields, ParticleWiseForce
 
-        jfb, jbf, Pb, Vbvel, Volb, maskb = self.force_field_views()
-        fields = DenseFields(
-            jff=self.jff, jfb=jfb, jbf=jbf, n_offsets=len(self.offsets),
-            P=self.P, V=V, M=self.M, VOL=self.vol_grid(fluids), R0=self.R0,
-            RHO=self.rho, FID=self.FID, maskf=self.maskf, Pb=Pb,
-            Vbvel=Vbvel, Volb=Volb, maskb=maskb, h=self.h, dim=self.dim,
-            dt=dt, inv_dt=inv_dt, kernel_density=self.sim.kernel_density,
-            kernel_gradient=self.sim.kernel_gradient,
-        )
+        fields = None
         fb = None
         for force in dense_forces:
+            if isinstance(force, ParticleWiseForce):
+                a_p = force.force.apply_particles(fluids, es, self.dim)
+                A = A + self.to_f(a_p) * self.maskf[None]
+                continue
+            if fields is None:
+                jfb, jbf, Pb, Vbvel, Volb, maskb = self.force_field_views()
+                fields = DenseFields(
+                    jff=self.jff, jfb=jfb, jbf=jbf,
+                    n_offsets=len(self.offsets), P=self.P, V=V, M=self.M,
+                    VOL=self.vol_grid(fluids), R0=self.R0, RHO=self.rho,
+                    FID=self.FID, maskf=self.maskf, Pb=Pb, Vbvel=Vbvel,
+                    Volb=Volb, maskb=maskb, h=self.h, dim=self.dim, dt=dt,
+                    inv_dt=inv_dt, kernel_density=self.sim.kernel_density,
+                    kernel_gradient=self.sim.kernel_gradient,
+                )
             a_d, fb_d = force.apply(fields)
             A = A + a_d * self.maskf[None]
             if fb_d is not None:

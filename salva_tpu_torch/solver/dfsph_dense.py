@@ -33,17 +33,18 @@ def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
                         spec_f: dg.DenseGridSpec, spec_b: dg.DenseGridSpec,
                         dense_forces=()):
     """Build the dense-layout DFSPH substep
-    ``substep(fluids, boundaries, solver_state, dt, gravity)``.
+    ``substep(fluids, boundaries, solver_state, es, dt, gravity)``.
 
     ``dense_forces``: tuple of dense non-pressure forces
     (``forces_dense.py``), each ``apply(fields) -> (accel, bforces|None)``,
+    or a ``ParticleWiseForce`` run on the elasticity state ``es``,
     applied in predict_advection."""
     dim = sim.dim
     min_nb = cfg.min_neighbors(dim)
     warm = float(getattr(cfg, "warm_start", 0.0))
 
     def substep(fluids: FluidsState, boundaries: BoundariesState,
-                solver_state, dt, gravity):
+                solver_state, es, dt, gravity):
         dev = fluids.positions.device
         dt = torch.as_tensor(dt, dtype=torch.float32, device=dev)
         inv_dt = torch.where(dt > 0, 1.0 / dt, 0.0)
@@ -96,7 +97,7 @@ def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
         np_Fb = None
         if dense_forces:
             A, np_Fb = ctx.apply_forces(dense_forces, fluids, V2, dt, inv_dt,
-                                        A)
+                                        A, es)
         DV = A * dt
 
         # --- pressure solve (`dfsph_solver.rs:432-464`)

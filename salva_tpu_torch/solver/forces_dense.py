@@ -11,17 +11,19 @@ every device: the JAX package has no Pallas kernel for them.
 Interface: ``apply(f: DenseFields) -> (accel [D, capf, C],
 boundary_forces [D, capb, C] | None)``.
 
-Not ported (``to_dense_force`` raises; ``LiquidWorld.add_fluid`` refuses
-them first): the Becker 2009 elasticity (``ParticleWiseForce``, whose rest
-contacts come from the gather layout's neighbour search) and
-``CustomForce`` (gather layout only). ``DenseFields.halo`` / ``interior``
-(the multi-device slab path) have no counterpart yet.
+The Becker 2009 elasticity runs inside the dense substeps as
+``ParticleWiseForce``: it reads only positions and its static rest
+contact table, so the solvers evaluate it in particle layout and bin its
+acceleration into the grid once. ``CustomForce`` has no dense form
+(``to_dense_force`` returns None), so a world carrying one runs the
+gather layout. ``DenseFields.halo`` / ``interior`` (the multi-device slab
+path) have no counterpart yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -784,8 +786,23 @@ class DFSPHViscosityDense:
         return accel, None
 
 
+@dataclasses.dataclass(frozen=True)
+class ParticleWiseForce:
+    """Dense-substep adapter for forces evaluated in particle layout.
+
+    The Becker elasticity reads only positions and its static rest
+    contact table (`becker2009_elasticity.rs:268-334`), no spatial
+    search, so the dense substeps run ``force.apply_particles(fluids, es,
+    dim)`` on the particle arrays and bin its acceleration into the grid
+    once; elastic fluids stay on the dense layout."""
+
+    force: object
+
+
 def to_dense_force(force):
-    """Dense counterpart of a merged force configuration."""
+    """Dense counterpart of a merged force configuration, or None (a
+    custom force)."""
+    from .elasticity import Becker2009ElasticityForce
     from .surface_tension import (
         Akinci2013SurfaceTensionForce,
         He2014SurfaceTensionForce,
@@ -797,6 +814,8 @@ def to_dense_force(force):
         XSPHViscosityForce,
     )
 
+    if isinstance(force, Becker2009ElasticityForce):
+        return ParticleWiseForce(force)
     if isinstance(force, DFSPHViscosityForce):
         return DFSPHViscosityDense(
             force.viscosity_coefficients,
@@ -832,12 +851,16 @@ def to_dense_force(force):
             force.fluid_tension_coefficients,
             force.boundary_tension_coefficients,
         )
-    raise NotImplementedError(
-        f"{type(force).__name__} is not ported to salva_tpu_torch: its "
-        "dense layout runs the viscosity and surface-tension forces"
-    )
+    return None
 
 
-def to_dense_forces(force_set) -> Tuple:
-    """Convert a whole ForceSet (the empty set converts to ``()``)."""
-    return tuple(to_dense_force(force) for force in force_set)
+def to_dense_forces(force_set) -> Optional[Tuple]:
+    """Convert a whole ForceSet (the empty set converts to ``()``), or
+    None if a member has no dense form."""
+    out = []
+    for force in force_set:
+        dense = to_dense_force(force)
+        if dense is None:
+            return None
+        out.append(dense)
+    return tuple(out)

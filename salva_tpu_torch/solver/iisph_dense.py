@@ -21,10 +21,11 @@ iteration count follows the JAX loop exactly: the counter increments on
 every iteration, including the one that finds convergence, and that
 iteration's pressures are kept.
 
-The dense non-pressure forces (``dense_forces``: XSPH and artificial
-viscosity) act in predict_advection on the substep's start velocities.
-Not ported: precomputed particle-wise accelerations (``a_pw``, the
-elasticity path) and the multi-device halo path.
+The dense non-pressure forces (``dense_forces``: the viscosity and
+surface-tension pair forces, and the elasticity as a
+``ParticleWiseForce``) act in predict_advection on the substep's start
+velocities. Not ported: the precomputed particle-wise accelerations of
+the multi-device path (``a_pw``) and its halo exchange.
 """
 
 from __future__ import annotations
@@ -43,11 +44,12 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
                         spec_f: dg.DenseGridSpec, spec_b: dg.DenseGridSpec,
                         dense_forces=()):
     """Build the dense-layout IISPH substep
-    ``substep(fluids, boundaries, pressures, dt, gravity)``."""
+    ``substep(fluids, boundaries, pressures, es, dt, gravity)`` (``es``:
+    the elasticity state a ``ParticleWiseForce`` reads)."""
     dim = sim.dim
 
     def substep(fluids: FluidsState, boundaries: BoundariesState,
-                pressures, dt, gravity):
+                pressures, es, dt, gravity):
         dev = fluids.positions.device
         dt = torch.as_tensor(dt, dtype=torch.float32, device=dev)
         inv_dt = torch.where(dt > 0, 1.0 / dt, 0.0)
@@ -63,7 +65,7 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
         np_Fb = None
         if dense_forces:
             A, np_Fb = ctx.apply_forces(dense_forces, fluids, ctx.V, dt,
-                                        inv_dt, A)
+                                        inv_dt, A, es)
         DV = A * dt
 
         rho_safe = torch.clamp(ctx.rho, min=1e-12)

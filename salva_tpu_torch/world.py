@@ -11,14 +11,17 @@ the caller asks for the CPU with ``device="cpu"``. On CUDA the four hot
 pair passes run as the hand kernels of ``ops/pair.py``; on the CPU as
 their plain versions.
 
-Solvers: DFSPH and IISPH on the dense layout and on the brute all-pairs
-tier (``layout="brute"``, and ``"auto"`` on a GPU for small worlds), with
-every SPH kernel choice (``SimConfig.kernel_density`` /
-``kernel_gradient``) and the XSPH, artificial-viscosity, DFSPH-viscosity
-and Akinci 2013 / WCSPH / He 2014 surface-tension non-pressure forces.
-Not ported (raise ``NotImplementedError``): the gather layout, coupling,
-the elasticity and custom forces (both wait for the gather layout),
-emitters and deletion.
+Solvers: DFSPH and IISPH on three layouts: the dense layout over a
+static ``domain``, the brute all-pairs tier (``layout="brute"``, and
+``"auto"`` on a GPU for small worlds), and the gather layout (Morton grid
+and [N, K] neighbour tables; ``layout="gather"``, and what ``"auto"``
+resolves to without a domain, for a mostly empty grid, or when a fluid
+carries a ``CustomForce``). Every SPH kernel choice
+(``SimConfig.kernel_density`` / ``kernel_gradient``), and the XSPH,
+artificial-viscosity, DFSPH-viscosity, Akinci 2013 / WCSPH / He 2014
+surface-tension, Becker 2009 elasticity and custom non-pressure forces.
+Not ported (raise ``NotImplementedError``): coupling, emitters and
+deletion.
 """
 
 from __future__ import annotations
@@ -33,12 +36,24 @@ import torch
 from . import forces as force_specs
 from .config import DFSPHConfig, NeighborConfig, SimConfig, particle_volume
 from .counters import Counters
+from .geometry import build_grid, evaluate_contacts, find_neighbors
 from .geometry import dense_grid as dg
+from .geometry.neighbors import GroupInfo
 from .kernels import get_kernel
 from .object.interaction_groups import InteractionGroups
 from .object.state import BoundariesState, FluidsState
 from .solver.dense_common import fold_pairs
-from .solver.nonpressure import ForceSet, merge_per_fluid
+from .solver.elasticity import (
+    Becker2009ElasticityForce,
+    build_elasticity_state,
+    elasticity_coefficients,
+)
+from .solver.nonpressure import (
+    CustomForce,
+    ForceSet,
+    MaskedCustomForce,
+    merge_per_fluid,
+)
 from .solver.surface_tension import (
     Akinci2013SurfaceTensionForce,
     He2014SurfaceTensionForce,
@@ -116,11 +131,8 @@ class _BoundaryRecord:
     groups: InteractionGroups
 
 
-# The non-pressure forces a fluid may carry (``forces.py``): the dense
-# layout runs these. The others raise in ``add_fluid``: the elasticity and
-# ``CustomForce`` wait for the gather layout (the elasticity's rest
-# contacts come from its neighbour search, and a custom force's ``apply``
-# reads its step context).
+# The non-pressure forces a fluid may carry: those of ``forces.py`` and
+# user subclasses of ``CustomForce`` (which run on the gather layout).
 _PORTED_FORCES = (
     force_specs.XSPHViscosity,
     force_specs.ArtificialViscosity,
@@ -128,6 +140,8 @@ _PORTED_FORCES = (
     force_specs.Akinci2013SurfaceTension,
     force_specs.WCSPHSurfaceTension,
     force_specs.He2014SurfaceTension,
+    force_specs.Becker2009Elasticity,
+    CustomForce,
 )
 
 
@@ -244,6 +258,10 @@ class LiquidWorld:
         self._fluid_records: List[_FluidRecord] = []
         self._boundary_records: List[_BoundaryRecord] = []
         self._force_set: Optional[ForceSet] = None
+        # Becker 2009 rest state (rest contacts from the gather search),
+        # rebuilt before the next step when particles change.
+        self._elasticity_state = None
+        self._elasticity_dirty = False
 
         # Boundary volumes must be recomputed after any boundary change.
         self._boundary_dirty = True
@@ -294,6 +312,8 @@ class LiquidWorld:
         self._fluid_slot_owner = np.concatenate(
             [self._fluid_slot_owner, np.full(new_cap - cap, -1, np.int64)]
         )
+        if self._elasticity_state is not None:
+            self._elasticity_dirty = True
         if self._solver_state is not None:
             st = self._solver_state
             grown = torch.zeros((new_cap,) + tuple(st.shape[1:]),
@@ -339,10 +359,10 @@ class LiquidWorld:
         for force in fluid.nonpressure_forces:
             if not isinstance(force, _PORTED_FORCES):
                 raise NotImplementedError(
-                    f"{type(force).__name__} is not ported to "
-                    "salva_tpu_torch: the elasticity and custom forces "
-                    "wait for the gather layout; fluids may carry "
+                    f"{type(force).__name__} is not a non-pressure force "
+                    "of salva_tpu_torch; fluids may carry "
                     + ", ".join(f.__name__ for f in _PORTED_FORCES)
+                    + " subclasses"
                 )
         handle = len(self._fluid_records)
         self._fluid_records.append(
@@ -362,6 +382,8 @@ class LiquidWorld:
             self._write_fluid_particles(
                 handle, fluid.positions, fluid.velocities
             )
+        if self._has_elasticity(handle):
+            self._elasticity_dirty = True
         return handle
 
     def add_boundary(self, boundary: Boundary) -> int:
@@ -454,17 +476,29 @@ class LiquidWorld:
 
     # -- force-set assembly -------------------------------------------------
 
+    def _has_elasticity(self, handle: int) -> bool:
+        return any(
+            isinstance(f, force_specs.Becker2009Elasticity)
+            for f in self._fluid_records[handle].nonpressure_forces
+        )
+
     def _build_force_set(self) -> ForceSet:
         """Merge the fluids' force instances into one configuration per
-        force type, one coefficient per fluid (``salva_tpu.world``'s
-        ``_build_force_set``, for the forces the port runs)."""
+        force type, one coefficient per fluid; each custom force is
+        wrapped to act on its own fluid only (``salva_tpu.world``'s
+        ``_build_force_set``)."""
         nf = self.num_fluids
         by_type: Dict[type, Dict[int, object]] = {}
+        custom: List = []
         for fid, rec in enumerate(self._fluid_records):
             for inst in rec.nonpressure_forces:
-                by_type.setdefault(type(inst), {})[fid] = inst
+                if isinstance(inst, CustomForce):
+                    flags = tuple(1 if i == fid else 0 for i in range(nf))
+                    custom.append(MaskedCustomForce(inst, flags))
+                else:
+                    by_type.setdefault(type(inst), {})[fid] = inst
 
-        merged: List = []
+        merged: List = list(custom)
         for ftype, inst in by_type.items():
             def col(attr, default=0.0):
                 return merge_per_fluid(inst, nf, attr, default)
@@ -518,13 +552,69 @@ class LiquidWorld:
                         col("boundary_tension_coefficient"),
                     )
                 )
+            elif ftype is force_specs.Becker2009Elasticity:
+                coeffs = [
+                    elasticity_coefficients(inst[i].young_modulus,
+                                            inst[i].poisson_ratio)
+                    if i in inst else (0.0, 0.0, 0.0)
+                    for i in range(nf)
+                ]
+                merged.append(
+                    Becker2009ElasticityForce(
+                        tuple(c[0] for c in coeffs),
+                        tuple(c[1] for c in coeffs),
+                        tuple(c[2] for c in coeffs),
+                        tuple(
+                            1 if i in inst and inst[i].nonlinear_strain else 0
+                            for i in range(nf)
+                        ),
+                        tuple(1 if i in inst else 0 for i in range(nf)),
+                    )
+                )
         return ForceSet(tuple(merged))
+
+    def _rebuild_elasticity_state(self):
+        """Capture the rest state of every elasticity-carrying fluid
+        (`becker2009_elasticity.rs:84-113`): a same-fluid neighbour table
+        of the current positions from the gather search (zero group masks
+        fail every group test, so only same-model pairs pass)."""
+        self._elasticity_dirty = False
+        elastic = [fid for fid in range(self.num_fluids)
+                   if self._has_elasticity(fid)]
+        if not elastic:
+            self._elasticity_state = None
+            return
+        fl = self.fluids_state
+        is_elastic = torch.isin(
+            fl.fluid_id,
+            torch.tensor(elastic, dtype=torch.int32, device=self.device),
+        ) & fl.alive
+        h, dim = self.h, self.dim
+        nbcfg = self.sim.neighbors
+        zero_groups = GroupInfo(torch.zeros_like(fl.memberships),
+                                torch.zeros_like(fl.filter), fl.fluid_id)
+        grid = build_grid(fl.positions, is_elastic, h, dim)
+        nl = find_neighbors(
+            fl.positions, is_elastic, zero_groups,
+            grid, fl.positions, is_elastic, zero_groups,
+            h, dim, nbcfg.max_neighbors, nbcfg.max_candidates,
+            same_model_always=True, query_chunk=nbcfg.query_chunk,
+        )
+        contacts = evaluate_contacts(
+            fl.positions, fl.positions, nl, h, dim,
+            w_fn=get_kernel(self.sim.kernel_density)[0],
+            dw_fn=get_kernel(self.sim.kernel_gradient)[1],
+        )
+        self._elasticity_state = build_elasticity_state(fl, contacts,
+                                                        is_elastic)
 
     # -- stepping ----------------------------------------------------------
 
     def _prepare(self):
         if self._force_set is None:
             self._force_set = self._build_force_set()
+        if self._elasticity_dirty:
+            self._rebuild_elasticity_state()
         expected = solver_state_shape(
             self.solver_config, self.fluids_state.capacity, self.dim
         )
@@ -546,7 +636,9 @@ class LiquidWorld:
         and no grid machinery. The dense layout auto-tunes uniform
         particles, cap tier, grid window and sparse fb table; with
         ``layout="auto"`` a grid far larger than the particle capacity
-        resolves to the gather layout (not ported: the step raises)."""
+        resolves to the gather layout, as does a world without a domain
+        (and, in ``step._dense_config``, one carrying a force with no
+        dense form)."""
         sim = self.sim
         if sim.domain is not None and self._brute_active():
             uniform = self._uniform_particles()
@@ -803,7 +895,8 @@ class LiquidWorld:
         """Whether steps run the brute all-pairs tier (layout="brute",
         or "auto" on a CUDA world with capacities under the brute
         ceilings, as the reference does on an accelerator; a CPU world
-        keeps the grid)."""
+        keeps the grid). It needs the dense machinery: with a force that
+        has no dense form, "auto" stays on the gather layout."""
         sim = self.sim
         if sim.domain is None or sim.layout not in ("auto", "brute"):
             return False
@@ -815,7 +908,13 @@ class LiquidWorld:
                 or self.boundaries_state.capacity > sim.brute_max_boundary
             ):
                 return False
-        return self.solver_config.kind in ("dfsph", "iisph")
+        if self.solver_config.kind not in ("dfsph", "iisph"):
+            return False
+        from .solver.forces_dense import to_dense_forces
+
+        if self._force_set is None:
+            self._force_set = self._build_force_set()
+        return to_dense_forces(self._force_set) is not None
 
     def _spill_supported(self) -> bool:
         """The dense+spill structure is not ported: its auto tier must
@@ -923,6 +1022,7 @@ class LiquidWorld:
                 self.fluids_state,
                 self.boundaries_state,
                 self._solver_state,
+                self._elasticity_state,
                 sub_dt,
                 gravity,
             )

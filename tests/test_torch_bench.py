@@ -5,8 +5,8 @@ the plain passes (``--device cpu``), gates them, skips the rows its
 budget cannot afford with a marker, and prints one JSON line, last on
 stdout, with the fields ``bench.py`` prints and the per-row stamps.
 ``BENCH_LAYOUT=brute``: on the CPU ``layout="auto"`` never resolves to the
-brute tier and resolves this toy scene to the gather layout, which the
-port does not run; the brute rows and ``dfsph_4k_dense`` (always the
+brute tier and resolves this toy scene to the gather layout, which is no
+row of the benchmark; the brute rows and ``dfsph_4k_dense`` (always the
 grid) then cover both tiers.
 """
 

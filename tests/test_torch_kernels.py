@@ -540,9 +540,10 @@ def test_hoist_fb_with_no_columns_is_zero_and_not_counted(cuda):
     assert all(int(torch.count_nonzero(o)) == 0 for o in out)
 
 
-def _small_dam_world(device, layout):
+def _small_dam_world(device, layout, forces=()):
     """``tests/test_brute.py``'s ``_dam_world`` at n=5 (125 particles on
-    a lattice 2 radii apart, falling at 2 m/s over a sampled floor)."""
+    a lattice 2 radii apart, falling at 2 m/s over a sampled floor), the
+    fluid carrying ``forces``."""
     from salva_tpu_torch import shapes
     from salva_tpu_torch.sampling import shape_surface_sample
     from salva_tpu_torch.world import Boundary, Fluid, LiquidWorld
@@ -557,7 +558,7 @@ def _small_dam_world(device, layout):
     pos[:, 1] += 0.4
     vel = np.zeros_like(pos)
     vel[:, 1] = -2.0
-    w.add_fluid(Fluid(pos, velocities=vel))
+    w.add_fluid(Fluid(pos, velocities=vel, nonpressure_forces=list(forces)))
     floor = shape_surface_sample(shapes.Cuboid((0.8, 0.1, 0.8)), r, 3)
     floor[:, 1] -= 0.1
     w.add_boundary(Boundary(floor))
@@ -593,3 +594,30 @@ def test_full_stencil_grid_runs_the_kernels(cuda):
         w.step(1.0 / 200.0, (0.0, -9.81, 0.0))
     for name in ("k_pass", "t_pass", "hoist_ff", "hoist_fb"):
         assert pair.LAUNCHES[name] > 0, name
+
+
+def test_gather_step_repeats_bitwise_and_matches_the_cpu(cuda):
+    """The gather layout on the card (plain PyTorch, no float atomics: the
+    boundary-force scatter sums in table order): 24 steps of a small dam
+    world with XSPH (its boundary feedback scatters once the block
+    reaches the floor, after ~17 steps) are bitwise repeatable, and equal
+    the same steps of a CPU copy of the world within 2e-6 m (positions)
+    with identical iterations."""
+    from salva_tpu_torch import forces
+
+    runs = []
+    for device in (cuda, cuda, "cpu"):
+        w = _small_dam_world(device, "gather",
+                             [forces.XSPHViscosity(0.5, 1.0)])
+        iters = []
+        for _ in range(24):
+            w.step(1.0 / 200.0, (0.0, -9.81, 0.0))
+            s = w.last_diagnostics.solver
+            iters.append((s.pressure_iters, s.divergence_iters))
+        runs.append((iters, w.fluids_state.positions.cpu(),
+                     w.boundaries_state.forces.cpu()))
+    (it0, p0, f0), (it1, p1, f1), (it_c, p_c, _) = runs
+    assert it0 == it1 == it_c
+    assert torch.equal(p0, p1) and torch.equal(f0, f1)
+    assert float(f0.abs().max()) > 0.0
+    torch.testing.assert_close(p0, p_c, rtol=0, atol=2e-6)

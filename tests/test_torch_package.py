@@ -1,7 +1,8 @@
 """Package-level guarantees of the PyTorch port: it imports neither jax nor
 flax, the default device is the card (no silent CPU fallback), CPU runs
 never launch a kernel, the kernel wrappers validate their operands,
-unported paths raise, and the state converters round-trip."""
+unported paths raise (and the gather layout, the elasticity and custom
+forces, ported since, run), and the state converters round-trip."""
 
 import os
 import subprocess
@@ -143,30 +144,36 @@ def test_wrappers_reject_bad_operands():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError):
-        w = st.LiquidWorld(dim=2, layout="gather", device="cpu")
-        w.add_fluid(st.Fluid(np.zeros((4, 2), np.float32)))
-        w.step(0.01, (0.0, -9.81))
+    # The gather layout steps on the CPU (its parity with the JAX package
+    # is held by tests/test_torch_gather_*.py).
+    w = st.LiquidWorld(dim=2, layout="gather", device="cpu")
+    w.add_fluid(st.Fluid(np.zeros((4, 2), np.float32)))
+    w.step(0.01, (0.0, -9.81))
+    assert bool(torch.isfinite(w.fluids_state.positions).all())
     with pytest.raises(NotImplementedError):
         _tiny_world().add_fluid(
             st.Fluid(np.zeros((4, 2), np.float32),
                      nonpressure_forces=[object()])
         )
-    # The forces the port does not run yet are refused by name: both
-    # wait for the gather layout.
+    # The elasticity and custom forces are accepted; a custom force has no
+    # dense form, so the dense layout refuses it when it steps.
     from salva_tpu_torch.solver.nonpressure import CustomForce
 
     class Push(CustomForce):
-        pass
+        def apply(self, ctx):
+            return torch.ones_like(ctx.fluids.positions)
 
-    for force, name in ((forces.Becker2009Elasticity(1e5, 0.3),
-                         "Becker2009Elasticity"), (Push(), "Push")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{name}.*gather layout"):
-            _tiny_world().add_fluid(
-                st.Fluid(np.zeros((4, 2), np.float32),
-                         nonpressure_forces=[force])
-            )
+    w = _tiny_world()
+    w.add_fluid(st.Fluid(np.zeros((4, 2), np.float32) + 0.5,
+                         nonpressure_forces=[
+                             forces.Becker2009Elasticity(1e5, 0.3)]))
+    w.step(0.01, (0.0, -9.81))
+    assert w._elasticity_state is not None
+    w = _tiny_world()
+    w.add_fluid(st.Fluid(np.zeros((4, 2), np.float32) + 0.5,
+                         nonpressure_forces=[Push()]))
+    with pytest.raises(ValueError, match="no dense implementation"):
+        w.step(0.01, (0.0, -9.81))
     with pytest.raises(NotImplementedError):
         _tiny_world().step_with_coupling(0.01, (0.0, -9.81), object())
     for flag in (dict(dense_spill_columns=512), dict(dense_compact=True),
