@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of salva_tpu_torch, the PyTorch + CUDA port.
 
-Drives the port's main paths (``PATHS``) — the 3D dam break of
+Drives the port's main paths (``PATHS``; the coupled path and the
+reference scenes of phases 9-12) — the 3D dam break of
 ``bench.py`` at 97,336 particles, on the dense layout solved with DFSPH
 and with IISPH, without and with the fluid's XSPH and
 artificial-viscosity forces, under the poly6 / spiky SPH kernels, with
@@ -85,7 +86,33 @@ phases:
    (bitwise equal, no kernel launched: the tier runs the full-stencil
    plain folds, as the JAX package runs no Pallas kernel there), against
    the same world at ``layout="dense"`` through the kernels: exact step-1
-   contact counts, identical iterations, matching positions.
+   contact counts, identical iterations, matching positions;
+9. 2D on the card (``phase_twin_2d``): ``scenes.basic2`` (1,110
+   particles, three coupled dynamic bodies) pinned to the dense layout,
+   10 steps through the kernels (its launch counts: every main-path
+   kernel and the rigid solve) and 10 through the plain versions,
+   identical iterations, positions within PATH_POS_ATOL; then phase 5's
+   cubic checks at dim = 2 at its state (k_pass, t_pass, both hoists on
+   both boundary layouts, expand: each output within its peak's
+   tolerance, pair counts exact, planted faults caught, times, bounds);
+10. the rigid bodies' contact solve (``csrc/rigid_solve.cu``) against its
+   plain version on basic2's contact table (its bodies set into the
+   ground), with planted faults, times and the bound;
+11. the coupled main path (``phase_coupled_harness``):
+   ``scenes.harness_basic3(nparticles=40)``, 64,000 particles in
+   basic3's static-sampled walls on the device coupling path, 10 + 20
+   steps: ms/step, device ms/step and busy share, iterations, the
+   overflow gate, layout, caps and window, the two coupling counters per
+   step, the fluid inside the walls; a host-coupling twin and a device
+   twin 3 steps each, identical iterations and contacts, positions
+   within PATH_POS_ATOL;
+12. every ``scenes.SCENES`` entry at its published size, 20 steps through
+   ``scenes.run`` (``phase_scenes``: layout, coupling path, ms/step,
+   device ms/step and busy, counts, iterations, body poses; finite
+   state; faucet3's emission schedule and its deletion below y = -2
+   counted exactly; basic2 / layers2's body boundaries at their poses;
+   the custom forces' attractors), and basic2 one step on each coupling
+   path.
 
 Usage, from the repository root:  python3 chip_smoke.py
 Exits non-zero without a result line when no CUDA device is present or
@@ -93,13 +120,16 @@ any phase fails. The last line of stdout is one JSON object:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's name and power limit, and the line
 before that the kernels' JSON record (``launches``: the count of the
-run named by ``launches_path`` — the DFSPH forces path, and for
+run named by ``launches_path`` — the DFSPH forces path; for
 ``k_pass_v2``, which no main path launches, its phase-5 checks and
-timing; ``launches_by_path``: every main path's, the brute paths' and
-the gather paths' zeros included — a gather path's ``expand`` count is
-its world's one-time full-extent boundary-volume pass in its first step;
-``kernel_names``: the SPH kernel names held in phase 5, with their
-numbers under ``by_kernel``).
+timing; for ``rigid_solve``, basic2's 20 scene steps
+(``scenes_basic2``); ``launches_by_path``: every main path's, the brute
+paths' and the gather paths' zeros included — a gather path's ``expand``
+count is its world's one-time full-extent boundary-volume pass in its
+first step; ``kernel_names``: the SPH kernel names held in phase 5, with
+their numbers under ``by_kernel``; ``dim2``: the kernel's phase-9
+numbers at dim = 2, with the 2D twin's launches). The coupled phases'
+numbers are logged on one ``[coupled] summary`` JSON line.
 """
 
 import json
@@ -249,6 +279,9 @@ GATHER_ONE_STEP = {
 HOIST_PAIRS = (("cubic", "cubic"), ("poly6", "spiky"),
                ("viscosity", "viscosity"))
 REPLACES = {
+    # The device coupling's sequential-impulse solve, a lax.scan the JAX
+    # package leaves to XLA (no Pallas kernel).
+    "rigid_solve": "salva_tpu/coupling/device_pipeline.py:347",
     "k_pass": "salva_tpu/ops/pallas_pair.py:707",
     "t_pass": "salva_tpu/ops/pallas_pair.py:225",
     "hoist_ff": "salva_tpu/ops/pallas_pair.py:382",
@@ -258,6 +291,7 @@ REPLACES = {
 }
 SOURCES = {name: "salva_tpu_torch/csrc/pair_passes.cu" for name in REPLACES}
 SOURCES["expand"] = "salva_tpu_torch/csrc/expand.cu"
+SOURCES["rigid_solve"] = "salva_tpu_torch/csrc/rigid_solve.cu"
 # The kernels every main path launches; k_pass_v2 runs on none (as in
 # the JAX package, no solver calls it): phase 5 holds and times it.
 MAIN_PATH_KERNELS = ("k_pass", "t_pass", "hoist_ff", "hoist_fb", "expand")
@@ -278,6 +312,30 @@ OPS_DWR = {"cubic": 14, "poly6": 8, "spiky": 6, "viscosity": 12}
 OPS_W = {"cubic": 11, "poly6": 6, "spiky": 5, "viscosity": 11}
 OPS_ACC = {"k_pass": 8, "t_pass": 8, "hoist_ff": 24, "hoist_fb": 33,
            "k_pass_v2": 8}
+# Float32 operations of one contact in one iteration of the rigid solve,
+# counted from csrc/rigid_solve.cu with its friction branch taken (the
+# normal impulse ~70 in 2D, the friction impulse ~80; 3D's crosses and
+# world inertias ~2.8x that).
+OPS_RIGID_CONTACT = {2: 150, 3: 420}
+# The coupled paths. harness_basic3 (salva_tpu/scenes.py:157-199,
+# examples3d/harness_basic3.rs) at nparticles=40: 40^3 = 64,000 particles
+# in basic3's box of static-sampled fixed cuboids (ground and four
+# walls, inner faces at +-2.3 m) with ArtificialViscosity(1.0, 0.0), on
+# the device coupling path; (warm-up, timed) steps; its host-coupling
+# twin's steps. Every SCENES entry at its published size runs
+# SCENE_STEPS steps; basic2 pinned to the dense layout (the 2D twin)
+# TWIN_2D_STEPS through the kernels and as many through the plain
+# versions.
+HARNESS_N = 40
+HARNESS_STEPS = (10, 20)
+HARNESS_TWIN_STEPS = 3
+WALL_INNER = 2.3
+SCENE_STEPS = 20
+TWIN_2D_STEPS = 10
+# Rigid bodies: the solve kernel vs its plain version (velocities, m/s
+# and rad/s), and the two coupling paths after one step of basic2 (body
+# state): float32 summation order and FMA contraction only.
+RIGID_TOL = 1e-5
 
 
 def ops_within(name, kd, kg):
@@ -296,21 +354,22 @@ def log(msg):
 
 
 def reset_counts(pair):
-    """Set every kernel's launch count to 0 (pair passes and binning), and
-    the iterative forces' iteration counts."""
+    """Set every kernel's launch count to 0 (pair passes, binning, rigid
+    solve), and the iterative forces' iteration counts."""
     from salva_tpu_torch import counters
-    from salva_tpu_torch.ops import binning
+    from salva_tpu_torch.ops import binning, rigid
 
     pair.reset_launches()
     binning.reset_launches()
+    rigid.reset_launches()
     counters.reset_force_iterations()
 
 
 def read_counts(pair):
     """Every kernel's launch count since the last ``reset_counts``."""
-    from salva_tpu_torch.ops import binning
+    from salva_tpu_torch.ops import binning, rigid
 
-    return dict(pair.LAUNCHES, **binning.LAUNCHES)
+    return dict(pair.LAUNCHES, **binning.LAUNCHES, **rigid.LAUNCHES)
 
 
 def force_iterations():
@@ -698,18 +757,19 @@ def phase_implicit_visc(pair, world):
                 apply_s=apply_s, apply_peak=peak)
 
 
-def busy_share(world, steps=2):
-    """``torch.profiler`` over ``steps`` steps of ``world``: (device time
-    summed over kernels and fills / profiled wall clock, device ms per
-    step); (None, None) when the profile came back without device
-    events."""
+def busy_share(world, steps=2, step=None):
+    """``torch.profiler`` over ``steps`` steps of ``world`` (``step()``,
+    by default ``world.step``): (device time summed over kernels and
+    fills / profiled wall clock, device ms per step); (None, None) when
+    the profile came back without device events."""
+    step = step or (lambda: world.step(DT, GRAVITY))
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=act) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            world.step(DT, GRAVITY)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device_us = sum(e.self_device_time_total for e in prof.key_averages()
@@ -1125,10 +1185,47 @@ def hold_without_s2(label, names, out, ref, tol):
     return max(errs.values())
 
 
-def phase_kernels(pair, world):
+def k_pass_v2_check(pair, results, spec, h, dim, P, M, K, counts, n_live,
+                    C, n_eval, plain_k):
+    """Phase 5's k_pass_v2 check (no main path runs it): held to k_pass's
+    plain version with its planted group fault, timed; its record goes in
+    ``results``. Returns its planted fault (short counts, copy_back)."""
+    ones = torch.nonzero(counts % 8 == 1)[:, 0]
+    assert ones.numel() > 0, "no cell of 8 g + 1 particles"
+    short_v2, copy_v2, cell_v2 = drop_last(counts, ones)
+
+    def kern_v2(f):
+        return pair.k_pass_v2(spec, h, dim, "cubic", P, M, K,
+                              short_v2 if f else counts)
+
+    log(f"[kernels] k_pass_v2: planted fault drops the last particle of "
+        f"cell {cell_v2} ({int(counts[cell_v2])} particles)")
+    # No main path launches k_pass_v2: its launches are this check's.
+    reset_counts(pair)
+    out, err = hold_kernel("k_pass_v2", "k_pass_v2", kern_v2, plain_k,
+                           KT_TOL, copy_v2)
+    ms = cuda_ms(lambda: kern_v2(False), 50)
+    one = call_ms(lambda: kern_v2(False), 20)
+    check_launches = read_counts(pair)["k_pass_v2"]
+    plain_ms = cuda_ms(plain_k, 10)
+    results["k_pass_v2"] = dict(max_abs_err=err, ms=ms, call_ms=one,
+                                plain_ms=plain_ms,
+                                check_launches=check_launches,
+                                read=live_bytes([P, M, K], n_live) + 4 * C,
+                                written=nbytes(out))
+    log(f"[kernels] k_pass_v2: kernel {ms:.4f} ms device time ({one:.4f} ms "
+        f"a call; k_pass {results['k_pass']['ms']:.4f} ms), plain "
+        f"{plain_ms:.4f} ms; {n_eval / ms / 1e6:.4g} G candidate pairs/s; "
+        f"{check_launches} launches in this check and its timing")
+    return short_v2, copy_v2
+
+
+def phase_kernels(pair, world, full=True):
     """Phase 5: each kernel vs its plain version at the state of the
     DFSPH main path's world after its 30 steps (the shapes the main path
-    gives it)."""
+    gives it). ``full=False`` (the 2D twin's state): the cubic checks of
+    k_pass, t_pass, both hoists and expand only (no k_pass_v2, no other
+    SPH kernel names)."""
     from salva_tpu_torch.geometry import dense_grid as tdg
 
     ctx = step_ctx(world)
@@ -1136,10 +1233,11 @@ def phase_kernels(pair, world):
     C = spec.num_cells
     occ = int(counts.max())
     n_live = int(counts.sum())
-    log(f"[kernels] state after 30 steps: window dims {spec.dims} "
+    log(f"[kernels] state of {dim}D world: window dims {spec.dims} "
         f"({C} cells), cap {spec.cap}, max cell occupancy {occ}, live "
         f"slots {n_live} of {spec.cap * C}")
-    assert occ > 8, f"no cell above 8 particles (max {occ})"
+    if full:
+        assert occ > 8, f"no cell above 8 particles (max {occ})"
     # Candidate pairs per fluid-fluid pass: each live slot visits every
     # particle of its 3^dim neighbor cells.
     c64 = counts.long()
@@ -1174,7 +1272,12 @@ def phase_kernels(pair, world):
         f"{int(counts[cell_t])} particles")
 
     P, M = ctx.P, ctx.M
-    K = (ctx.rho * 1e-6 * ctx.maskf).contiguous()
+    # K of the size the solver feeds k_pass (a stiffness over the rest
+    # density): 1e-6 rho at the dam break's rest density of 1,000; scaled
+    # to 1 at its peak in basic2 (rest density 1), where 1e-6 rho would
+    # put k_pass's output under the tolerance's floor.
+    K = (ctx.rho * (1e-6 if full else 1.0 / float(ctx.rho.max()))
+         * ctx.maskf).contiguous()
     Q = ctx.V.contiguous()
     # Each entry: kernel (planted fault or not), plain version, tolerance,
     # the float input planes each live slot of which the pass must read,
@@ -1222,10 +1325,15 @@ def phase_kernels(pair, world):
             ms0 = cuda_ms(lambda: pair.hoist_ff(
                 spec, h, dim, "cubic", "cubic", P, M, counts,
                 need_s2=False), 50)
-            n_dev = device_launches(lambda: kern(False))
             log(f"[kernels] hoist_ff: {ms0:.4f} ms device time without s2 "
-                f"(the DFSPH setting); {n_dev} device launch(es) a call")
-            assert n_dev == 1, f"hoist_ff: {n_dev} launches a call"
+                f"(the DFSPH setting)")
+            if full:
+                # A call's launches do not depend on dim; after earlier
+                # profiler sessions a profile of one call may come back
+                # without device events (ROADMAP Queue 3, item 12).
+                n_dev = device_launches(lambda: kern(False))
+                log(f"[kernels] hoist_ff: {n_dev} device launch(es) a call")
+                assert n_dev == 1, f"hoist_ff: {n_dev} launches a call"
         # Reads: the live slots of each input plane and every column's
         # count; writes: every output element once.
         results[name] = dict(max_abs_err=err, ms=ms, call_ms=one,
@@ -1239,33 +1347,10 @@ def phase_kernels(pair, world):
     # planted fluid-side fault drops the one particle of a group: the
     # fullest cell of 8 g + 1 particles is given 8 g (its last group dies).
     # Its plain version is k_pass's; it shares k_pass's bound.
-    ones = torch.nonzero(counts % 8 == 1)[:, 0]
-    assert ones.numel() > 0, "no cell of 8 g + 1 particles"
-    short_v2, copy_v2, cell_v2 = drop_last(counts, ones)
-
-    def kern_v2(f):
-        return pair.k_pass_v2(spec, h, dim, "cubic", P, M, K,
-                              short_v2 if f else counts)
-
-    log(f"[kernels] k_pass_v2: planted fault drops the last particle of "
-        f"cell {cell_v2} ({int(counts[cell_v2])} particles)")
-    # No main path launches k_pass_v2: its launches are this check's.
-    reset_counts(pair)
-    out, err = hold_kernel("k_pass_v2", "k_pass_v2", kern_v2, ff["k_pass"][1],
-                           KT_TOL, copy_v2)
-    ms = cuda_ms(lambda: kern_v2(False), 50)
-    one = call_ms(lambda: kern_v2(False), 20)
-    check_launches = read_counts(pair)["k_pass_v2"]
-    plain_ms = cuda_ms(ff["k_pass"][1], 10)
-    results["k_pass_v2"] = dict(max_abs_err=err, ms=ms, call_ms=one,
-                                plain_ms=plain_ms,
-                                check_launches=check_launches,
-                                read=live_bytes([P, M, K], n_live) + 4 * C,
-                                written=nbytes(out))
-    log(f"[kernels] k_pass_v2: kernel {ms:.4f} ms device time ({one:.4f} ms "
-        f"a call; k_pass {results['k_pass']['ms']:.4f} ms), plain "
-        f"{plain_ms:.4f} ms; {n_eval / ms / 1e6:.4g} G candidate pairs/s; "
-        f"{check_launches} launches in this check and its timing")
+    if full:
+        short_v2, copy_v2 = k_pass_v2_check(pair, results, spec, h, dim, P,
+                                            M, K, counts, n_live, C, n_eval,
+                                            ff["k_pass"][1])
     for name in results:
         r = results[name]
         read, written = r.pop("read"), r.pop("written")
@@ -1284,17 +1369,20 @@ def phase_kernels(pair, world):
     # poly6 / spiky instantiations (the non-cubic main paths'). Bounds
     # count each kernel's own float32 operations (ops_within).
     passes = {"k_pass": (K, pair.k_pass_plain, short_k, copy_k),
-              "t_pass": (Q, pair.t_pass_plain, short_t, copy_t),
-              "k_pass_v2": (K, pair.k_pass_plain, short_v2, copy_v2)}
+              "t_pass": (Q, pair.t_pass_plain, short_t, copy_t)}
+    if full:
+        passes["k_pass_v2"] = (K, pair.k_pass_plain, short_v2, copy_v2)
     by_kernel = {name: {} for name in
-                 ("k_pass", "t_pass", "k_pass_v2", "hoist_ff", "hoist_fb")}
+                 ("k_pass", "t_pass", "k_pass_v2", "hoist_ff", "hoist_fb")
+                 if name in results or name == "hoist_fb"}
     rw = {name: (results[name]["read_bytes"], results[name]["written"])
-          for name in ("k_pass", "t_pass", "k_pass_v2", "hoist_ff")}
-    for name in ("k_pass", "t_pass", "k_pass_v2"):
+          for name in ("k_pass", "t_pass", "k_pass_v2", "hoist_ff")
+          if name in results}
+    for name in passes:
         r = results[name]
         by_kernel[name]["cubic"] = {k: r[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
-    for kg in KERNEL_NAMES[1:]:
+    for kg in (KERNEL_NAMES[1:] if full else ()):
         for name, (X, plain_fn, short, copy) in passes.items():
             def kern(f=False, name=name, X=X, short=short, kg=kg):
                 return getattr(pair, name)(spec, h, dim, kg, P, M, X,
@@ -1324,7 +1412,7 @@ def phase_kernels(pair, world):
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
     cnt_cubic = pair.hoist_ff(spec, h, dim, "cubic", "cubic", P, M,
                               counts)[-1]
-    for kd, kg in HOIST_PAIRS[1:]:
+    for kd, kg in (HOIST_PAIRS[1:] if full else ()):
         def kern(f=False, s2=True, kd=kd, kg=kg):
             return pair.hoist_ff(spec, h, dim, kd, kg, P, M,
                                  short_ff if f else counts, need_s2=s2)
@@ -1448,16 +1536,18 @@ def phase_kernels(pair, world):
         # time above holds both; the fill alone, and the launches a call.
         fill_ms = cuda_ms(lambda: torch.zeros(
             (dim + 5,) + tuple(P.shape[1:]), device="cuda"), 50)
-        n_dev = device_launches(lambda: kern(False))
+        n_dev = device_launches(lambda: kern(False)) if full else None
         log(f"[kernels] hoist_fb ({layout}): {n_dev} device launches a "
-            f"call; the zero fill alone {fill_ms:.4f} ms device time")
-        assert 1 <= n_dev <= 2, f"hoist_fb: {n_dev} launches a call"
+            f"call (None: counted at dim 3 only); the zero fill alone "
+            f"{fill_ms:.4f} ms device time")
+        assert not full or 1 <= n_dev <= 2, \
+            f"hoist_fb: {n_dev} launches a call"
         b_ms, b_by, ops = bound("hoist_fb", dim, read, written, cand, within)
         fb[layout] = dict(max_abs_err=err, ms=ms, call_ms=one,
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                           fill_ms=fill_ms, launches_per_call=n_dev)
         cnt_cubic = out[-1]
-        for kd, kg in HOIST_PAIRS[1:]:
+        for kd, kg in (HOIST_PAIRS[1:] if full else ()):
             nc = (spec, h, dim, kd, kg) + args[5:]
 
             def kern_nc(f=False, s2=True, nc=nc, kw=kw, cb=c.counts_b,
@@ -1857,6 +1947,483 @@ def phase_brute(pair, device="cuda", steps=10):
     return launches
 
 
+def resolved_layout(world):
+    """brute, dense or gather: what the next step of ``world`` runs."""
+    from salva_tpu_torch.step import _dense_config
+
+    sim = world._effective_sim()
+    if sim.layout == "brute":
+        return "brute"
+    if world._force_set is None:
+        world._force_set = world._build_force_set()
+    dense = _dense_config(sim, world.solver_config, world._force_set)
+    return "dense" if dense is not None else "gather"
+
+
+def live_positions(world):
+    fl = world.fluids_state
+    return fl.positions[fl.alive]
+
+
+def rigid_state_finite(pipeline):
+    dev = pipeline._device
+    return all(bool(torch.isfinite(t).all())
+               for t in dev.rigid_state[:4]) if dev else True
+
+
+def harness_twin(device_coupling):
+    """A fresh 64k harness stepped HARNESS_TWIN_STEPS times on one coupling
+    path: ((iterations, ff, fb) per step, live positions)."""
+    from salva_tpu_torch import scenes
+
+    scene = scenes.harness_basic3(nparticles=HARNESS_N)
+    scene.pipeline.device_coupling = device_coupling
+    rec = []
+    for _ in range(HARNESS_TWIN_STEPS):
+        scene.step()
+        d = scene.world.last_diagnostics
+        rec.append((d.solver.pressure_iters, d.solver.divergence_iters,
+                    int(d.ncontacts_ff), int(d.ncontacts_fb)))
+    return rec, live_positions(scene.world).clone()
+
+
+def phase_coupled_harness(pair):
+    """The coupled main path: harness_basic3 at 64,000 particles through
+    ``scenes.harness_basic3`` and ``FluidsPipeline.step`` on the card, its
+    walls coupled on the device coupling path, the fluid on the dense
+    layout through the pair kernels and ``expand``. HARNESS_STEPS (warm-up,
+    timed) steps with the world's counters on (each step ends in a
+    synchronize): ms/step, iterations, the coupling counters per step,
+    then 2 profiled steps (device ms/step, busy share). Gates: the
+    overflow gate, finite positions, the fluid inside the walls' inner
+    faces; then a host-coupling twin (``device_coupling = False``) and a
+    fresh device run, HARNESS_TWIN_STEPS steps each, identical iterations
+    and contacts, positions within PATH_POS_ATOL."""
+    from salva_tpu_torch import scenes
+
+    tag = "[coupled_harness]"
+    scene = scenes.harness_basic3(nparticles=HARNESS_N)
+    world = scene.world
+    assert world.device.type == "cuda" and scene.pipeline.device_coupling
+    n = int(world.fluids_state.alive.sum())
+    assert n == HARNESS_N ** 3, n
+    world.counters.enable()
+    warm, steps = HARNESS_STEPS
+    reset_counts(pair)
+    iters, update_ms, transmit_ms, step_ms = [], [], [], []
+    t0 = time.perf_counter()
+    for i in range(warm + steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        scene.step()
+        if i >= warm:
+            c = world.counters
+            s_ = world.last_diagnostics.solver
+            iters.append((s_.pressure_iters, s_.divergence_iters))
+            update_ms.append(c.cd.boundary_update_time.time * 1e3)
+            transmit_ms.append(c.coupling_transmit_time.time * 1e3)
+            step_ms.append(c.step_time.time * 1e3)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counts(pair)
+    ms = elapsed / steps * 1e3
+    layout = resolved_layout(world)
+    sim = world._effective_sim()
+    d = world.last_diagnostics
+    overflow = int(d.neighbor_overflow)
+    pos = live_positions(world)
+    finite = bool(torch.isfinite(pos).all())
+    reach = float(pos[:, [0, 2]].abs().max())
+    lowest = float(pos[:, 1].min())
+    n_b = int(world.boundaries_state.alive.sum())
+    share = (sum(update_ms) + sum(transmit_ms)) / sum(step_ms)
+    log(f"{tag} N={n}, {n_b} boundary particles, layout {layout}, coupling "
+        f"path {'device' if scene.pipeline.device_coupling else 'host'}: "
+        f"{ms:.3f} ms/step over {steps} timed steps ({warm} warm-up steps "
+        f"took {warm_s:.2f} s)")
+    log(f"{tag} iterations per timed step (pressure, divergence): {iters}")
+    log(f"{tag} caps {world._auto_caps} (fluid, boundary), window "
+        f"{sim.fitted_dims or 'full domain'}, fb table {world._fb_cols_cache}"
+        f", grid refits {world.grid_refit_count}")
+    log(f"{tag} coupling counters per timed step (host ms): boundary "
+        f"update {[round(v, 3) for v in update_ms]}, transmit "
+        f"{[round(v, 3) for v in transmit_ms]}; their share of the step "
+        f"{share:.4f}")
+    log(f"{tag} last step: overflow {overflow} (gate < {max(1, n // 1000)}), "
+        f"clamped {int(d.candidate_overflow)}, contacts ff "
+        f"{int(d.ncontacts_ff)} fb {int(d.ncontacts_fb)}, max density ratio "
+        f"{float(d.max_density_ratio):.4f}; positions finite {finite}, "
+        f"max |x|, |z| {reach:.4f} m (walls' inner faces {WALL_INNER}), "
+        f"lowest y {lowest:.4f} m")
+    log(f"{tag} kernel launches in this run ({warm + steps} steps): "
+        f"{launches}")
+    assert layout == "dense", f"{tag} resolved {layout}"
+    for k in MAIN_PATH_KERNELS:
+        assert launches[k] > 0, f"{k} was never launched on {tag}"
+    assert overflow < max(1, n // 1000), f"{tag} overflow {overflow}"
+    assert finite, f"{tag} non-finite positions"
+    assert reach <= WALL_INNER and lowest >= 0.0, f"{tag} fluid left the box"
+    busy, dev_ms = busy_share(world, step=scene.step)
+    log(f"{tag} 2 profiled steps: device {dev_ms} ms/step, busy {busy}")
+    del scene, world
+    torch.cuda.empty_cache()
+    dev_rec, dev_pos = harness_twin(True)
+    host_rec, host_pos = harness_twin(False)
+    dpos = float((dev_pos - host_pos).abs().max())
+    log(f"{tag} twins, {HARNESS_TWIN_STEPS} steps: device path "
+        f"(iterations, ff, fb) {dev_rec}, host path {host_rec}; max |dpos| "
+        f"{dpos:.3e} m (atol {PATH_POS_ATOL['dfsph']})")
+    assert dev_rec == host_rec, f"{tag} the coupling paths differ"
+    assert dpos <= PATH_POS_ATOL["dfsph"], f"{tag} positions differ {dpos}"
+    torch.cuda.empty_cache()
+    return dict(n=n, ms=ms, device_ms=dev_ms, busy=busy, iters=iters,
+                launches=launches, update_ms=update_ms,
+                transmit_ms=transmit_ms, coupling_share=share, layout=layout)
+
+
+def faucet_schedule(steps, dt):
+    """The step indices at which faucet3's callback emits a sheet (its
+    rule: one every 0.06 s of simulated time, the first at t = 0)."""
+    last, out = -1.0, []
+    for i in range(steps):
+        t = i * dt
+        if t - last >= 0.06:
+            last = t
+            out.append(i)
+    return out
+
+
+def tracks_bodies(scene):
+    """Max distance between each dynamic body's sampled boundary and its
+    samples placed at the body's pose (host poses after one sync)."""
+    world, pip = scene.world, scene.pipeline
+    rw = pip.sync_bodies()
+    alive = world.boundaries_state.alive.cpu().numpy()
+    pos = world.boundaries_state.positions.cpu().numpy()
+    gap, moved = 0.0, []
+    for e in pip.coupling.entries.values():
+        body = rw.body_of_collider(e.collider)
+        if e.sampling.kind != "static" or not body.is_dynamic:
+            continue
+        R, t = rw.collider_pose(e.collider)
+        want = e.sampling.points @ R.T + t
+        got = pos[(world._boundary_slot_owner == e.boundary) & alive]
+        assert got.shape == want.shape
+        gap = max(gap, float(np.abs(got - want).max()))
+        moved.append(body.translation.tolist())
+    return gap, moved
+
+
+def phase_scenes(pair):
+    """Every SCENES entry at its published size, SCENE_STEPS steps through
+    ``scenes.run`` on the card (the default coupling path: the device
+    one), the world's counters on; then 1 profiled step. Logs the
+    layout, ms/step (all steps, and the last half), device ms/step and
+    busy share, particle and boundary counts, iterations, the coupling
+    counters' share, body poses. Gates: finite state; faucet3's sheets
+    emitted on its schedule and its particles below y = -2 deleted, both
+    counted exactly (the fall to y = -2 takes ~0.7 s, so after the run
+    the fluid is moved down by 2 m + its median height and the scene's
+    callback deletes the lower half); basic2 and layers2's dynamic
+    bodies' boundaries at their bodies' poses; custom_forces's
+    attractors pulling each side outward (tests/test_scenes.py). Then
+    basic2 one step on each coupling path, body state within RIGID_TOL
+    and positions within PATH_POS_ATOL. Returns a row a scene, and
+    basic2's launch counts."""
+    from salva_tpu_torch import scenes
+
+    rows = {}
+    launches = None
+    for name, make in scenes.SCENES.items():
+        tag = f"[scenes {name}]"
+        scene = make()
+        world, pip = scene.world, scene.pipeline
+        assert world.device.type == "cuda" and pip.device_coupling
+        world.counters.enable()
+        rec = dict(iters=[], share=[], live=[], t=[])
+        user_cb = scene.callback
+
+        def callback(s, i, t, rec=rec, user_cb=user_cb, world=world):
+            # Before step i: the counters and diagnostics hold step i - 1.
+            rec["t"].append(time.perf_counter())
+            if i > 0:
+                c = world.counters
+                d = world.last_diagnostics.solver
+                rec["iters"].append((d.pressure_iters, d.divergence_iters))
+                rec["share"].append((c.cd.boundary_update_time.time
+                                     + c.coupling_transmit_time.time)
+                                    / c.step_time.time)
+            if user_cb is not None:
+                fl = world.fluids_state
+                below = int((fl.alive & (fl.positions[:, 1] < -2.0)).sum())
+                before = int(fl.alive.sum())
+                user_cb(s, i, t)
+                rec["live"].append((before, below,
+                                    int(world.fluids_state.alive.sum())))
+
+        scene.callback = callback
+        reset_counts(pair)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scenes.run(scene, SCENE_STEPS)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        c = world.counters
+        d = world.last_diagnostics.solver
+        rec["iters"].append((d.pressure_iters, d.divergence_iters))
+        rec["share"].append((c.cd.boundary_update_time.time
+                             + c.coupling_transmit_time.time)
+                            / c.step_time.time)
+        if name == "basic2":
+            launches = read_counts(pair)
+        ms_all = (t_end - t0) / SCENE_STEPS * 1e3
+        half = SCENE_STEPS // 2
+        ms_last = (t_end - rec["t"][half]) / (SCENE_STEPS - half) * 1e3
+        layout = resolved_layout(world)
+        fl, bd = world.fluids_state, world.boundaries_state
+        n = int(fl.alive.sum())
+        n_b = int(bd.alive.sum())
+        finite = (bool(torch.isfinite(fl.positions[fl.alive]).all())
+                  and bool(torch.isfinite(fl.velocities[fl.alive]).all())
+                  and bool(torch.isfinite(bd.positions[bd.alive]).all())
+                  and rigid_state_finite(pip))
+        poses = [b.translation.round(4).tolist()
+                 for b in pip.sync_bodies().bodies if b.is_dynamic]
+        share = statistics.median(rec["share"][half:])
+        log(f"{tag} layout {layout}, coupling path "
+            f"{'device' if pip.device_coupling else 'host'}, {n} fluid / "
+            f"{n_b} boundary particles: {ms_all:.3f} ms/step over "
+            f"{SCENE_STEPS} steps, {ms_last:.3f} over the last {half}; "
+            f"coupling counters' share of a step (median, last {half}) "
+            f"{share:.4f}")
+        log(f"{tag} iterations per step (pressure, divergence): "
+            f"{rec['iters']}; dynamic bodies at {poses}")
+        assert finite, f"{tag} non-finite state"
+        if name == "faucet3":
+            fl_h = scene.fluid_handles[0]
+            emits = faucet_schedule(SCENE_STEPS, scene.dt)
+            for i, (before, below, after) in enumerate(rec["live"]):
+                want = before - below + (100 if i in emits else 0)
+                assert after == want, f"{tag} step {i}: {after} != {want}"
+            assert n == 100 * len(emits), (n, emits)
+            # The deletion half: the fluid moved down by 2 m + its median
+            # height, then the scene's own callback.
+            y = world.fluids_state.positions[world.fluids_state.alive][:, 1]
+            world.transform_fluid_by(
+                fl_h, None, (0.0, -(2.0 + float(torch.median(y))), 0.0))
+            fl = world.fluids_state
+            below = int((fl.alive & (fl.positions[:, 1] < -2.0)).sum())
+            user_cb(scene, SCENE_STEPS, SCENE_STEPS * scene.dt)
+            left = int(world.fluids_state.alive.sum())
+            log(f"{tag} emitted at steps {emits} ({n} live after "
+                f"{SCENE_STEPS} steps, as scheduled); moved down, {below} "
+                f"of {n} below y = -2: the callback leaves {left}")
+            assert 0 < below < n and left == n - below, (below, left)
+            scene.step()
+            assert bool(torch.isfinite(
+                live_positions(world)).all()), f"{tag} non-finite"
+        if name in ("basic2", "layers2"):
+            gap, moved = tracks_bodies(scene)
+            log(f"{tag} dynamic bodies' boundaries vs their poses: max "
+                f"|d| {gap:.3e} m")
+            assert gap <= RIGID_TOL, f"{tag} boundaries off their bodies"
+            assert all(m[1] < 10.6 for m in moved), moved
+        if name.startswith("custom_forces"):
+            pos = live_positions(world)
+            vel = world.fluids_state.velocities[world.fluids_state.alive]
+            right = float(vel[pos[:, 0] > 0.05, 0].mean())
+            left_v = float(vel[pos[:, 0] < -0.05, 0].mean())
+            log(f"{tag} mean x velocity right of x = 0.05: {right:.4e}, "
+                f"left of -0.05: {left_v:.4e} m/s")
+            assert right > 0.0 and left_v < 0.0, f"{tag} attractors"
+        busy, dev_ms = busy_share(world, steps=1, step=scene.step)
+        log(f"{tag} 1 profiled step: device {dev_ms} ms/step, busy {busy}")
+        rows[name] = dict(layout=layout, coupling="device", n=n,
+                          boundary=n_b, ms=ms_all, ms_last=ms_last,
+                          device_ms=dev_ms, busy=busy, iters=rec["iters"],
+                          coupling_share=share, poses=poses)
+        del scene, world, pip
+        torch.cuda.empty_cache()
+    # basic2 one step on each coupling path (no rigid contact yet: the
+    # paths differ by float32 order; the device path's projection
+    # tie-break (first index) never acts).
+    state = {}
+    for use in (True, False):
+        scene = scenes.basic2()
+        scene.pipeline.device_coupling = use
+        scene.step()
+        bodies = [b for b in scene.pipeline.sync_bodies().bodies
+                  if b.is_dynamic]
+        state[use] = (np.concatenate([np.concatenate(
+            [b.translation, b.rotation.ravel(), b.linvel,
+             np.atleast_1d(b.angvel)]) for b in bodies]),
+            live_positions(scene.world).clone())
+    gap_b = float(np.abs(state[True][0] - state[False][0]).max())
+    gap_p = float((state[True][1] - state[False][1]).abs().max())
+    log(f"[scenes basic2] one step on each coupling path: body state max "
+        f"|d| {gap_b:.3e} (tol {RIGID_TOL}), positions {gap_p:.3e} m (atol "
+        f"{PATH_POS_ATOL['dfsph']})")
+    assert gap_b <= RIGID_TOL and gap_p <= PATH_POS_ATOL["dfsph"]
+    return rows, launches
+
+
+def basic2_dense():
+    """basic2 pinned to the dense layout (its world's ``sim.layout``; the
+    scene builder has no layout argument): on the card ``auto`` resolves
+    it to the brute tier, which runs no kernel."""
+    from salva_tpu_torch import scenes
+
+    scene = scenes.basic2()
+    scene.world.sim = scene.world.sim.replace(layout="dense")
+    return scene
+
+
+def phase_twin_2d(pair):
+    """2D on the card: basic2's dense twin TWIN_2D_STEPS steps through the
+    kernels (its launch counts) and as many through the plain versions
+    (substituted here: the pair passes, ``expand`` and the rigid solve),
+    identical iterations, positions within PATH_POS_ATOL; then phase 5's
+    cubic checks at dim = 2 at the kernel run's state. Returns (the
+    launch counts, the 2D kernel records)."""
+    from salva_tpu_torch.ops import binning, rigid
+
+    tag = "[twin 2D]"
+    runs = {}
+    subs = {(pair, n): getattr(pair, n + "_plain")
+            for n in ("k_pass", "t_pass", "hoist_ff", "hoist_fb")}
+    subs[(binning, "expand")] = binning.expand_plain
+    subs[(rigid, "solve_contacts")] = rigid.solve_contacts_plain
+    for kind in ("kernels", "plain"):
+        scene = basic2_dense()
+        reset_counts(pair)
+        iters = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with substituted(subs if kind == "plain" else {}):
+            for _ in range(TWIN_2D_STEPS):
+                scene.step()
+                d = scene.world.last_diagnostics
+                iters.append((d.solver.pressure_iters,
+                              d.solver.divergence_iters))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / TWIN_2D_STEPS * 1e3
+        runs[kind] = dict(scene=scene, iters=iters, ms=ms,
+                          launches=read_counts(pair),
+                          pos=live_positions(scene.world).clone())
+    k, p = runs["kernels"], runs["plain"]
+    world = k["scene"].world
+    layout = resolved_layout(world)
+    dpos = float((k["pos"] - p["pos"]).abs().max())
+    d = world.last_diagnostics
+    sb = float(world.boundaries_state.velocities.abs().max())
+    log(f"{tag} basic2 (dim 2) on the {layout} layout, caps "
+        f"{world._auto_caps}, window {world._effective_sim().fitted_dims}: "
+        f"kernels {k['ms']:.3f} ms/step, plain {p['ms']:.3f} ms/step; "
+        f"iterations {k['iters']} vs {p['iters']}; max |dpos| {dpos:.3e} m "
+        f"(atol {PATH_POS_ATOL['dfsph']}); contacts ff "
+        f"{int(d.ncontacts_ff)} fb {int(d.ncontacts_fb)}, overflow "
+        f"{int(d.neighbor_overflow)}; boundary speeds up to {sb:.4f} m/s")
+    log(f"{tag} launches: kernels run {k['launches']}, plain run "
+        f"{p['launches']}")
+    assert layout == "dense"
+    for name in MAIN_PATH_KERNELS + ("rigid_solve",):
+        assert k["launches"][name] > 0, f"{tag} {name} never launched"
+    assert not any(p["launches"].values()), f"{tag} the plain run launched"
+    assert k["iters"] == p["iters"], f"{tag} iterations differ"
+    assert dpos <= PATH_POS_ATOL["dfsph"], f"{tag} positions differ {dpos}"
+    del runs["plain"]
+    mod = sys.modules[__name__]
+    with substituted({(mod, "log"): lambda m: print(
+            m.replace("[kernels]", "[kernels 2D]", 1), flush=True)}):
+        results = phase_kernels(pair, world, full=False)
+    return k["launches"], results
+
+
+def phase_rigid_solve(pair):
+    """The rigid solve kernel against its plain version on basic2's
+    contact table: basic2's three dynamic bodies (box, ball, capsule),
+    frozen on the device path, set 5 cm into the heightfield ground at
+    their x, sliding (0.3, -1.0) m/s and spinning 0.5 rad/s, and their
+    contacts found as the device step finds them. Velocities within
+    RIGID_TOL, a bitwise rerun, two planted faults caught (friction off;
+    one iteration instead of 8), times and the bound."""
+    from salva_tpu_torch import scenes
+    from salva_tpu_torch.ops import rigid
+    from salva_tpu_torch.sampling.shape_sampling import _shape_aabb
+
+    tag = "[rigid_solve]"
+    scene = scenes.basic2()
+    dev = scene.pipeline._maybe_device()
+    rw = scene.pipeline.bodies
+    rs = dev.rigid_state
+    trans = rs.trans.clone()
+    ground = next(c.shape for c in rw.colliders
+                  if not rw.bodies[c.body].is_dynamic)
+    for c in rw.colliders:
+        if not rw.bodies[c.body].is_dynamic:
+            continue
+        lo, _ = _shape_aabb(c.shape, 2)
+        x = trans[c.body, :1].cpu()
+        trans[c.body, 1] = float(ground._height_at(x[None])[0]) - lo[1] - 0.05
+    dyn = dev.dynamic_mask[:, None]
+    rs = rs._replace(
+        trans=trans,
+        linvel=torch.where(dyn, torch.tensor([0.3, -1.0], device="cuda"),
+                           0.0),
+        angvel=torch.where(dev.dynamic_mask, 0.5, 0.0))
+    con = dev._find_contacts_dev(rs, 0.0)
+    count = int(con["count"])
+    args = (rs.trans, rs.rot, rs.linvel, rs.angvel, dev.inv_mass,
+            dev.inv_inertia, con["a"], con["b"], con["p"], con["n"],
+            con["count"])
+    consts = (dev.restitution, dev.friction, dev.contact_iterations)
+
+    def kern(*c):
+        return rigid.solve_contacts(*args, *(c or consts))
+
+    def plain():
+        return rigid.solve_contacts_plain(*args, *consts)
+
+    reset_counts(pair)
+    out, ref = kern(), plain()
+    assert read_counts(pair)["rigid_solve"] == 1
+    again = kern()
+    assert all(torch.equal(a, b) for a, b in zip(out, again)), \
+        f"{tag} not bitwise deterministic"
+    errs = [check_output(f"rigid_solve.{o}", got, want,
+                         dict(rtol=0.0, atol=RIGID_TOL))[0]
+            for o, got, want in zip(("linvel", "angvel"), out, ref)]
+    for fault, c in (("friction off", (consts[0], 0.0, consts[2])),
+                     ("one iteration", (consts[0], consts[1], 1))):
+        wrong = kern(*c)
+        assert any(not torch.allclose(w, r, rtol=0.0, atol=RIGID_TOL)
+                   for w, r in zip(wrong, ref)), f"{tag} fault {fault}"
+        log(f"{tag} planted fault '{fault}' caught")
+    ms = cuda_ms(kern, 50)
+    one = call_ms(kern, 20)
+    plain_ms = cuda_ms(plain, 3)
+    read = nbytes(args)
+    written = nbytes(out)
+    ops = count * consts[2] * OPS_RIGID_CONTACT[2]
+    t_bytes = (read + written) / HBM_BYTES_PER_S
+    t_ops = ops / FP32_OPS_PER_S
+    b_ms = max(t_bytes, t_ops) * 1e3
+    b_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"{tag} basic2's table: {count} contacts of {dev.max_contacts}, "
+        f"{consts[2]} iterations; max abs err linvel {errs[0]:.3e}, angvel "
+        f"{errs[1]:.3e} (atol {RIGID_TOL}); kernel {ms:.4f} ms device time "
+        f"({one:.4f} ms a call), plain {plain_ms:.4f} ms; bound "
+        f"{b_ms:.3e} ms ({b_by}; {read} B read, {written} B written, "
+        f"{ops} float32 operations): one dependent chain, bound by "
+        f"latency")
+    assert count > 3, f"{tag} only {count} contacts"
+    return dict(max_abs_err=max(errs), ms=ms, call_ms=one,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, contacts=count)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1915,6 +2482,23 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(phase_brute(pair))
     log(f"[brute] phase took {time.perf_counter() - t0:.1f} s")
+    # The coupled phases: 2D on the card first (its phase-5 checks profile
+    # one hoist call, as phase 5 does, before any stepping profile).
+    t0 = time.perf_counter()
+    paths["twin_2d"], kernels_2d = phase_twin_2d(pair)
+    log(f"[twin 2D] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels["rigid_solve"] = phase_rigid_solve(pair)
+    log(f"[rigid_solve] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    harness = phase_coupled_harness(pair)
+    paths["coupled_harness"] = harness.pop("launches")
+    log(f"[coupled_harness] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    scene_rows, paths["scenes_basic2"] = phase_scenes(pair)
+    log(f"[scenes] phase took {time.perf_counter() - t0:.1f} s")
+    log("[coupled] summary " + json.dumps(
+        {"coupled_harness": harness, "scenes": scene_rows}))
     # The gather phases come last: their busy share profiles the steps,
     # and with those profiles taken before phase 5, its profiles of one
     # hoist call came back without device events on an H100.
@@ -1935,16 +2519,26 @@ def main() -> int:
         if name == "k_pass_v2":
             on, launches = "phase 5 checks (no main path runs it)", \
                 k["check_launches"]
+        elif name == "rigid_solve":
+            on = "scenes_basic2"
+            launches = paths[on][name]
         else:
             on, launches = "dfsph_forces", paths["dfsph_forces"][name]
         extra = {key: k[key] for key in ("kernel_names", "by_kernel",
                                          "full_grid", "boundary")
                  if key in k}
+        if name in kernels_2d:
+            k2 = kernels_2d[name]
+            extra["dim2"] = dict(
+                {key: k2[key] for key in (
+                    "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+                    "bound_by", "full_grid", "boundary") if key in k2},
+                launches=paths["twin_2d"][name], launches_path="twin_2d")
         records.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches,
             launches_path=on,
-            launches_by_path={p: c[name] for p, c in paths.items()},
+            launches_by_path={p: c.get(name, 0) for p, c in paths.items()},
             max_abs_err=k["max_abs_err"], ms=k["ms"], call_ms=k["call_ms"],
             plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],

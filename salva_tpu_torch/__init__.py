@@ -2,7 +2,8 @@
 
 SPH fluid simulation (dimforge/salva's capabilities) on torch tensors,
 with the four hot dense pair passes as hand-written CUDA kernels for
-NVIDIA Hopper (``ops/pair.py``, ``csrc/pair_passes.cu``). The module
+NVIDIA Hopper (``ops/pair.py``, ``csrc/pair_passes.cu``), and the
+binning's expansion (``csrc/expand.cu``). The module
 layout and names follow ``salva_tpu``, the JAX package this port is held
 against.
 
@@ -33,6 +34,7 @@ from .object import (
 from .step import StepDiagnostics
 from .version import __version__
 from .world import Boundary, Fluid, LiquidWorld
+from .coupling import ColliderSampling, FluidsPipeline
 
 __all__ = [
     "__version__",
@@ -53,4 +55,6 @@ __all__ = [
     "LiquidWorld",
     "Fluid",
     "Boundary",
+    "FluidsPipeline",
+    "ColliderSampling",
 ]

@@ -152,6 +152,24 @@ _DTYPES = {
 }
 
 
+def set_rows(t, idx, values):
+    """Copy of ``t`` with rows ``idx`` set (states are replaced, never
+    written in place, so earlier state objects stay valid)."""
+    t = t.clone()
+    t[idx] = values
+    return t
+
+
+def set_rows_drop(t, idx, values):
+    """``set_rows`` where an index equal to ``len(t)`` writes to a padding
+    row that is dropped (the JAX package's ``mode="drop"`` scatter). Only
+    that row may receive duplicate indices, so the rows kept are the same
+    on every run."""
+    out = torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
+    out[idx] = values
+    return out[:-1]
+
+
 def state_from_numpy(fields, *, device):
     """Build a ``FluidsState`` (when ``fields`` has ``fluid_id``) or a
     ``BoundariesState`` (``boundary_id``) from numpy arrays, one per

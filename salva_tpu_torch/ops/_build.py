@@ -28,6 +28,7 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 _SOURCES = (
     _PKG_DIR / "csrc" / "pair_passes.cu",
     _PKG_DIR / "csrc" / "expand.cu",
+    _PKG_DIR / "csrc" / "rigid_solve.cu",
 )
 _BUILD_ROOT = _PKG_DIR.parent / "build" / "salva_tpu_torch"
 _FLAGS = (
@@ -39,6 +40,7 @@ _NOT_LAUNCHED = -1  # the C entries' kNotLaunched: nothing to launch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # Argument types of every C entry point (pointers and the stream as
 # c_void_p: ctypes would otherwise pass Python ints as 32-bit ints).
 # The pair passes take their SPH kernels as ids and their constants as a
@@ -53,6 +55,8 @@ _SIGNATURES = {
     "salva_k_pass_v2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                         _P],
     "salva_expand": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "salva_rigid_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _F, _F, _P],
     "salva_pass_tiling": [_I, _I, _I, _I, _I, _I, _P],
     "salva_pair_params": [],
 }

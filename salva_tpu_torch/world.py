@@ -1,10 +1,18 @@
 """`LiquidWorld`: the top-level stateful wrapper around the step.
 
-Port of ``salva_tpu.world`` (the main-path API): add fluids and
-boundaries, ``step``, diagnostics. The host side manages slots, capacity
-growth and the auto-tuned dense layout (cap tier with overflow
-self-heal, fluid-tracking grid window, sparse fluid-boundary table);
-every per-step array operation runs on ``device`` as torch tensors.
+Port of ``salva_tpu.world``: add and remove fluids and boundaries,
+``step`` and ``step_with_coupling`` (the ``CouplingManager`` hooks of
+``coupling/``: ``update_boundaries`` before each substep,
+``transmit_forces`` after), emitters and deletion on the device through
+the alive mask (``emit_particles``, ``delete_where``) and on the host
+(``add_particles``, ``delete_particles``, the deferred
+``delete_particle_at_next_timestep``), boundary resampling
+(``set_boundary_particles``, ``set_boundaries_bulk``), isometries
+(``transform_*_by``), particle queries and diagnostics. The host side
+manages slots, capacity growth and the auto-tuned dense layout (cap tier
+with overflow self-heal, fluid-tracking grid window, sparse
+fluid-boundary table); every per-step array operation runs on ``device``
+as torch tensors.
 
 ``device`` defaults to ``"cuda"``; without a GPU the world raises unless
 the caller asks for the CPU with ``device="cpu"``. On CUDA the four hot
@@ -20,8 +28,9 @@ carries a ``CustomForce``). Every SPH kernel choice
 (``SimConfig.kernel_density`` / ``kernel_gradient``), and the XSPH,
 artificial-viscosity, DFSPH-viscosity, Akinci 2013 / WCSPH / He 2014
 surface-tension, Becker 2009 elasticity and custom non-pressure forces.
-Not ported (raise ``NotImplementedError``): coupling, emitters and
-deletion.
+Not ported: ``adaptive_timestep`` (raises ``NotImplementedError``),
+``z_sort``, the particle-intersection queries and the debug checks
+(absent).
 """
 
 from __future__ import annotations
@@ -41,7 +50,12 @@ from .geometry import dense_grid as dg
 from .geometry.neighbors import GroupInfo
 from .kernels import get_kernel
 from .object.interaction_groups import InteractionGroups
-from .object.state import BoundariesState, FluidsState
+from .object.state import (
+    BoundariesState,
+    FluidsState,
+    set_rows,
+    set_rows_drop,
+)
 from .solver.dense_common import fold_pairs
 from .solver.elasticity import (
     Becker2009ElasticityForce,
@@ -124,11 +138,13 @@ class _FluidRecord:
     groups: InteractionGroups
     nonpressure_forces: List
     particle_radius: float = 0.0
+    removed: bool = False
 
 
 @dataclasses.dataclass
 class _BoundaryRecord:
     groups: InteractionGroups
+    removed: bool = False
 
 
 # The non-pressure forces a fluid may carry: those of ``forces.py`` and
@@ -152,12 +168,31 @@ def _next_capacity(needed: int, minimum: int = 64) -> int:
     return cap
 
 
-def _set_rows(t, idx, values):
-    """Copy of ``t`` with rows ``idx`` set (states are replaced, never
-    written in place, so earlier state objects stay valid)."""
-    t = t.clone()
-    t[idx] = values
-    return t
+def _emit(st, pos, vel, vol, density0, handle, memberships, filt):
+    """Write an emission template into the first free slots (device-side
+    `Fluid::add_particles`, `fluid.rs:126-150`): rank free slots by
+    cumsum, invert the ranking into per-row target slots, scatter. Rows
+    beyond the free-slot count drop."""
+    e = pos.shape[0]
+    n = st.alive.shape[0]
+    dev = st.alive.device
+    free = ~st.alive
+    rank = torch.cumsum(free.to(torch.int32), 0) - 1
+    iota = torch.arange(n, device=dev)
+    tgt = set_rows_drop(
+        torch.full((e,), n, dtype=torch.long, device=dev),
+        torch.where(free & (rank < e), rank, e).long(), iota,
+    )
+    return st.replace(
+        positions=set_rows_drop(st.positions, tgt, pos),
+        velocities=set_rows_drop(st.velocities, tgt, vel),
+        volumes=set_rows_drop(st.volumes, tgt, vol),
+        density0=set_rows_drop(st.density0, tgt, density0),
+        alive=set_rows_drop(st.alive, tgt, True),
+        fluid_id=set_rows_drop(st.fluid_id, tgt, handle),
+        memberships=set_rows_drop(st.memberships, tgt, memberships),
+        filter=set_rows_drop(st.filter, tgt, filt),
+    )
 
 
 def _grow_state(old, new):
@@ -267,6 +302,12 @@ class LiquidWorld:
         self._boundary_dirty = True
         self._solver_state = None
         self.last_diagnostics: Optional[StepDiagnostics] = None
+        # Deferred particle removal (`fluid.rs:71-98`): global slot ids
+        # flagged between steps, released at the next step start.
+        self._pending_deletions: set = set()
+        # Device-side emission / deletion leave the host slot mirrors
+        # stale until a host slot operation needs them.
+        self._fluid_mirror_stale = False
         # Overflow checks (one host sync each) run on the first step and
         # every ``overflow_check_interval`` steps after.
         self.warn_overflow = True
@@ -338,6 +379,7 @@ class LiquidWorld:
         )
 
     def _alloc_fluid_slots(self, n: int) -> np.ndarray:
+        self._sync_fluid_mirrors()
         free = np.where(self._fluid_slot_owner < 0)[0]
         if len(free) < n:
             used = int((self._fluid_slot_owner >= 0).sum())
@@ -398,6 +440,38 @@ class LiquidWorld:
             )
         return handle
 
+    def remove_fluid(self, handle: int):
+        self._sync_fluid_mirrors()
+        slots = np.where(self._fluid_slot_owner == handle)[0]
+        self._release_fluid_slots(slots)
+        self._fluid_records[handle].removed = True
+        self._force_set = None
+
+    def remove_boundary(self, handle: int):
+        self._full_bvol_stale = True
+        slots = np.where(self._boundary_slot_owner == handle)[0]
+        if len(slots):
+            bd = self.boundaries_state
+            self.boundaries_state = bd.replace(
+                alive=set_rows(bd.alive, self._index(slots), False)
+            )
+        self._boundary_alive[slots] = False
+        self._boundary_slot_owner[slots] = -1
+        self._boundary_records[handle].removed = True
+        self._boundary_dirty = True
+
+    def _index(self, slots):
+        return torch.as_tensor(slots, dtype=torch.long, device=self.device)
+
+    def _release_fluid_slots(self, slots: np.ndarray):
+        if len(slots):
+            fl = self.fluids_state
+            self.fluids_state = fl.replace(
+                alive=set_rows(fl.alive, self._index(slots), False)
+            )
+        self._fluid_alive[slots] = False
+        self._fluid_slot_owner[slots] = -1
+
     def _write_fluid_particles(self, handle: int, positions, velocities=None):
         rec = self._fluid_records[handle]
         n = len(positions)
@@ -414,15 +488,15 @@ class LiquidWorld:
             else torch.zeros_like(pos)
         )
         self.fluids_state = st.replace(
-            positions=_set_rows(st.positions, idx, pos),
-            velocities=_set_rows(st.velocities, idx, vel),
-            volumes=_set_rows(st.volumes, idx, vol),
-            density0=_set_rows(st.density0, idx, rec.density0),
-            alive=_set_rows(st.alive, idx, True),
-            fluid_id=_set_rows(st.fluid_id, idx, handle),
-            memberships=_set_rows(st.memberships, idx,
+            positions=set_rows(st.positions, idx, pos),
+            velocities=set_rows(st.velocities, idx, vel),
+            volumes=set_rows(st.volumes, idx, vol),
+            density0=set_rows(st.density0, idx, rec.density0),
+            alive=set_rows(st.alive, idx, True),
+            fluid_id=set_rows(st.fluid_id, idx, handle),
+            memberships=set_rows(st.memberships, idx,
                                   rec.groups.memberships),
-            filter=_set_rows(st.filter, idx, rec.groups.filter),
+            filter=set_rows(st.filter, idx, rec.groups.filter),
         )
         self._fluid_alive[slots] = True
         self._fluid_slot_owner[slots] = handle
@@ -444,25 +518,154 @@ class LiquidWorld:
             else torch.zeros_like(pos)
         )
         self.boundaries_state = st.replace(
-            positions=_set_rows(st.positions, idx, pos),
-            velocities=_set_rows(st.velocities, idx, vel),
-            alive=_set_rows(st.alive, idx, True),
-            boundary_id=_set_rows(st.boundary_id, idx, handle),
-            memberships=_set_rows(st.memberships, idx,
+            positions=set_rows(st.positions, idx, pos),
+            velocities=set_rows(st.velocities, idx, vel),
+            alive=set_rows(st.alive, idx, True),
+            boundary_id=set_rows(st.boundary_id, idx, handle),
+            memberships=set_rows(st.memberships, idx,
                                   rec.groups.memberships),
-            filter=_set_rows(st.filter, idx, rec.groups.filter),
+            filter=set_rows(st.filter, idx, rec.groups.filter),
         )
         self._boundary_alive[slots] = True
         self._boundary_slot_owner[slots] = handle
         self._boundary_dirty = True
         return slots
 
-    # -- particle queries ----------------------------------------------------
+    # -- particle-level API (emitters / deletion, `fluid.rs:71-150`) -------
 
     def fluid_slots(self, handle: int) -> np.ndarray:
+        self._sync_fluid_mirrors()
         return np.where(
             (self._fluid_slot_owner == handle) & self._fluid_alive
         )[0]
+
+    def boundary_slots(self, handle: int) -> np.ndarray:
+        return np.where(
+            (self._boundary_slot_owner == handle) & self._boundary_alive
+        )[0]
+
+    def reserve_fluid_capacity(self, n: int):
+        """Pre-grow the fluid arrays to hold at least ``n`` particles
+        (emitter scenes, `faucet3.rs`, reserve their steady-state head
+        count up front: ``emit_particles`` never grows the arrays)."""
+        self._grow_fluids(int(n))
+
+    def add_particles(self, handle: int, positions, velocities=None):
+        """`Fluid::add_particles` (`fluid.rs:126-150`)."""
+        self._sync_fluid_mirrors()
+        slots = self._write_fluid_particles(handle, positions, velocities)
+        if self._has_elasticity(handle):
+            self._elasticity_dirty = True
+        return slots
+
+    def _sync_fluid_mirrors(self):
+        """Refresh the host slot mirrors after device-side emission or
+        deletion mutated the alive mask (one fetch, only when a host-side
+        slot operation needs the free list)."""
+        if not self._fluid_mirror_stale:
+            return
+        alive = self.fluids_state.alive.cpu().numpy()
+        fid = self.fluids_state.fluid_id.cpu().numpy()
+        self._fluid_alive = alive.copy()
+        self._fluid_slot_owner = np.where(alive, fid, -1).astype(np.int64)
+        self._fluid_mirror_stale = False
+
+    def emit_particles(self, handle: int, positions, velocities=None):
+        """Device-side `add_particles`: write a fixed emission template
+        into free slots with no host round trip (the emitter pattern of
+        `examples3d/faucet3.rs:69-105`). Capacity must be reserved up
+        front (``reserve_fluid_capacity``); emissions beyond the free
+        slot count are dropped. Host slot mirrors are refreshed lazily."""
+        rec = self._fluid_records[handle]
+        pos = torch.as_tensor(positions, dtype=torch.float32,
+                              device=self.device)
+        vel = (
+            torch.as_tensor(velocities, dtype=torch.float32,
+                            device=self.device)
+            if velocities is not None
+            else torch.zeros_like(pos)
+        )
+        self.fluids_state = _emit(
+            self.fluids_state, pos, vel,
+            particle_volume(rec.particle_radius, self.dim), rec.density0,
+            handle, rec.groups.memberships, rec.groups.filter,
+        )
+        self._fluid_mirror_stale = True
+        if self._has_elasticity(handle):
+            self._elasticity_dirty = True
+
+    def delete_where(self, handle: int, predicate):
+        """Device-side predicate deletion: kill this fluid's particles
+        where ``predicate(positions, velocities) -> bool mask`` holds,
+        through the alive mask (the deletion half of the faucet emitter
+        pattern)."""
+        fl = self.fluids_state
+        kill = (
+            predicate(fl.positions, fl.velocities).to(torch.bool)
+            & fl.alive
+            & (fl.fluid_id == handle)
+        )
+        self.fluids_state = fl.replace(alive=fl.alive & ~kill)
+        self._fluid_mirror_stale = True
+
+    def delete_particles(self, handle: int, indices):
+        """Delete particles by index within the fluid, immediately (the
+        eager variant; see :meth:`delete_particle_at_next_timestep` for
+        the reference's deferred semantics)."""
+        slots = self.fluid_slots(handle)[np.asarray(indices)]
+        self._release_fluid_slots(slots)
+
+    def delete_particle_at_next_timestep(self, handle: int, index: int):
+        """Mark a particle for removal at the start of the next step
+        (`Fluid::delete_particle_at_next_timestep`, `fluid.rs:71-77`;
+        applied by the step like `apply_particles_removal`,
+        `liquid_world.rs:79-81`)."""
+        slot = int(self.fluid_slots(handle)[int(index)])
+        self._pending_deletions.add(slot)
+
+    def num_deleted_particles(self, handle: int) -> int:
+        """Particles of ``handle`` marked for deferred removal
+        (`fluid.rs:79-82`)."""
+        owner = self._fluid_slot_owner
+        return sum(1 for s in self._pending_deletions if owner[s] == handle)
+
+    def _apply_particles_removal(self):
+        """Apply deferred deletions (`fluid.rs:88-98`)."""
+        if self._pending_deletions:
+            self._release_fluid_slots(
+                np.fromiter(self._pending_deletions, np.int64)
+            )
+            self._pending_deletions.clear()
+
+    def transform_fluid_by(self, handle: int, rotation=None, translation=None):
+        """Apply an isometry to all particles of a fluid
+        (`Fluid::transform_by`, `fluid.rs:166-168`). ``rotation`` is a
+        ``[dim, dim]`` matrix (None = identity)."""
+        self._transform_slots("fluids_state", self.fluid_slots(handle),
+                              rotation, translation)
+
+    def transform_boundary_by(self, handle: int, rotation=None,
+                              translation=None):
+        """Apply an isometry to all particles of a boundary
+        (`Boundary::transform_by`, `boundary.rs:55-57`)."""
+        self._transform_slots("boundaries_state", self.boundary_slots(handle),
+                              rotation, translation)
+        self._boundary_dirty = True
+
+    def _transform_slots(self, attr, slots, rotation, translation):
+        if not len(slots):
+            return
+        state = getattr(self, attr)
+        idx = self._index(slots)
+        pos = state.positions[idx]
+        if rotation is not None:
+            pos = pos @ torch.as_tensor(rotation, dtype=torch.float32,
+                                        device=self.device).T
+        if translation is not None:
+            pos = pos + torch.as_tensor(translation, dtype=torch.float32,
+                                        device=self.device)
+        setattr(self, attr, state.replace(
+            positions=set_rows(state.positions, idx, pos)))
 
     def fluid_positions(self, handle: int) -> np.ndarray:
         return self.fluids_state.positions.cpu().numpy()[
@@ -473,6 +676,89 @@ class LiquidWorld:
         return self.fluids_state.velocities.cpu().numpy()[
             self.fluid_slots(handle)
         ]
+
+    def boundary_positions(self, handle: int) -> np.ndarray:
+        return self.boundaries_state.positions.cpu().numpy()[
+            self.boundary_slots(handle)
+        ]
+
+    def boundary_forces(self, handle: int) -> np.ndarray:
+        """Accumulated force feedback of a boundary (`boundary.rs:62-67`)."""
+        return self.boundaries_state.forces.cpu().numpy()[
+            self.boundary_slots(handle)
+        ]
+
+    def set_boundary_particles(self, handle: int, positions, velocities=None):
+        """Replace all particles of a boundary (used by coupling to
+        re-sample moving colliders each substep): in place when the count
+        is unchanged, else the old slots are released and new ones
+        allocated."""
+        self._boundary_dirty = True
+        slots = np.where(self._boundary_slot_owner == handle)[0]
+        n_new = len(positions)
+        if len(slots) == n_new:
+            idx = self._index(slots)
+            st = self.boundaries_state
+            pos = torch.as_tensor(np.asarray(positions, np.float32),
+                                  device=self.device)
+            vel = (
+                torch.as_tensor(np.asarray(velocities, np.float32),
+                                device=self.device)
+                if velocities is not None
+                else torch.zeros_like(pos)
+            )
+            self.boundaries_state = st.replace(
+                positions=set_rows(st.positions, idx, pos),
+                velocities=set_rows(st.velocities, idx, vel),
+                alive=set_rows(st.alive, idx, True),
+            )
+            self._boundary_alive[slots] = True
+        else:
+            if len(slots):
+                bd = self.boundaries_state
+                self.boundaries_state = bd.replace(
+                    alive=set_rows(bd.alive, self._index(slots), False)
+                )
+                self._boundary_alive[slots] = False
+                self._boundary_slot_owner[slots] = -1
+            if n_new:
+                self._write_boundary_particles(handle, positions, velocities)
+
+    def set_boundaries_bulk(self, updates):
+        """Replace the particles of several boundaries in ONE update
+        (coupling: the per-substep work stays constant in the collider
+        count). ``updates``: {handle: (positions, velocities|None)}.
+        Handles whose particle count changed go through
+        :meth:`set_boundary_particles`."""
+        idx_parts, pos_parts, vel_parts = [], [], []
+        leftovers = {}
+        for handle, (pts, vels) in updates.items():
+            pts = np.asarray(pts, np.float32)
+            slots = np.where(self._boundary_slot_owner == handle)[0]
+            if len(slots) == len(pts):
+                idx_parts.append(slots)
+                pos_parts.append(pts)
+                vel_parts.append(
+                    np.asarray(vels, np.float32)
+                    if vels is not None else np.zeros_like(pts)
+                )
+            else:
+                leftovers[handle] = (pts, vels)
+        if idx_parts:
+            idx_np = np.concatenate(idx_parts)
+            idx = self._index(idx_np)
+            st = self.boundaries_state
+            self.boundaries_state = st.replace(
+                positions=set_rows(st.positions, idx, torch.as_tensor(
+                    np.concatenate(pos_parts), device=self.device)),
+                velocities=set_rows(st.velocities, idx, torch.as_tensor(
+                    np.concatenate(vel_parts), device=self.device)),
+                alive=set_rows(st.alive, idx, True),
+            )
+            self._boundary_alive[idx_np] = True
+            self._boundary_dirty = True
+        for handle, (pts, vels) in leftovers.items():
+            self.set_boundary_particles(handle, pts, vels)
 
     # -- force-set assembly -------------------------------------------------
 
@@ -491,6 +777,8 @@ class LiquidWorld:
         by_type: Dict[type, Dict[int, object]] = {}
         custom: List = []
         for fid, rec in enumerate(self._fluid_records):
+            if rec.removed:
+                continue
             for inst in rec.nonpressure_forces:
                 if isinstance(inst, CustomForce):
                     flags = tuple(1 if i == fid else 0 for i in range(nf))
@@ -580,7 +868,8 @@ class LiquidWorld:
         fail every group test, so only same-model pairs pass)."""
         self._elasticity_dirty = False
         elastic = [fid for fid in range(self.num_fluids)
-                   if self._has_elasticity(fid)]
+                   if not self._fluid_records[fid].removed
+                   and self._has_elasticity(fid)]
         if not elastic:
             self._elasticity_state = None
             return
@@ -959,12 +1248,14 @@ class LiquidWorld:
 
     def _uniform_particles(self):
         """(handle, mass, density0) when all live particles provably share
-        them (the world holds one fluid), else None."""
-        if len(self._fluid_records) != 1:
+        them (the world holds one fluid that is not removed), else None."""
+        live = [(h, r) for h, r in enumerate(self._fluid_records)
+                if not r.removed]
+        if len(live) != 1:
             return None
-        rec = self._fluid_records[0]
+        handle, rec = live[0]
         m0 = particle_volume(rec.particle_radius, self.dim) * rec.density0
-        return (0, float(m0), float(rec.density0))
+        return (int(handle), float(m0), float(rec.density0))
 
     def _boundary_volume_mode(self, sim: SimConfig, coupling) -> SimConfig:
         """Skip the boundary-volume pair pass on steps where no boundary
@@ -977,12 +1268,13 @@ class LiquidWorld:
         return sim
 
     def step_with_coupling(self, dt: float, gravity, coupling):
-        """Advance the simulation (`liquid_world.rs:67-158`). Rigid-body
-        coupling is not ported: ``coupling`` must be None."""
-        if coupling is not None:
-            raise NotImplementedError(
-                "rigid-body coupling is not ported to salva_tpu_torch"
-            )
+        """Advance with two-way rigid-body coupling
+        (`liquid_world.rs:67-158`). ``coupling`` follows the
+        `CouplingManager` protocol (`coupling/base.py`) or is None: its
+        ``update_boundaries`` runs before each substep and its
+        ``transmit_forces`` after, timed into
+        ``counters.cd.boundary_update_time`` and
+        ``counters.coupling_transmit_time``."""
         self.counters.reset()
         self.counters.step_time.start()
         self._last_dt = float(dt)
@@ -996,6 +1288,7 @@ class LiquidWorld:
             # default dt; with the real dt now known, redo the fit.
             self._fitted_dims = None
             self._initial_fit()
+        self._apply_particles_removal()
         self._prepare()
         gravity = torch.as_tensor(gravity, dtype=torch.float32,
                                   device=self.device)
@@ -1012,6 +1305,10 @@ class LiquidWorld:
         tm.reset(dt)
         while not tm.is_done():
             sub_dt = tm.advance()
+            if coupling is not None:
+                self.counters.cd.boundary_update_time.resume()
+                coupling.update_boundaries(self, sub_dt)
+                self.counters.cd.boundary_update_time.pause()
             self.counters.dispatch_time.resume()
             (
                 self.fluids_state,
@@ -1027,6 +1324,10 @@ class LiquidWorld:
                 gravity,
             )
             self.counters.dispatch_time.pause()
+            if coupling is not None:
+                self.counters.coupling_transmit_time.resume()
+                coupling.transmit_forces(self, sub_dt)
+                self.counters.coupling_transmit_time.pause()
             self.counters.nsubsteps += 1
 
         if self.counters.enabled:
@@ -1040,7 +1341,9 @@ class LiquidWorld:
                     + self.last_diagnostics.ncontacts_fb
                 )
         self.counters.step_time.pause()
-        self._boundary_dirty = False
+        # Coupled boundaries move every substep: their volumes stay due.
+        if coupling is None:
+            self._boundary_dirty = False
         self._steps_taken += 1
         if self.warn_overflow and (
             self._steps_taken == 1

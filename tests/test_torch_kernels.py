@@ -1,6 +1,7 @@
 """The hand CUDA kernels of ``salva_tpu_torch.ops.pair`` (the pair
-passes) and ``salva_tpu_torch.ops.binning`` (the sorted-to-slot
-expansion) against their plain PyTorch versions, on the card.
+passes), ``salva_tpu_torch.ops.binning`` (the sorted-to-slot
+expansion) and ``salva_tpu_torch.ops.rigid`` (the rigid bodies' contact
+solve) against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device (``gpu`` marker) and skips without
 one. The file imports torch and the port only (no JAX), so it runs on a
@@ -621,3 +622,60 @@ def test_gather_step_repeats_bitwise_and_matches_the_cpu(cuda):
     assert torch.equal(p0, p1) and torch.equal(f0, f1)
     assert float(f0.abs().max()) > 0.0
     torch.testing.assert_close(p0, p_c, rtol=0, atol=2e-6)
+
+
+def _contact_table(dim, device, B=4, K=64, count=37, seed=5):
+    """A random contact table over B bodies (body 0 fixed), with the
+    rotations, inverse masses and inertias of the solve's inputs."""
+    rng = np.random.default_rng(seed + dim)
+    trans = rng.uniform(-1.0, 1.0, (B, dim)).astype(np.float32)
+    if dim == 2:
+        ang = rng.uniform(-np.pi, np.pi, B)
+        rot = np.stack([[np.cos(ang), -np.sin(ang)],
+                        [np.sin(ang), np.cos(ang)]]).transpose(2, 0, 1)
+        angvel = rng.normal(size=B)
+        inv_inertia = rng.uniform(0.5, 2.0, (B, 1))
+    else:
+        q = np.linalg.qr(rng.normal(size=(B, 3, 3)))[0]
+        rot = q * np.sign(np.linalg.det(q))[:, None, None]
+        angvel = rng.normal(size=(B, 3))
+        inv_inertia = rng.uniform(0.5, 2.0, (B, 3))
+    inv_mass = rng.uniform(0.5, 2.0, B)
+    inv_mass[0], inv_inertia[0] = 0.0, 0.0
+    a = rng.integers(1, B, K)
+    b = np.where(rng.random(K) < 0.4, -1, rng.integers(0, B, K))
+    b = np.where(b == a, -1, b)
+    n = rng.normal(size=(K, dim))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    return (t(trans), t(rot), t(rng.normal(size=(B, dim))), t(angvel),
+            t(inv_mass), t(inv_inertia), t(a, torch.int32),
+            t(b, torch.int32), t(rng.uniform(-1.0, 1.0, (K, dim))), t(n),
+            t(count, torch.int32))
+
+
+@pytest.mark.parametrize("friction", [0.0, 0.5])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_rigid_solve_kernel_matches_plain(cuda, dim, friction):
+    """The one-thread sequential-impulse kernel against its plain version
+    (same arithmetic, float32; FMA contraction on the card): velocities
+    within 1e-5, the launch counted once, a rerun bitwise."""
+    from salva_tpu_torch.ops import rigid
+
+    args = _contact_table(dim, cuda)
+    rigid.reset_launches()
+    lin, ang = rigid.solve_contacts(*args, 0.0, friction, 8)
+    assert rigid.LAUNCHES["rigid_solve"] == 1
+    plin, pang = rigid.solve_contacts_plain(*args, 0.0, friction, 8)
+    torch.testing.assert_close(lin, plin, rtol=0, atol=1e-5)
+    torch.testing.assert_close(ang, pang, rtol=0, atol=1e-5)
+    assert not torch.equal(lin, args[2])  # the contacts acted
+    lin2, ang2 = rigid.solve_contacts(*args, 0.0, friction, 8)
+    assert torch.equal(lin2, lin) and torch.equal(ang2, ang)
+    # count = 0 (read on the card): the velocities come back unchanged.
+    zero = args[:-1] + (torch.zeros((), dtype=torch.int32, device=cuda),)
+    lin0, ang0 = rigid.solve_contacts(*zero, 0.0, friction, 8)
+    assert torch.equal(lin0, args[2]) and torch.equal(ang0, args[3])

@@ -2,7 +2,8 @@
 flax, the default device is the card (no silent CPU fallback), CPU runs
 never launch a kernel, the kernel wrappers validate their operands,
 unported paths raise (and the gather layout, the elasticity and custom
-forces, ported since, run), and the state converters round-trip."""
+forces and coupling, ported since, run), and the state converters
+round-trip."""
 
 import os
 import subprocess
@@ -174,8 +175,32 @@ def test_unported_paths_raise():
                          nonpressure_forces=[Push()]))
     with pytest.raises(ValueError, match="no dense implementation"):
         w.step(0.01, (0.0, -9.81))
-    with pytest.raises(NotImplementedError):
-        _tiny_world().step_with_coupling(0.01, (0.0, -9.81), object())
+    # Coupling is ported: a step with the no-op coupling equals step()
+    # (volumes recomputed every coupled step; from a fresh world both
+    # recompute), and what stays unported raises by name.
+    from salva_tpu_torch.coupling import NoOpCoupling
+
+    plain, coupled = _tiny_world(), _tiny_world()
+    for _ in range(2):
+        plain.step(0.01, (0.0, -9.81))
+        coupled.step_with_coupling(0.01, (0.0, -9.81), NoOpCoupling())
+        assert torch.equal(coupled.fluids_state.positions,
+                           plain.fluids_state.positions)
+    with pytest.raises(NotImplementedError, match="adaptive_timestep"):
+        st.LiquidWorld(dim=2, adaptive_timestep=True, device="cpu")
+    from salva_tpu.shapes import TriMesh
+    from salva_tpu_torch.coupling import FluidsPipeline
+
+    pip = FluidsPipeline(0.05, dim=3, device="cpu")
+    body = pip.bodies.add_body("fixed")
+    pip.bodies.add_collider(body, TriMesh.from_arrays(np.eye(3),
+                                                      [[0, 1, 2]]))
+    pip._device_request = True
+    with pytest.raises(NotImplementedError, match="TriMesh"):
+        pip.step((0.0, -9.81, 0.0), 0.01)
+    for name in ("z_sort", "particles_intersecting_aabb",
+                 "particles_intersecting_shape", "_run_debug_checks"):
+        assert not hasattr(st.LiquidWorld, name)
     for flag in (dict(dense_spill_columns=512), dict(dense_compact=True),
                  dict(dense_frozen_pairs=True)):
         w = _tiny_world()
@@ -253,7 +278,7 @@ def test_kernel_build_is_keyed_by_source_hash():
     from salva_tpu_torch.ops import _build
 
     paths = _build.library_paths()
-    assert len(paths) == len(_build._SOURCES) == 2  # one library a source
+    assert len(paths) == len(_build._SOURCES) == 3  # one library a source
     assert len({p.parent.name for p in paths}) == len(paths)
     for path in paths:
         assert path.parent.parent.name == "salva_tpu_torch"
