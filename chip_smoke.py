@@ -103,12 +103,15 @@ phases:
    basic3's static-sampled walls on the device coupling path, 10 + 20
    steps: ms/step, device ms/step and busy share, iterations, the
    overflow gate, layout, caps and window, the two coupling counters per
-   step, the fluid inside the walls; a host-coupling twin and a device
-   twin 3 steps each, identical iterations and contacts, positions
-   within PATH_POS_ATOL;
+   step, the fluid inside the walls; a device twin, a host-coupling twin
+   and a plain twin (the device path through the plain versions) 3
+   steps each, identical iterations and overflow, positions within
+   PATH_POS_ATOL; then phase 5's cubic checks at its state, every kernel
+   against its plain version on one input at the harness's shapes;
 12. every ``scenes.SCENES`` entry at its published size, 20 steps through
    ``scenes.run`` (``phase_scenes``: layout, coupling path, ms/step,
-   device ms/step and busy, counts, iterations, body poses; finite
+   device ms/step and busy, counts, iterations, body poses, each step's
+   neighbor overflow under the coupled harness's gate; finite
    state; faucet3's emission schedule and its deletion below y = -2
    counted exactly; basic2 / layers2's body boundaries at their poses;
    the custom forces' attractors), and basic2 one step on each coupling
@@ -128,8 +131,11 @@ paths' and the gather paths' zeros included — a gather path's ``expand``
 count is its world's one-time full-extent boundary-volume pass in its
 first step; ``kernel_names``: the SPH kernel names held in phase 5, with
 their numbers under ``by_kernel``; ``dim2``: the kernel's phase-9
-numbers at dim = 2, with the 2D twin's launches). The coupled phases'
-numbers are logged on one ``[coupled] summary`` JSON line.
+numbers at dim = 2, with the 2D twin's launches; ``harness``: its
+phase-11 numbers at the 64,000-particle harness's state, with the
+harness's launches; ``contacts`` / ``impulses`` for ``rigid_solve``:
+its table's live rows and the impulses its bound counts). The coupled
+phases' numbers are logged on one ``[coupled] summary`` JSON line.
 """
 
 import json
@@ -138,6 +144,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -312,11 +319,18 @@ OPS_DWR = {"cubic": 14, "poly6": 8, "spiky": 6, "viscosity": 12}
 OPS_W = {"cubic": 11, "poly6": 6, "spiky": 5, "viscosity": 11}
 OPS_ACC = {"k_pass": 8, "t_pass": 8, "hoist_ff": 24, "hoist_fb": 33,
            "k_pass_v2": 8}
-# Float32 operations of one contact in one iteration of the rigid solve,
-# counted from csrc/rigid_solve.cu with its friction branch taken (the
-# normal impulse ~70 in 2D, the friction impulse ~80; 3D's crosses and
-# world inertias ~2.8x that).
-OPS_RIGID_CONTACT = {2: 150, 3: 420}
+# Float32 operations of one impulse of the rigid solve, counted from
+# csrc/rigid_solve.cu: {dim: {(part, bodies): ops}}, the normal impulse
+# (relative velocity, effective mass, the clamped accumulation, the
+# application) and the friction impulse (the tangent, its effective mass,
+# the Coulomb clamp, the application), for a contact against a fixed
+# collider (1 body) or between two bodies (2).
+OPS_RIGID_IMPULSE = {
+    2: {("normal", 1): 36, ("normal", 2): 66,
+        ("friction", 1): 44, ("friction", 2): 74},
+    3: {("normal", 1): 143, ("normal", 2): 279,
+        ("friction", 1): 156, ("friction", 2): 292},
+}
 # The coupled paths. harness_basic3 (salva_tpu/scenes.py:157-199,
 # examples3d/harness_basic3.rs) at nparticles=40: 40^3 = 64,000 particles
 # in basic3's box of static-sampled fixed cuboids (ground and four
@@ -1971,20 +1985,35 @@ def rigid_state_finite(pipeline):
                for t in dev.rigid_state[:4]) if dev else True
 
 
-def harness_twin(device_coupling):
+def harness_twin(device_coupling, subs=None):
     """A fresh 64k harness stepped HARNESS_TWIN_STEPS times on one coupling
-    path: ((iterations, ff, fb) per step, live positions)."""
+    path, with the module attributes ``subs`` substituted: ((iterations,
+    ff, fb, overflow) per step, live positions)."""
     from salva_tpu_torch import scenes
 
     scene = scenes.harness_basic3(nparticles=HARNESS_N)
-    scene.pipeline.device_coupling = device_coupling
+    scene.pipeline._device_request = device_coupling
     rec = []
-    for _ in range(HARNESS_TWIN_STEPS):
-        scene.step()
-        d = scene.world.last_diagnostics
-        rec.append((d.solver.pressure_iters, d.solver.divergence_iters,
-                    int(d.ncontacts_ff), int(d.ncontacts_fb)))
+    with substituted(subs or {}):
+        for _ in range(HARNESS_TWIN_STEPS):
+            scene.step()
+            d = scene.world.last_diagnostics
+            rec.append((d.solver.pressure_iters, d.solver.divergence_iters,
+                        int(d.ncontacts_ff), int(d.ncontacts_fb),
+                        int(d.neighbor_overflow)))
     return rec, live_positions(scene.world).clone()
+
+
+def plain_subs(pair):
+    """The plain versions substituted for every kernel wrapper of the
+    coupled paths (the pair passes, ``expand``, the rigid solve)."""
+    from salva_tpu_torch.ops import binning, rigid
+
+    subs = {(pair, n): getattr(pair, n + "_plain")
+            for n in ("k_pass", "t_pass", "hoist_ff", "hoist_fb")}
+    subs[(binning, "expand")] = binning.expand_plain
+    subs[(rigid, "solve_contacts")] = rigid.solve_contacts_plain
+    return subs
 
 
 def phase_coupled_harness(pair):
@@ -1996,9 +2025,17 @@ def phase_coupled_harness(pair):
     synchronize): ms/step, iterations, the coupling counters per step,
     then 2 profiled steps (device ms/step, busy share). Gates: the
     overflow gate, finite positions, the fluid inside the walls' inner
-    faces; then a host-coupling twin (``device_coupling = False``) and a
-    fresh device run, HARNESS_TWIN_STEPS steps each, identical iterations
-    and contacts, positions within PATH_POS_ATOL."""
+    faces; then a fresh device run, a host-coupling twin
+    (``device_coupling=False``) and a device run through the plain
+    versions (substituted here for every kernel wrapper; it launches
+    nothing), HARNESS_TWIN_STEPS steps each: identical iterations and
+    overflow, positions within PATH_POS_ATOL; contacts identical between
+    the coupling paths at every step and between kernels and plain
+    versions at the first (their shared input). Phase 5's cubic checks
+    then run at the timed run's state: every kernel of the path against
+    its plain version on one input at the harness's own shapes (caps
+    16 / 24, the walls' sparse fb table), pair counts exact, planted
+    faults caught."""
     from salva_tpu_torch import scenes
 
     tag = "[coupled_harness]"
@@ -2067,20 +2104,51 @@ def phase_coupled_harness(pair):
     assert reach <= WALL_INNER and lowest >= 0.0, f"{tag} fluid left the box"
     busy, dev_ms = busy_share(world, step=scene.step)
     log(f"{tag} 2 profiled steps: device {dev_ms} ms/step, busy {busy}")
+    # Phase 5's cubic checks at this state: every kernel of the path and
+    # its plain version on one input, at the harness's caps, grid and
+    # walls' fb table.
+    mod = sys.modules[__name__]
+    with substituted({(mod, "log"): lambda m: print(
+            m.replace("[kernels]", "[kernels harness]", 1), flush=True)}):
+        checks = phase_kernels(pair, world, full=False)
     del scene, world
     torch.cuda.empty_cache()
     dev_rec, dev_pos = harness_twin(True)
     host_rec, host_pos = harness_twin(False)
     dpos = float((dev_pos - host_pos).abs().max())
     log(f"{tag} twins, {HARNESS_TWIN_STEPS} steps: device path "
-        f"(iterations, ff, fb) {dev_rec}, host path {host_rec}; max |dpos| "
-        f"{dpos:.3e} m (atol {PATH_POS_ATOL['dfsph']})")
+        f"(iterations, ff, fb, overflow) {dev_rec}, host path {host_rec}; "
+        f"max |dpos| {dpos:.3e} m (atol {PATH_POS_ATOL['dfsph']})")
     assert dev_rec == host_rec, f"{tag} the coupling paths differ"
     assert dpos <= PATH_POS_ATOL["dfsph"], f"{tag} positions differ {dpos}"
     torch.cuda.empty_cache()
+    reset_counts(pair)
+    t0 = time.perf_counter()
+    plain_rec, plain_pos = harness_twin(True, plain_subs(pair))
+    plain_launches = read_counts(pair)
+    dpos_p = float((dev_pos - plain_pos).abs().max())
+    log(f"{tag} plain twin (device path, every kernel wrapper replaced by "
+        f"its plain version), {HARNESS_TWIN_STEPS} steps in "
+        f"{time.perf_counter() - t0:.1f} s: {plain_rec} vs the kernels' "
+        f"{dev_rec}; max |dpos| {dpos_p:.3e} m (atol "
+        f"{PATH_POS_ATOL['dfsph']}); launches {plain_launches}")
+    assert not any(plain_launches.values()), f"{tag} the plain run launched"
+    # Iterations and overflow identical at every step; contacts at the
+    # first step, whose input the two runs share. From the second step
+    # the runs' positions differ in their last bits, and the lattice
+    # puts ~10^5 pairs at r = h, so a pair count may differ by a few
+    # ties: the kernels' counts are held on one input by the checks
+    # below, at this world's state.
+    assert [r[:2] + r[4:] for r in plain_rec] == \
+        [r[:2] + r[4:] for r in dev_rec], f"{tag} iterations differ"
+    assert plain_rec[0] == dev_rec[0], f"{tag} step-1 contacts differ"
+    assert dpos_p <= PATH_POS_ATOL["dfsph"], \
+        f"{tag} kernel and plain positions differ by {dpos_p}"
+    torch.cuda.empty_cache()
     return dict(n=n, ms=ms, device_ms=dev_ms, busy=busy, iters=iters,
                 launches=launches, update_ms=update_ms,
-                transmit_ms=transmit_ms, coupling_share=share, layout=layout)
+                transmit_ms=transmit_ms, coupling_share=share, layout=layout,
+                kernels=checks)
 
 
 def faucet_schedule(steps, dt):
@@ -2122,7 +2190,9 @@ def phase_scenes(pair):
     one), the world's counters on; then 1 profiled step. Logs the
     layout, ms/step (all steps, and the last half), device ms/step and
     busy share, particle and boundary counts, iterations, the coupling
-    counters' share, body poses. Gates: finite state; faucet3's sheets
+    counters' share, body poses, the neighbor overflow of every step.
+    Gates: finite state; every step's overflow under the
+    max(1, N // 1000) gate of the coupled harness; faucet3's sheets
     emitted on its schedule and its particles below y = -2 deleted, both
     counted exactly (the fall to y = -2 takes ~0.7 s, so after the run
     the fluid is moved down by 2 m + its median height and the scene's
@@ -2142,7 +2212,7 @@ def phase_scenes(pair):
         world, pip = scene.world, scene.pipeline
         assert world.device.type == "cuda" and pip.device_coupling
         world.counters.enable()
-        rec = dict(iters=[], share=[], live=[], t=[])
+        rec = dict(iters=[], share=[], live=[], t=[], overflow=[])
         user_cb = scene.callback
 
         def callback(s, i, t, rec=rec, user_cb=user_cb, world=world):
@@ -2152,6 +2222,8 @@ def phase_scenes(pair):
                 c = world.counters
                 d = world.last_diagnostics.solver
                 rec["iters"].append((d.pressure_iters, d.divergence_iters))
+                rec["overflow"].append(
+                    int(world.last_diagnostics.neighbor_overflow))
                 rec["share"].append((c.cd.boundary_update_time.time
                                      + c.coupling_transmit_time.time)
                                     / c.step_time.time)
@@ -2173,6 +2245,7 @@ def phase_scenes(pair):
         c = world.counters
         d = world.last_diagnostics.solver
         rec["iters"].append((d.pressure_iters, d.divergence_iters))
+        rec["overflow"].append(int(world.last_diagnostics.neighbor_overflow))
         rec["share"].append((c.cd.boundary_update_time.time
                              + c.coupling_transmit_time.time)
                             / c.step_time.time)
@@ -2200,7 +2273,12 @@ def phase_scenes(pair):
             f"{share:.4f}")
         log(f"{tag} iterations per step (pressure, divergence): "
             f"{rec['iters']}; dynamic bodies at {poses}")
+        gate = max(1, n // 1000)
+        log(f"{tag} neighbor overflow per step {rec['overflow']} (gate < "
+            f"{gate}), clamped {int(world.last_diagnostics.candidate_overflow)}"
+            f" at the last step")
         assert finite, f"{tag} non-finite state"
+        assert max(rec["overflow"]) < gate, f"{tag} overflow {rec['overflow']}"
         if name == "faucet3":
             fl_h = scene.fluid_handles[0]
             emits = faucet_schedule(SCENE_STEPS, scene.dt)
@@ -2243,17 +2321,22 @@ def phase_scenes(pair):
         rows[name] = dict(layout=layout, coupling="device", n=n,
                           boundary=n_b, ms=ms_all, ms_last=ms_last,
                           device_ms=dev_ms, busy=busy, iters=rec["iters"],
+                          overflow=max(rec["overflow"]),
                           coupling_share=share, poses=poses)
         del scene, world, pip
         torch.cuda.empty_cache()
     # basic2 one step on each coupling path (no rigid contact yet: the
     # paths differ by float32 order; the device path's projection
     # tie-break (first index) never acts).
-    state = {}
+    # The host path's step sizes its caps before its ground's dynamic
+    # sampling grows the boundary (ROADMAP Queue 3, item 19): it drops
+    # entries at this first step, as the JAX package does; logged.
+    state, over = {}, {}
     for use in (True, False):
         scene = scenes.basic2()
-        scene.pipeline.device_coupling = use
+        scene.pipeline._device_request = use
         scene.step()
+        over[use] = int(scene.world.last_diagnostics.neighbor_overflow)
         bodies = [b for b in scene.pipeline.sync_bodies().bodies
                   if b.is_dynamic]
         state[use] = (np.concatenate([np.concatenate(
@@ -2264,8 +2347,10 @@ def phase_scenes(pair):
     gap_p = float((state[True][1] - state[False][1]).abs().max())
     log(f"[scenes basic2] one step on each coupling path: body state max "
         f"|d| {gap_b:.3e} (tol {RIGID_TOL}), positions {gap_p:.3e} m (atol "
-        f"{PATH_POS_ATOL['dfsph']})")
+        f"{PATH_POS_ATOL['dfsph']}); neighbor overflow device {over[True]}, "
+        f"host {over[False]}")
     assert gap_b <= RIGID_TOL and gap_p <= PATH_POS_ATOL["dfsph"]
+    assert over[True] == 0, "[scenes basic2] device path overflow"
     return rows, launches
 
 
@@ -2287,14 +2372,9 @@ def phase_twin_2d(pair):
     identical iterations, positions within PATH_POS_ATOL; then phase 5's
     cubic checks at dim = 2 at the kernel run's state. Returns (the
     launch counts, the 2D kernel records)."""
-    from salva_tpu_torch.ops import binning, rigid
-
     tag = "[twin 2D]"
     runs = {}
-    subs = {(pair, n): getattr(pair, n + "_plain")
-            for n in ("k_pass", "t_pass", "hoist_ff", "hoist_fb")}
-    subs[(binning, "expand")] = binning.expand_plain
-    subs[(rigid, "solve_contacts")] = rigid.solve_contacts_plain
+    subs = plain_subs(pair)
     for kind in ("kernels", "plain"):
         scene = basic2_dense()
         reset_counts(pair)
@@ -2404,9 +2484,17 @@ def phase_rigid_solve(pair):
     ms = cuda_ms(kern, 50)
     one = call_ms(kern, 20)
     plain_ms = cuda_ms(plain, 3)
-    read = nbytes(args)
+    # The bound counts what this table needs: the bodies, the live rows
+    # of the contact table and its count read once, the velocities
+    # written once; the impulses the plain version applied, each at its
+    # own body count.
+    tally = {}
+    rigid.solve_contacts_plain(*args, *consts, tally=tally)
+    rows = (con["a"], con["b"], con["p"], con["n"])
+    read = (nbytes(args[:6]) + nbytes(t[:count] for t in rows)
+            + con["count"].element_size())
     written = nbytes(out)
-    ops = count * consts[2] * OPS_RIGID_CONTACT[2]
+    ops = sum(OPS_RIGID_IMPULSE[2][k] * v for k, v in tally.items())
     t_bytes = (read + written) / HBM_BYTES_PER_S
     t_ops = ops / FP32_OPS_PER_S
     b_ms = max(t_bytes, t_ops) * 1e3
@@ -2416,12 +2504,14 @@ def phase_rigid_solve(pair):
         f"{errs[1]:.3e} (atol {RIGID_TOL}); kernel {ms:.4f} ms device time "
         f"({one:.4f} ms a call), plain {plain_ms:.4f} ms; bound "
         f"{b_ms:.3e} ms ({b_by}; {read} B read, {written} B written, "
-        f"{ops} float32 operations): one dependent chain, bound by "
-        f"latency")
+        f"{ops} float32 operations for the impulses applied "
+        f"{dict((f'{k[0]}/{k[1]}', v) for k, v in sorted(tally.items()))}):"
+        f" one dependent chain, bound by latency")
     assert count > 3, f"{tag} only {count} contacts"
     return dict(max_abs_err=max(errs), ms=ms, call_ms=one,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, contacts=count)
+                library_ms=None, contacts=count,
+                impulses={f"{k[0]}/{k[1]}": v for k, v in tally.items()})
 
 
 def main() -> int:
@@ -2431,6 +2521,11 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from salva_tpu_torch.ops import _build, pair
 
+    # Warnings (a dense cap grown after an overflow, say) go to stdout, in
+    # order with the phase that raised them.
+    warnings.showwarning = (
+        lambda message, category, *_: log(
+            f"[warning] {category.__name__}: {message}"))
     card = card_line()
     log(f"[setup] {card}")
     log(f"[setup] python {sys.version.split()[0]}, torch {torch.__version__}"
@@ -2493,6 +2588,7 @@ def main() -> int:
     t0 = time.perf_counter()
     harness = phase_coupled_harness(pair)
     paths["coupled_harness"] = harness.pop("launches")
+    kernels_harness = harness.pop("kernels")
     log(f"[coupled_harness] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     scene_rows, paths["scenes_basic2"] = phase_scenes(pair)
@@ -2525,15 +2621,20 @@ def main() -> int:
         else:
             on, launches = "dfsph_forces", paths["dfsph_forces"][name]
         extra = {key: k[key] for key in ("kernel_names", "by_kernel",
-                                         "full_grid", "boundary")
+                                         "full_grid", "boundary",
+                                         "contacts", "impulses")
                  if key in k}
-        if name in kernels_2d:
-            k2 = kernels_2d[name]
-            extra["dim2"] = dict(
+        for label, checks, path in (("dim2", kernels_2d, "twin_2d"),
+                                    ("harness", kernels_harness,
+                                     "coupled_harness")):
+            if name not in checks:
+                continue
+            k2 = checks[name]
+            extra[label] = dict(
                 {key: k2[key] for key in (
                     "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
                     "bound_by", "full_grid", "boundary") if key in k2},
-                launches=paths["twin_2d"][name], launches_path="twin_2d")
+                launches=paths[path][name], launches_path=path)
         records.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches,

@@ -63,13 +63,6 @@ class FluidsPipeline:
             use = self.liquid_world.device.type == "cuda"
         return bool(use)
 
-    @device_coupling.setter
-    def device_coupling(self, use: Optional[bool]):
-        """Choose the path (None = by device) before the first step."""
-        if self._device is not None:
-            raise RuntimeError("the coupling path is fixed at the first step")
-        self._device_request = use
-
     def _maybe_device(self):
         if self._device is not None:
             return self._device

@@ -136,6 +136,15 @@ def _scatter_drop(size: int, fill, idx, values):
     return out[:size]
 
 
+def inv_width(width: float) -> float:
+    """The float32 reciprocal of a cell width. The JAX package divides by
+    a constant width inside jit, and XLA compiles that division as a
+    multiplication by the constant's float32 reciprocal; a particle on a
+    cell edge lands in the cell that rounding gives (a true division puts
+    some of them one cell lower)."""
+    return float(np.float32(1.0) / np.float32(width))
+
+
 def cell_of(spec: DenseGridSpec, positions, origin=None):
     """Flat interior-clamped cell id of each position + clamp mask.
 
@@ -146,7 +155,8 @@ def cell_of(spec: DenseGridSpec, positions, origin=None):
     if origin is None:
         origin = torch.tensor(spec.origin, dtype=positions.dtype, device=dev)
     dims = torch.tensor(spec.dims, dtype=torch.int32, device=dev)
-    c = torch.floor((positions - origin) / spec.cell_width).to(torch.int32)
+    c = torch.floor((positions - origin) * inv_width(spec.cell_width)).to(
+        torch.int32)
     clamped_mask = torch.any((c < 1) | (c >= dims - 1), dim=-1)
     c = torch.minimum(torch.maximum(c, torch.ones_like(dims)), dims - 2)
     flat = c[..., 0]

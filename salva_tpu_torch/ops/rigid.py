@@ -89,10 +89,15 @@ class _Bodies:
 
 def solve_contacts_plain(trans, rot, linvel, angvel, inv_mass, inv_inertia,
                          a, b, p, n, count, restitution: float,
-                         friction: float, iterations: int):
+                         friction: float, iterations: int, tally=None):
     """The plain PyTorch version (the loop runs on the host, the
     arithmetic in float32 tensor ops on the inputs' device). Contacts at
-    or past ``count`` change nothing, so the loop stops there."""
+    or past ``count`` change nothing, so the loop stops there.
+
+    ``tally``, a dict, counts the impulses applied, keyed by
+    ``("normal" | "friction", bodies)`` with ``bodies`` 1 for a contact
+    against a fixed collider and 2 for one between two bodies: the work
+    this data needs (a bound on the solve's time reads it)."""
     bodies = _Bodies(trans, rot, linvel, angvel, inv_mass, inv_inertia)
     num = int(count)
     a_l, b_l = a[:num].tolist(), b[:num].tolist()
@@ -118,6 +123,9 @@ def solve_contacts_plain(trans, rot, linvel, angvel, inv_mass, inv_inertia,
             kn = pair_mass(nk)
             if not bool(kn > 0.0):
                 continue
+            nb = 2 if kb >= 0 else 1
+            if tally is not None:
+                tally["normal", nb] = tally.get(("normal", nb), 0) + 1
             j = -(1.0 + restitution) * vn / kn
             new_acc = torch.clamp(acc[k] + j, min=0.0)
             dj = new_acc - acc[k]
@@ -136,6 +144,8 @@ def solve_contacts_plain(trans, rot, linvel, angvel, inv_mass, inv_inertia,
                 lim = friction * acc[k]
                 jt = torch.clamp(-vt_norm / kt, -lim, lim)
                 apply(jt * tdir)
+                if tally is not None:
+                    tally["friction", nb] = tally.get(("friction", nb), 0) + 1
     return bodies.lin, bodies.ang
 
 

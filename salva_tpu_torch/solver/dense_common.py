@@ -138,7 +138,7 @@ class DenseCtx:
             )
             anchor = torch.tensor(spec_f.origin, dtype=torch.float32,
                                   device=dev)
-            shift = torch.floor((lo - 2.0 * h - anchor) / h)
+            shift = torch.floor((lo - 2.0 * h - anchor) * dg.inv_width(h))
             shift = torch.minimum(
                 torch.clamp(shift, min=0.0),
                 torch.from_numpy(max_shift).to(dev),

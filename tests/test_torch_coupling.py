@@ -10,8 +10,18 @@ emits a boundary particle at its projection, and pressure feedback
 (``transmit_forces``) pushes a submerged dynamic ball up. Each step of
 both packages is held: fluid and boundary positions within 2e-6 m, body
 translation, rotation and velocities within 1e-5, iterations identical,
-contact counts exact. Also ``unregister_coupling``, and a TriMesh
-collider refused by name on either path.
+contact counts exact. Also ``unregister_coupling``, a TriMesh collider
+refused by name on either path, and a walled box (basic3's walls at a
+tenth of their size) on the dense layout: its two coupling paths equal
+to each other, and each held to the JAX package's on the same path.
+
+The port writes the static samples at their poses before the first step
+(``ColliderCouplingSet.presample``, ``DeviceColliderCoupling._freeze``),
+because a coupled step sizes its dense layout from the boundary
+particles it holds when it starts; the JAX package writes none there on
+its host path and unposed ones on its device path, and drops contacts
+at the first step. The tests that hold a dense coupled world to JAX
+give JAX the same input (:func:`pose_static_samples`).
 """
 
 import numpy as np
@@ -230,19 +240,46 @@ def test_trimesh_collider_is_refused(device_coupling):
         pip.step((0.0, -9.81, 0.0), 0.01)
 
 
-def _walled_box(device_coupling):
+def pose_static_samples(pip):
+    """Give a JAX pipeline the port's first-step input: every static
+    sample written at its collider's pose before the first step, as the
+    port writes it (``ColliderCouplingSet.presample`` on the host path,
+    ``DeviceColliderCoupling._freeze`` on the device path). A coupled
+    step sizes its dense layout from the boundary particles the world
+    holds when it starts; the JAX package holds none there on its host
+    path and the unposed samples on its device path. On the device path
+    the coupling is frozen first (its slot blocks stay; the posed points
+    overwrite the unposed ones in place), with zero velocities as the
+    port's freeze writes them."""
+    device = bool(pip._device_request)
+    if device:
+        pip._maybe_device()
+    rw = pip.bodies
+    for e in pip.coupling.entries.values():
+        if e.sampling.kind != "static":
+            continue
+        R, t = rw.collider_pose(e.collider)
+        pts = e.sampling.points @ R.T + t
+        vel = None if device else rw.body_of_collider(
+            e.collider).velocities_at_points(pts)
+        pip.liquid_world.set_boundary_particles(e.boundary, pts, vel)
+
+
+def _walled_box(pkg, device_coupling):
     """basic3's construction at a tenth of its size: a fixed ground
     cuboid and four static-sampled walls around a 6^3 block, in a small
     domain (the dense layout's grid stays small on the CPU)."""
-    from salva_tpu_torch import scenes, shapes
-    from salva_tpu_torch.coupling import FluidsPipeline
-    from salva_tpu_torch.world import Fluid
+    coupling, shapes, _, _, Fluid, kw = _pkg(pkg)
+    if pkg == "jax":
+        from salva_tpu import scenes
+    else:
+        from salva_tpu_torch import scenes
 
     r = RADIUS
-    pip = FluidsPipeline(r, 2.0, dim=3, layout="dense", fit_grid=False,
-                         domain=((-0.7, -0.3, -0.7), (0.7, 1.0, 0.7)),
-                         device="cpu")
-    pip.device_coupling = device_coupling
+    pip = coupling.FluidsPipeline(
+        r, 2.0, dim=3, layout="dense", fit_grid=False,
+        domain=((-0.7, -0.3, -0.7), (0.7, 1.0, 0.7)),
+        device_coupling=device_coupling, **kw)
     pos = scenes.cube_fluid((6, 6, 6), r)
     pos[:, 1] += 0.1 + 6 * r
     pip.liquid_world.add_fluid(Fluid(pos))
@@ -257,6 +294,14 @@ def _walled_box(device_coupling):
     return pip
 
 
+def _dense_record(world):
+    d = world.last_diagnostics
+    return (d.solver.pressure_iters, d.solver.divergence_iters,
+            int(d.ncontacts_ff), int(d.ncontacts_fb),
+            int(d.neighbor_overflow), world._auto_caps,
+            world._fb_cols_cache)
+
+
 def test_host_and_device_paths_agree_on_the_dense_layout():
     """A walled box on the dense layout, 3 steps on each coupling path:
     identical iterations, contact counts, resolved caps and fb table, and
@@ -266,20 +311,33 @@ def test_host_and_device_paths_agree_on_the_dense_layout():
     sized for no boundary drops contacts at the walls' corners)."""
     runs = {}
     for device_coupling in (True, False):
-        pip = _walled_box(device_coupling)
+        pip = _walled_box("torch", device_coupling)
+        assert pip.device_coupling == device_coupling
         w = pip.liquid_world
         rec = []
         for _ in range(3):
             pip.step((0.0, -9.81, 0.0), 1.0 / 200.0)
-            d = w.last_diagnostics
-            rec.append((d.solver.pressure_iters, d.solver.divergence_iters,
-                        int(d.ncontacts_ff), int(d.ncontacts_fb),
-                        int(d.neighbor_overflow), w._auto_caps,
-                        w._fb_cols_cache))
+            rec.append(_dense_record(w))
         runs[device_coupling] = (rec, w.fluid_positions(0))
-        with pytest.raises(RuntimeError):
-            pip.device_coupling = None
     assert runs[True][0] == runs[False][0]
     assert not any(r[4] for r in runs[True][0])  # no overflow
     assert runs[True][0][0][5][1] > 8  # the boundary cap the walls need
     np.testing.assert_array_equal(runs[True][1], runs[False][1])
+
+
+@pytest.mark.parametrize("device_coupling", [False, True],
+                         ids=["host", "device"])
+def test_walled_box_matches_jax(device_coupling):
+    """The walled box on the dense layout against the JAX package on the
+    same coupling path, its static samples posed before the first step
+    (:func:`pose_static_samples`): 3 steps, each held by ``_hold``, with
+    the same resolved caps and fb table and no overflow."""
+    pj = _walled_box("jax", device_coupling)
+    pt = _walled_box("torch", device_coupling)
+    pose_static_samples(pj)
+    for step in range(3):
+        pj.step((0.0, -9.81, 0.0), 1.0 / 200.0)
+        pt.step((0.0, -9.81, 0.0), 1.0 / 200.0)
+        _hold(pj, pt, None, step)
+        rj, rt = (_dense_record(p.liquid_world) for p in (pj, pt))
+        assert rt[4:] == rj[4:] == (0, rj[5], rj[6]), (rt, rj)

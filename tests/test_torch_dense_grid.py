@@ -90,6 +90,33 @@ def test_bin_particles_matches(dim, cap):
 
 
 @pytest.mark.parametrize("dim", [2, 3])
+def test_bin_particles_on_cell_edges_matches(dim):
+    """A lattice spaced h / 2 in basic3's domain (its origin -3.3 at
+    h = 0.2): every other lattice plane lies on a cell edge, where the
+    jitted JAX binning (XLA multiplies by the width's float32 reciprocal)
+    and a true float32 division put particles in different cells. Same
+    slots and no overflow at cap 8, as the JAX package bins them."""
+    mins, maxs = (-2.9,) * dim, (2.9,) * dim
+    axes = [np.arange(-2, 3, dtype=np.float32) * np.float32(0.1)] * dim
+    pos = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, dim)
+    pos = pos.astype(np.float32)
+    alive = np.ones(len(pos), bool)
+    js = jdg.spec_for_aabb(mins, maxs, H, 8)
+    ts = tdg.spec_for_aabb(mins, maxs, H, 8)
+    pj, aj, pt, at = _both(pos, alive)
+    jb = _jbin(js, pj, aj)
+    tb = tdg.bin_particles(ts, pt, at)
+    _assert_same(jb, tb, ("slot_of", "in_grid", "mask", "grid_src",
+                          "overflow", "clamped"))
+    assert int(tb.overflow) == 0
+    # The fixture sits on the edges that tell the two roundings apart.
+    origin = torch.tensor(ts.origin, dtype=torch.float32)
+    true_div = torch.floor((pt - origin) / torch.full((dim,), H))
+    assert bool((true_div != torch.floor(
+        (pt - origin) * tdg.inv_width(H))).any())
+
+
+@pytest.mark.parametrize("dim", [2, 3])
 def test_bin_particles_window_origin_matches(dim):
     """Fitted-window binning: a smaller window with a traced origin, and
     out-of-window particles dropped instead of clamped."""
