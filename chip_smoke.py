@@ -115,7 +115,34 @@ phases:
    state; faucet3's emission schedule and its deletion below y = -2
    counted exactly; basic2 / layers2's body boundaries at their poses;
    the custom forces' attractors), and basic2 one step on each coupling
-   path.
+   path;
+13. (after the gather phases) adaptive_ckpt_97k (``phase_adaptive_ckpt``):
+   the DFSPH dam break with dfsph_97k_visc's forces,
+   ``adaptive_timestep=True`` and ``debug_checks=True``, 9 steps of 1/60
+   s: substeps, iterations, overflow gate and ms per step, the device
+   busy share per step from a second, profiled run (bitwise equal to the
+   first); at least one step must split; saved with ``io.save_world``
+   after step 4 (the file's size), loaded on the card with
+   ``io.load_world`` and resumed beside the uninterrupted world, bitwise
+   equal at every step; a plain twin to the first split step (same
+   substeps and iterations, its gap per step logged; the split step
+   alone, from the kernel run's state and from the plain twin's, within
+   PATH_POS_ATOL of the plain versions' step) and two witnesses of the
+   gap's cause (the kernels' split step from the plain twin's state and
+   from a 1-ulp nudge of the kernel run's); phase 5's cubic checks at
+   its last state;
+14. trimesh_and_queries (``phase_trimesh_queries``): a 320-triangle
+   icosphere voxelized on the card (bitwise equal to the CPU's field at a
+   small resolution) and sampled by the native sampler (g++, built at
+   first use), resting on the floor twice under the 97k block on the
+   device coupling path (static sampling; DynamicContactSampling through
+   its VoxelSdf), 10 steps through phase 11's gates with the coupling
+   share, the emitted contact samples and the boundary cell occupancy
+   per step; the shape and box queries against the same field and box
+   evaluated on the CPU; phase 5's cubic checks at the mesh world's
+   state; the device busy share over two profiled steps and two steps
+   split by stage (``stage_split``); ``z_sort`` of the gather_dfsph world
+   beside an unsorted twin for 5 steps, matched by particle.
 
 Usage, from the repository root:  python3 chip_smoke.py
 Exits non-zero without a result line when no CUDA device is present or
@@ -135,7 +162,10 @@ numbers at dim = 2, with the 2D twin's launches; ``harness``: its
 phase-11 numbers at the 64,000-particle harness's state, with the
 harness's launches; ``contacts`` / ``impulses`` for ``rigid_solve``:
 its table's live rows and the impulses its bound counts). The coupled
-phases' numbers are logged on one ``[coupled] summary`` JSON line.
+phases' numbers are logged on one ``[coupled] summary`` JSON line, and
+phases 13-14's on one ``[host world] summary`` line; ``adaptive`` /
+``mesh``: a kernel's phase-13 / phase-14 numbers at the adaptive path's
+and the mesh world's state.
 """
 
 import json
@@ -346,6 +376,41 @@ HARNESS_TWIN_STEPS = 3
 WALL_INNER = 2.3
 SCENE_STEPS = 20
 TWIN_2D_STEPS = 10
+# Phase 13 (adaptive_ckpt_97k): the dfsph_forces dam break with CFL
+# substepping and the debug checks, ADAPTIVE_STEPS steps of ADAPTIVE_DT
+# (0.15 s, the span bench.py's domain box is sized for; at h = 0.2 the CFL
+# bound 2r / |v + a t| * 0.4 splits a 1/60 step once the predicted speed
+# passes 2.4 m/s), saved after step CKPT_AFTER and resumed.
+ADAPTIVE_DT = 1.0 / 60.0
+ADAPTIVE_STEPS = 9
+CKPT_AFTER = 4
+# Phase 14 (trimesh_and_queries): an icosphere of 320 triangles, radius
+# MESH_RADIUS, resting on the floor twice (static sampling through the
+# native sampler at x = -MESH_X, dynamic contact sampling through its
+# VoxelSdf at x = +MESH_X), under the dam break's block lifted by
+# MESH_LIFT so that its bottom starts just above the spheres; MESH_STEPS
+# steps of DT on the device coupling path. Then z_sort on the gather_dfsph
+# world beside an unsorted twin, ZSORT_STEPS steps.
+MESH_RADIUS = 0.4
+MESH_X = 1.2
+MESH_LIFT = 0.8
+MESH_STEPS = 10
+# The boundary cap of the mesh world. The auto tier sizes it from the
+# boundary particles present before the first step (the floor and the
+# static samples: 16), and its overflow self-heal grows the fluid cap
+# only, as in the JAX package; the contact samples projected onto the
+# dynamic sphere pile up past 16 in a cell within two steps (at 12^3 on
+# the CPU: 8, then 12 entries dropped). Over the phase's steps on an H100
+# the boundary cell occupancy peaks at 26; the cap is the auto rule's
+# tier for that peak (the next multiple of 8 above occupancy + 2), and
+# each step checks that the occupancy stays within it. The step's time
+# grows with this cap: the plain boundary-volume fold goes as its
+# square, the boundary-force fold as the cap.
+MESH_CAP_B = 32
+ZSORT_STEPS = 5
+# A query hit whose host distance lies this close to the particle radius
+# may round to the other side on the card (float32 SDF on either device).
+QUERY_TIE = 1e-5
 # Rigid bodies: the solve kernel vs its plain version (velocities, m/s
 # and rad/s), and the two coupling paths after one step of basic2 (body
 # state): float32 summation order and FMA contraction only.
@@ -404,14 +469,16 @@ def card_line() -> str:
 
 def dam_break_world(device, solver="dfsph", sparse_boundary=True,
                     forces=(), n_target=N_TARGET, layout="auto",
-                    dense_caps=(None, None), kernels=("cubic", "cubic")):
+                    dense_caps=(None, None), kernels=("cubic", "cubic"),
+                    adaptive=False):
     """The bench.py dam break (``run_config``): a cube of
     round(n_target^(1/3))^3 particles (46^3 by default) one radius above
     a sampled Cuboid floor, moving down at 2 m/s, in a static domain;
     caps (unless ``dense_caps`` names them), window and fb table
     auto-resolve. ``forces``: the fluid's forces, as (class name in
     salva_tpu_torch/forces.py or scenes.py, arguments) pairs; ``kernels``:
-    the SPH kernels (kernel_density, kernel_gradient)."""
+    the SPH kernels (kernel_density, kernel_gradient); ``adaptive``: CFL
+    substepping (``adaptive_timestep``)."""
     from salva_tpu_torch import forces as force_specs
     from salva_tpu_torch import scenes, shapes
     from salva_tpu_torch.config import DFSPHConfig, IISPHConfig
@@ -430,7 +497,8 @@ def dam_break_world(device, solver="dfsph", sparse_boundary=True,
     world = LiquidWorld(solver=cfg, particle_radius=radius,
                         smoothing_factor=2.0, dim=3, domain=domain,
                         layout=layout, dense_cap=dense_caps[0],
-                        dense_cap_boundary=dense_caps[1], device=device)
+                        dense_cap_boundary=dense_caps[1],
+                        adaptive_timestep=adaptive, device=device)
     world.sim = world.sim.replace(dense_sparse_boundary=sparse_boundary,
                                   kernel_density=kernels[0],
                                   kernel_gradient=kernels[1])
@@ -791,6 +859,70 @@ def busy_share(world, steps=2, step=None):
     if device_us <= 0:
         return None, None
     return device_us / 1e3 / wall_ms, device_us / 1e3 / steps
+
+
+def stage_split(step, steps=2):
+    """Each leaf stage of ``steps`` calls of ``step()`` on a dense world
+    (binning, the fb table, boundary volumes and forces, the pair kernels,
+    the unbinning, the convergence syncs, the coupling's boundary update
+    and force transmission) between two ``torch.cuda.synchronize()``
+    calls on the host clock, as ``tools/torch_step_profile.py`` splits a
+    step. Returns ({stage: ms a step}, synchronized ms a step); the rest
+    of the step is the difference."""
+    import functools
+
+    from salva_tpu_torch.coupling import device_pipeline
+    from salva_tpu_torch.geometry import dense_grid as tdg
+    from salva_tpu_torch.ops import binning, pair
+    from salva_tpu_torch.solver import dense_common, dfsph_dense
+
+    times, depth = {}, [0]
+
+    def timed(label, fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if depth[0]:
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            depth[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                torch.cuda.synchronize()
+                times[label] = (times.get(label, 0.0)
+                                + (time.perf_counter() - t0) * 1e3 / steps)
+        return wrapper
+
+    ctx, dev = dense_common.DenseCtx, device_pipeline.DeviceColliderCoupling
+    stages = (
+        (tdg, "bin_particles", "binning, full grid"),
+        (tdg, "bin_particles_active", "binning, compact (boundary)"),
+        (binning, "expand", "expand kernel"),
+        (tdg, "from_grid_multi", "unbinning"),
+        (pair, "hoist_ff", "hoist_ff kernel"),
+        (pair, "hoist_fb", "hoist_fb kernel"),
+        (dfsph_dense, "per_fluid_mean_max_grid", "convergence reductions"),
+        (dfsph_dense, "_converged", "convergence host syncs"),
+        (ctx, "k_pass", "k_pass kernel"),
+        (ctx, "t_pass", "t_pass kernel"),
+        (ctx, "boundary_forces", "boundary forces (plain fold)"),
+        (ctx, "_compute_boundary_volumes", "boundary volumes (plain fold)"),
+        (ctx, "_fb_table", "fb table"),
+        (dev, "update_boundaries", "coupling: boundary update"),
+        (dev, "transmit_forces", "coupling: force transmission"),
+    )
+    subs = {(mod, name): timed(label, getattr(mod, name))
+            for mod, name, label in stages}
+    with substituted(subs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3 / steps
+    return dict(sorted(times.items(), key=lambda kv: -kv[1])), total
 
 
 def step_gates(world, n):
@@ -2514,6 +2646,495 @@ def phase_rigid_solve(pair):
                 impulses={f"{k[0]}/{k[1]}": v for k, v in tally.items()})
 
 
+def adaptive_record(world):
+    """(substeps, (pressure, divergence) iterations, overflow) of the
+    world's last step."""
+    s_ = world.last_diagnostics.solver
+    return (world.counters.nsubsteps,
+            (s_.pressure_iters, s_.divergence_iters),
+            int(world.last_diagnostics.neighbor_overflow))
+
+
+def same_state(a, b):
+    fa, fb = a.fluids_state, b.fluids_state
+    return (torch.equal(fa.positions, fb.positions)
+            and torch.equal(fa.velocities, fb.velocities)
+            and torch.equal(fa.alive, fb.alive))
+
+
+def phase_adaptive_ckpt(pair):
+    """Phase 13, adaptive_ckpt_97k: bench.py's dam break at 97,336
+    particles with dfsph_97k_visc's forces (``FORCES``), DFSPH on the dense
+    layout, ``adaptive_timestep=True`` and ``debug_checks=True``,
+    ADAPTIVE_STEPS steps of ADAPTIVE_DT through ``LiquidWorld.step``. Per
+    step: substeps, iterations, overflow against the max(1, N // 1000)
+    gate, ms/step; a second fresh world takes the same steps under the
+    profiler (each step's device busy share) and must end bitwise equal.
+    Fails if no step split. After step CKPT_AFTER the world is saved with
+    ``io.save_world`` (the file's size logged) and loaded into a fresh
+    world on the card with ``io.load_world``; both then take the remaining
+    steps, bitwise equal with identical substeps and iterations at every
+    step. A plain twin (every kernel wrapper replaced by its plain
+    version) runs to the first split step: the same substeps and
+    iterations on every step, its gap to the kernel run logged; the split
+    step alone, from the kernel run's state and from the plain twin's,
+    within PATH_POS_ATOL of the plain versions' step; two witnesses of the
+    gap's cause logged beside it. Then phase
+    5's cubic checks at the path's state after its last step."""
+    import tempfile
+
+    from salva_tpu_torch import io as tio
+
+    tag = "[adaptive_ckpt_97k]"
+
+    def fresh():
+        w = dam_break_world("cuda", "dfsph", forces=FORCES, adaptive=True)
+        w.debug_checks = True
+        return w
+
+    world = fresh()
+    n = int(world.fluids_state.alive.sum())
+    gate = max(1, n // 1000)
+    assert world.timestep_manager.adaptive and world.device.type == "cuda"
+    reset_counts(pair)
+    recs, ms, kernel_pos, restored, ckpt_bytes = [], [], [], None, 0
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    path = os.path.join(tmp, "adaptive_ckpt_97k.npz")
+    # The state before the first split step, for the plain twin's step
+    # from the same input (saved before every step until one splits).
+    pre_split = os.path.join(tmp, "pre_split.npz")
+    tio.save_world(world, pre_split)
+    for i in range(ADAPTIVE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        world.step(ADAPTIVE_DT, GRAVITY)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        recs.append(adaptive_record(world))
+        kernel_pos.append(world.fluids_state.positions.clone())
+        if all(r[0] == 1 for r in recs):
+            tio.save_world(world, pre_split)
+        if restored is not None:
+            restored.step(ADAPTIVE_DT, GRAVITY)
+            again = adaptive_record(restored)
+            same = same_state(world, restored)
+            log(f"{tag} step {i + 1}: the resumed world "
+                f"{'equals' if same else 'DIFFERS from'} the "
+                f"uninterrupted one bitwise; substeps / iterations / "
+                f"overflow {again} vs {recs[-1]}")
+            assert same and again == recs[-1], f"{tag} resume differs"
+        if i + 1 == CKPT_AFTER:
+            t1 = time.perf_counter()
+            tio.save_world(world, path)
+            save_s = time.perf_counter() - t1
+            ckpt_bytes = os.path.getsize(path)
+            t1 = time.perf_counter()
+            restored = tio.load_world(path)
+            load_s = time.perf_counter() - t1
+            assert restored.device.type == "cuda"
+            assert same_state(world, restored)
+            log(f"{tag} saved after step {i + 1}: {ckpt_bytes} bytes "
+                f"in {save_s:.3f} s, loaded on the card in "
+                f"{load_s:.3f} s (adaptive "
+                f"{restored.timestep_manager.adaptive}, debug checks "
+                f"{restored.debug_checks}, caps {restored._auto_caps}, "
+                f"window {restored._fitted_dims})")
+    launches = read_counts(pair)
+    for i, (rec, t) in enumerate(zip(recs, ms)):
+        log(f"{tag} step {i + 1}: {rec[0]} substeps, iterations (pressure, "
+            f"divergence) {rec[1]}, overflow {rec[2]} (gate < {gate}), "
+            f"{t:.3f} ms")
+    log(f"{tag} N={n}: {sum(ms) / len(ms):.3f} ms/step over "
+        f"{ADAPTIVE_STEPS} steps of {ADAPTIVE_DT:.6f} s "
+        f"({sum(r[0] for r in recs)} substeps); caps {world._auto_caps}, "
+        f"window {world._fitted_dims}, grid refits {world.grid_refit_count}"
+        f"; kernel launches (the timed and the resumed world's steps): "
+        f"{launches}")
+    for k in MAIN_PATH_KERNELS:
+        assert launches[k] > 0, f"{k} was never launched on {tag}"
+    assert all(r[2] < gate for r in recs), f"{tag} overflow gate"
+    split = [i for i, r in enumerate(recs) if r[0] > 1]
+    assert split, f"{tag} no step took more than one substep: {recs}"
+    del restored
+    torch.cuda.empty_cache()
+
+    # Per-step busy share: a second fresh world under the profiler.
+    busy, dev_ms = [], []
+    twin = fresh()
+    for _ in range(ADAPTIVE_STEPS):
+        b, d = busy_share(twin, steps=1,
+                          step=lambda: twin.step(ADAPTIVE_DT, GRAVITY))
+        busy.append(None if b is None else round(b, 4))
+        dev_ms.append(None if d is None else round(d, 3))
+    same = same_state(world, twin)
+    log(f"{tag} a second run under the profiler: device busy share per "
+        f"step {busy}, device ms per step {dev_ms}; end state bitwise equal "
+        f"to the timed run: {same}")
+    assert same, f"{tag} two runs differ"
+    del twin
+    torch.cuda.empty_cache()
+
+    # The plain twin (every kernel wrapper replaced by its plain version):
+    # from step 1 to the first split step, the same substeps and
+    # iterations on every step, its gap to the kernel run logged per step;
+    # then the first split step alone from the kernel run's state before
+    # it, positions within PATH_POS_ATOL. Two witnesses of the gap's
+    # cause: the kernel run's split step taken from the plain twin's state
+    # before it (the kernels on both sides; the input gap is the earlier
+    # steps' summation order), and from the kernel run's own state with
+    # every live x nudged by one ulp. If either drifts from the kernel run
+    # as far as the plain twin does, the gap is the state's amplification
+    # of rounding, not a kernel fault; the split step from the plain
+    # twin's state is also taken by the plain versions, a second one-step
+    # hold.
+    first = split[0]
+    alive = world.fluids_state.alive
+
+    def gap(pos, i):
+        return float((pos[alive] - kernel_pos[i][alive]).abs().max())
+
+    plain_pre = os.path.join(tmp, "plain_pre_split.npz")
+    reset_counts(pair)
+    with substituted(plain_subs(pair)):
+        plain = fresh()
+        plain_recs, plain_gaps = [], []
+        for i in range(first + 1):
+            if i == first:
+                tio.save_world(plain, plain_pre)
+            plain.step(ADAPTIVE_DT, GRAVITY)
+            plain_recs.append(adaptive_record(plain))
+            plain_gaps.append(gap(plain.fluids_state.positions, i))
+        del plain
+        plain = tio.load_world(pre_split)
+        plain.step(ADAPTIVE_DT, GRAVITY)
+        split_rec = adaptive_record(plain)
+        dpos = gap(plain.fluids_state.positions, first)
+        del plain
+        plain = tio.load_world(plain_pre)
+        in_gap = (gap(plain.fluids_state.positions, first - 1)
+                  if first else 0.0)
+        plain.step(ADAPTIVE_DT, GRAVITY)
+        plain_on_plain = plain.fluids_state.positions.clone()
+    plain_launches = read_counts(pair)
+    del plain
+    witness = tio.load_world(plain_pre)
+    witness.step(ADAPTIVE_DT, GRAVITY)
+    from_plain = gap(witness.fluids_state.positions, first)
+    hold2 = float((witness.fluids_state.positions[alive]
+                   - plain_on_plain[alive]).abs().max())
+    witness_rec = adaptive_record(witness)
+    del witness, plain_on_plain
+    nudged = tio.load_world(pre_split)
+    fl = nudged.fluids_state
+    x = fl.positions
+    bumped = torch.stack([torch.nextafter(x[:, 0], torch.full_like(
+        x[:, 0], float("inf"))), x[:, 1], x[:, 2]], dim=1)
+    nudged.fluids_state = fl.replace(
+        positions=torch.where(fl.alive[:, None], bumped, x))
+    nudged.step(ADAPTIVE_DT, GRAVITY)
+    from_nudge = gap(nudged.fluids_state.positions, first)
+    nudge_rec = adaptive_record(nudged)
+    del nudged
+    tmp_dir.cleanup()
+    log(f"{tag} plain twin from step 1 to the first split step "
+        f"({first + 1}): {plain_recs} vs the kernels' {recs[:first + 1]}; "
+        f"max |dpos| per step {[f'{g:.3e}' for g in plain_gaps]} m "
+        f"(logged); the split step alone from the kernel run's state "
+        f"before it: {split_rec} vs {recs[first]}, max |dpos| {dpos:.3e} m "
+        f"(atol {PATH_POS_ATOL['dfsph']}); launches {plain_launches}")
+    log(f"{tag} witnesses, step {first + 1} through the kernels: from the "
+        f"plain twin's state before it ({in_gap:.3e} m from the kernel "
+        f"run's) {witness_rec}, {from_plain:.3e} m from the kernel run "
+        f"and {hold2:.3e} m from the plain versions' step on that state "
+        f"(atol {PATH_POS_ATOL['dfsph']}); from the kernel run's state "
+        f"with every live x one ulp up {nudge_rec}, {from_nudge:.3e} m "
+        f"from the kernel run")
+    assert not any(plain_launches.values()), f"{tag} the plain run launched"
+    assert [r[:2] for r in plain_recs] == [r[:2] for r in recs[:first + 1]], \
+        f"{tag} plain substeps / iterations differ"
+    assert split_rec[:2] == recs[first][:2], f"{tag} plain split step"
+    assert dpos <= PATH_POS_ATOL["dfsph"], f"{tag} plain positions {dpos}"
+    assert hold2 <= PATH_POS_ATOL["dfsph"], \
+        f"{tag} kernels vs plain on the plain twin's state {hold2}"
+    del kernel_pos
+    torch.cuda.empty_cache()
+
+    mod = sys.modules[__name__]
+    with substituted({(mod, "log"): lambda m: print(
+            m.replace("[kernels]", "[kernels adaptive]", 1), flush=True)}):
+        checks = phase_kernels(pair, world, full=False)
+    del world
+    torch.cuda.empty_cache()
+    return dict(n=n, ms=ms, records=recs, busy=busy, device_ms=dev_ms,
+                ckpt_bytes=ckpt_bytes, launches=launches, kernels=checks,
+                plain_gaps=plain_gaps, split_gap=dpos,
+                witness_gaps=dict(input=in_gap, from_plain_state=from_plain,
+                                  from_nudge=from_nudge, hold=hold2))
+
+
+def icosphere(subdivisions=2, radius=MESH_RADIUS):
+    """A closed icosphere of 20 * 4^subdivisions triangles: (float32
+    vertices, int32 indices)."""
+    t = (1.0 + 5.0 ** 0.5) / 2.0
+    verts = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t),
+             (0, 1, t), (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1),
+             (-t, 0, -1), (-t, 0, 1)]
+    verts = [np.asarray(v, np.float64) / np.linalg.norm(v) for v in verts]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    for _ in range(subdivisions):
+        mids, out = {}, []
+
+        def mid(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mids:
+                m = verts[a] + verts[b]
+                verts.append(m / np.linalg.norm(m))
+                mids[key] = len(verts) - 1
+            return mids[key]
+
+        for a, b, c in faces:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            out += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = out
+    return ((np.asarray(verts) * radius).astype(np.float32),
+            np.asarray(faces, np.int32))
+
+
+def mesh_pipeline(mesh, samples):
+    """bench.py's dam break inside a FluidsPipeline on the card (the
+    device coupling path): the block lifted by MESH_LIFT (the domain's top
+    with it) over the sampled Cuboid floor, and ``mesh`` on two fixed
+    bodies resting on the floor, static-sampled (``samples``) at x =
+    -MESH_X and with DynamicContactSampling at x = +MESH_X; the boundary
+    cap MESH_CAP_B. Returns the pipeline, the domain and the two bodies'
+    translations."""
+    from salva_tpu_torch import scenes, shapes
+    from salva_tpu_torch.coupling import ColliderSampling, FluidsPipeline
+    from salva_tpu_torch.sampling import shape_surface_sample
+    from salva_tpu_torch.world import Boundary, Fluid
+
+    n_side = round(N_TARGET ** (1.0 / 3.0))
+    radius = 0.05
+    half = n_side * radius
+    wall = max(1.5 * half, half + 0.5)
+    domain = ((-wall - 0.3, -0.4, -wall - 0.3),
+              (wall + 0.3, 2.0 * half + 1.0 + MESH_LIFT, wall + 0.3))
+    pip = FluidsPipeline(radius, 2.0, dim=3, domain=domain)
+    world = pip.liquid_world
+    world._dense_cap_boundary_request = MESH_CAP_B
+    pos = scenes.cube_fluid((n_side,) * 3, radius)
+    pos[:, 1] += half + radius + MESH_LIFT
+    vel = np.zeros_like(pos)
+    vel[:, 1] = -2.0
+    world.add_fluid(Fluid(pos, density0=1000.0, velocities=vel,
+                          nonpressure_forces=[]))
+    floor = shape_surface_sample(shapes.Cuboid((wall, 0.1, wall)), radius, 3)
+    floor[:, 1] -= 0.1
+    world.add_boundary(Boundary(floor))
+    poses = []
+    for x, sampling in ((-MESH_X, ColliderSampling.static_sampling(samples)),
+                        (MESH_X, ColliderSampling.dynamic_contact_sampling())):
+        t = np.float32([x, MESH_RADIUS, 0.0])
+        body = pip.bodies.add_body("fixed", translation=t)
+        co = pip.bodies.add_collider(body, mesh)
+        bo = world.add_boundary(Boundary(np.zeros((0, 3))))
+        pip.coupling.register_coupling(bo, co, sampling)
+        poses.append(t)
+    return pip, domain, poses
+
+
+def host_query_check(world, mesh, mesh_field, pose, box):
+    """A card-vs-CPU consistency check of the queries: the shape query of
+    ``world`` with ``mesh`` (answered through its voxelized field on the
+    card) and its box query against the same field evaluated in float64
+    on the CPU and the same box in numpy float64: hits equal except where
+    the CPU's distance lies within QUERY_TIE of the particle radius.
+    Returns the counts."""
+    from salva_tpu_torch.world import _slot_ids
+
+    r = world.particle_radius
+    eye = np.eye(3, dtype=np.float32)
+    got_shape = world.particles_intersecting_shape(mesh, eye, pose)
+    got_box = world.particles_intersecting_aabb(*box)
+    want_shape, want_box, ties = [], [], 0
+    for kind, state, alive, owner in world._query_sets():
+        pos = state.positions.cpu().numpy()
+        d = mesh_field.sdf(torch.from_numpy(pos - pose).double()).numpy()
+        hits = np.where(alive & (d <= r))[0]
+        ties += int((alive & (np.abs(d - r) <= QUERY_TIE)).sum())
+        want_shape.extend(_slot_ids(kind, owner, alive, hits))
+        p64 = pos.astype(np.float64)
+        off = p64 - np.clip(p64, box[0], box[1])
+        near = np.sqrt((off * off).sum(-1)) < r
+        want_box.extend(_slot_ids(kind, owner, alive,
+                                  np.where(alive & near)[0]))
+    diff = len(set(got_shape) ^ set(want_shape))
+    assert diff <= ties, f"shape query: {diff} hits differ, {ties} ties"
+    assert got_box == want_box, "box query differs from the host's"
+    return len(got_shape), len(want_shape), len(got_box), ties
+
+
+def phase_trimesh_queries(pair):
+    """Phase 14, trimesh_and_queries: an icosphere of 320 triangles
+    (radius MESH_RADIUS) voxelized on the card (``trimesh_sdf``, resolution
+    48) and sampled by the native surface sampler (its g++ build timed
+    apart), in the 97,336-particle dam break on the device coupling path
+    (``mesh_pipeline``): static sampling on one body, DynamicContactSampling
+    through the VoxelSdf on the other. MESH_STEPS steps of DT with the
+    world's counters on, each gated as phase 11 (overflow, finite state,
+    the fluid inside the domain): ms/step, the coupling counters' share of
+    the step, the emitted contact samples per step, the kernel launches.
+    Then ``particles_intersecting_shape(mesh)`` and
+    ``particles_intersecting_aabb`` against the same field and box
+    evaluated on the CPU (a card-vs-CPU consistency check; the CPU tests
+    hold the queries to the JAX package), phase 5's cubic checks at this
+    state, the device busy share over two profiled steps and two steps
+    split by stage (``stage_split``). Last, ``z_sort`` on the gather_dfsph world and
+    ZSORT_STEPS steps beside an unsorted twin, matched by particle:
+    identical iterations, positions within PATH_POS_ATOL."""
+    from salva_tpu_torch import native, shapes
+    from salva_tpu_torch.ops import _build
+    from salva_tpu_torch.sampling import shape_surface_sample
+    from salva_tpu_torch.sampling.voxelize import trimesh_sdf
+
+    tag = "[trimesh_and_queries]"
+    v, f = icosphere()
+    mesh = shapes.TriMesh.from_arrays(v, f)
+    assert len(mesh.indices) == 320
+    t0 = time.perf_counter()
+    lib = _build.build_host(native._SOURCE)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    samples = shape_surface_sample(mesh, 0.05, 3)
+    sample_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    field = trimesh_sdf(mesh, resolution=48, device="cuda")
+    torch.cuda.synchronize()
+    vox_s = time.perf_counter() - t0
+    # The field on the card against the same arithmetic on the CPU, at a
+    # resolution the CPU evaluates in seconds.
+    small_card = trimesh_sdf(mesh, resolution=12, device="cuda")
+    small_cpu = trimesh_sdf(mesh, resolution=12, device="cpu")
+    vox_same = np.array_equal(small_card.values, small_cpu.values)
+    log(f"{tag} mesh: {len(v)} vertices, {len(f)} triangles; sampler built "
+        f"in {build_s:.2f} s ({lib.name}), {len(samples)} surface samples "
+        f"in {sample_s:.4f} s; voxelized on the card at resolution 48 "
+        f"({field.shape}, spacing {field.spacing:.5f} m) in {vox_s:.3f} s; "
+        f"the card's field at resolution 12 bitwise equal to the CPU's: "
+        f"{vox_same}")
+    assert vox_same, f"{tag} the card's voxelization differs from the CPU's"
+    assert len(samples) > 100
+
+    pip, domain, poses = mesh_pipeline(mesh, samples)
+    world = pip.liquid_world
+    n = int(world.fluids_state.alive.sum())
+    gate = max(1, n // 1000)
+    assert pip.device_coupling and world.device.type == "cuda"
+    world.counters.enable()
+    reset_counts(pair)
+    recs, step_ms, share = [], [], []
+    for i in range(MESH_STEPS):
+        pip.step(GRAVITY, DT)
+        c = world.counters
+        step_ms.append(c.step_time.time * 1e3)
+        coupling_ms = (c.cd.boundary_update_time.time
+                       + c.coupling_transmit_time.time) * 1e3
+        share.append(coupling_ms / step_ms[-1])
+        d = world.last_diagnostics
+        dyn = pip._device.dynamic_entries[0]
+        emitted = int(world.boundaries_state.alive[dyn["slots"]].sum())
+        pos = live_positions(world)
+        lo = torch.tensor(domain[0], device="cuda")
+        hi = torch.tensor(domain[1], device="cuda")
+        inside = bool(((pos >= lo) & (pos <= hi)).all())
+        finite = bool(torch.isfinite(pos).all())
+        over = int(d.neighbor_overflow)
+        bd = world.boundaries_state
+        occ_b = world._max_cell_occupancy(bd.positions, bd.alive)
+        recs.append((over, emitted, (d.solver.pressure_iters,
+                                     d.solver.divergence_iters), occ_b))
+        log(f"{tag} step {i + 1}: {step_ms[-1]:.3f} ms, coupling share "
+            f"{share[-1]:.4f}, contact samples emitted {emitted}, overflow "
+            f"{over} (gate < {gate}), iterations {recs[-1][2]}, boundary "
+            f"cell occupancy {occ_b} (cap {MESH_CAP_B}), finite {finite}, "
+            f"inside the domain {inside}")
+        assert over < gate and finite and inside, f"{tag} step {i + 1} gate"
+        assert occ_b <= MESH_CAP_B, f"{tag} boundary occupancy {occ_b}"
+    launches = read_counts(pair)
+    log(f"{tag} N={n}, {int(world.boundaries_state.alive.sum())} boundary "
+        f"particles: {sum(step_ms) / MESH_STEPS:.3f} ms/step, coupling "
+        f"share {sum(share) / MESH_STEPS:.4f}; layout "
+        f"{resolved_layout(world)}, caps {world._resolved_dense_caps()}; "
+        f"launches {launches}")
+    for k in MAIN_PATH_KERNELS:
+        assert launches[k] > 0, f"{k} was never launched on {tag}"
+    assert max(r[1] for r in recs) > 0, f"{tag} no contact sample emitted"
+    box = (np.array([-2.0, 0.0, -0.5]), np.array([2.0, 1.2, 0.5]))
+    counts = host_query_check(world, mesh, field, poses[1], box)
+    log(f"{tag} queries: the mesh at x = +{MESH_X} holds {counts[0]} "
+        f"particles (the same field on the CPU {counts[1]}, {counts[3]} "
+        f"ties within {QUERY_TIE}); the box {box[0].tolist()}.."
+        f"{box[1].tolist()} holds {counts[2]} (the CPU's box test equal)")
+    # Phase 5's cubic checks at this state: the boundary cap MESH_CAP_B
+    # and an fb table that holds the projected contact samples.
+    mod = sys.modules[__name__]
+    with substituted({(mod, "log"): lambda m: print(
+            m.replace("[kernels]", "[kernels mesh]", 1), flush=True)}):
+        checks = phase_kernels(pair, world, full=False)
+    # Where the step's time goes: the device busy share over two profiled
+    # steps, then two steps split by stage.
+    busy, dev_ms = busy_share(world, step=lambda: pip.step(GRAVITY, DT))
+    stages, sync_ms = stage_split(lambda: pip.step(GRAVITY, DT))
+    log(f"{tag} 2 profiled steps: device {dev_ms} ms/step, busy {busy}; "
+        f"2 steps split by stage, {sync_ms:.3f} ms/step with a synchronize "
+        f"around each stage: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stages.items())
+        + f", the rest {sync_ms - sum(stages.values()):.3f}")
+    assert world.last_diagnostics.neighbor_overflow < gate, \
+        f"{tag} overflow in the profiled steps"
+    del pip, world
+    torch.cuda.empty_cache()
+
+    # z_sort on the gather layout beside an unsorted twin.
+    sorted_w, twin = path_world("gather_dfsph"), path_world("gather_dfsph")
+    t0 = time.perf_counter()
+    perm = sorted_w.z_sort()
+    torch.cuda.synchronize()
+    zs_s = time.perf_counter() - t0
+    moved = int((perm != np.arange(len(perm))).sum())
+    perm_t = torch.as_tensor(perm, device="cuda")
+    its = []
+    for _ in range(ZSORT_STEPS):
+        for w in (sorted_w, twin):
+            w.step(DT, GRAVITY)
+        its.append(tuple((w.last_diagnostics.solver.pressure_iters,
+                          w.last_diagnostics.solver.divergence_iters)
+                         for w in (sorted_w, twin)))
+    alive = sorted_w.fluids_state.alive
+    assert torch.equal(alive, twin.fluids_state.alive[perm_t])
+    dpos = float((sorted_w.fluids_state.positions[alive]
+                  - twin.fluids_state.positions[perm_t][alive]).abs().max())
+    log(f"{tag} z_sort of the gather_dfsph world in {zs_s:.3f} s ({moved} "
+        f"slots moved); {ZSORT_STEPS} steps beside the unsorted twin: "
+        f"iterations (sorted, unsorted) {its}; max |dpos| by particle "
+        f"{dpos:.3e} m (atol {PATH_POS_ATOL['dfsph']})")
+    assert moved > 0
+    assert all(a == b for a, b in its), f"{tag} z_sort iterations differ"
+    assert dpos <= PATH_POS_ATOL["dfsph"], f"{tag} z_sort positions {dpos}"
+    del sorted_w, twin
+    torch.cuda.empty_cache()
+    return dict(n=n, ms=step_ms, coupling_share=share, records=recs,
+                voxelize_s=vox_s, sample_s=sample_s, build_s=build_s,
+                launches=launches, queries=counts, zsort_gap=dpos,
+                busy=busy, device_ms=dev_ms, stages=stages,
+                sync_ms=sync_ms, kernels=checks)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2610,6 +3231,19 @@ def main() -> int:
         paths[name] = phase_gather_short(pair, name)["launches"]
         log(f"[short {name}] phase took {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    adaptive = phase_adaptive_ckpt(pair)
+    paths["adaptive_ckpt_97k"] = adaptive.pop("launches")
+    kernels_adaptive = adaptive.pop("kernels")
+    log(f"[adaptive_ckpt_97k] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh = phase_trimesh_queries(pair)
+    paths["trimesh_and_queries"] = mesh.pop("launches")
+    kernels_mesh = mesh.pop("kernels")
+    log(f"[trimesh_and_queries] phase took {time.perf_counter() - t0:.1f} s")
+    log("[host world] summary " + json.dumps(
+        {"adaptive_ckpt_97k": adaptive, "trimesh_and_queries": mesh}))
+
     records = []
     for name, k in kernels.items():
         if name == "k_pass_v2":
@@ -2626,7 +3260,11 @@ def main() -> int:
                  if key in k}
         for label, checks, path in (("dim2", kernels_2d, "twin_2d"),
                                     ("harness", kernels_harness,
-                                     "coupled_harness")):
+                                     "coupled_harness"),
+                                    ("adaptive", kernels_adaptive,
+                                     "adaptive_ckpt_97k"),
+                                    ("mesh", kernels_mesh,
+                                     "trimesh_and_queries")):
             if name not in checks:
                 continue
             k2 = checks[name]

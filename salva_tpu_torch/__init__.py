@@ -7,17 +7,23 @@ binning's expansion (``csrc/expand.cu``). The module
 layout and names follow ``salva_tpu``, the JAX package this port is held
 against.
 
-Ported so far: 3D/2D DFSPH and IISPH on the dense layout (with sparse
-or full-grid boundary binning, over a static ``domain``), the brute
+Ported: 3D/2D DFSPH and IISPH on the dense layout (with sparse or
+full-grid boundary binning, over a static ``domain``), the brute
 all-pairs tier and the gather layout (Morton grid, [N, K] neighbour
 tables; every world without a domain), with the seven non-pressure forces
-and ``CustomForce`` — ``LiquidWorld`` with ``add_fluid`` /
-``add_boundary`` / ``step``, on a CUDA device (the default) or on the
-CPU when asked (``device="cpu"``). Everything else raises
-``NotImplementedError`` (see ``ROADMAP.md``).
+and ``CustomForce``; ``LiquidWorld`` with its emitters, deletion, adaptive
+CFL substepping, debug checks, ``z_sort`` and particle queries; rigid-body
+coupling (``coupling``), the analytic shapes and triangle meshes
+(``shapes``: ``TriMesh`` through its voxelized ``VoxelSdf``), their
+sampling (``sampling``; the native mesh sampler, ``native``), ``.npz``
+checkpoints that load in either package (``io``), the renderer (``viz``),
+the reference scenes (``scenes``) and a scene runner
+(``python -m salva_tpu_torch.run_scene``) — on a CUDA device (the default)
+or on the CPU when asked (``device="cpu"``). Not ported: the multi-chip
+slab decomposition (see ``ROADMAP.md``).
 
-This package imports torch and numpy only; the CUDA kernels build at
-their first launch, never at import.
+This package imports torch and numpy only; the CUDA kernels and the
+mesh sampler's C++ build at their first use, never at import.
 """
 
 from .config import DFSPHConfig, IISPHConfig, NeighborConfig, SimConfig, particle_volume

@@ -64,7 +64,7 @@ class DeviceRigidState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class _ColliderMeta:
-    shape: object
+    shape: object  # SDF-capable (a TriMesh voxelized at freeze)
     body: int
     dynamic: bool
 
@@ -126,6 +126,17 @@ class DeviceColliderCoupling:
         return torch.as_tensor(np.asarray(values), dtype=dtype,
                                device=self.device)
 
+    def _device_shape(self, shape):
+        """The collider's SDF shape: a ``TriMesh`` is voxelized here, once,
+        on the world's device (its ``VoxelSdf`` answers every substep's
+        projection on the card)."""
+        shp.check_ported(shape)
+        if isinstance(shape, shp.TriMesh):
+            from ..sampling.voxelize import trimesh_sdf
+
+            return trimesh_sdf(shape, device=self.device)
+        return shape
+
     # -- freeze ------------------------------------------------------------
 
     def _freeze(self, cs, rw, world):
@@ -141,10 +152,8 @@ class DeviceColliderCoupling:
         self.dynamic_mask = self._tensor(dynamic, torch.bool)
         self.any_dynamic = any(dynamic)
 
-        for c in rw.colliders:
-            shp.check_ported(c.shape)
         self.colliders = tuple(
-            _ColliderMeta(shape=c.shape, body=c.body,
+            _ColliderMeta(shape=self._device_shape(c.shape), body=c.body,
                           dynamic=rw.bodies[c.body].is_dynamic)
             for c in rw.colliders
         )

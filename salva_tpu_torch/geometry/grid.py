@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 # Bits per axis for the Morton keys.
@@ -62,13 +63,25 @@ def morton_key(cells, dim: int):
 
 
 def cell_coords(positions, h):
-    """Integer cell coordinates ``floor(p / h)`` (`hgrid.rs:41-51`), int32.
-
-    ``h`` divides as a tensor on the positions' device: a Python divisor
-    would make CUDA multiply by its reciprocal, which rounds differently
-    from a division at a cell edge."""
+    """Integer cell coordinates ``floor(p / h)`` (`hgrid.rs:41-51`), int32,
+    by a true division, as the JAX package's eager callers bin (``z_sort``,
+    the elasticity's rest state). ``h`` divides as a tensor on the
+    positions' device: a Python divisor would make CUDA multiply by its
+    reciprocal."""
     h_t = torch.full((), h, dtype=positions.dtype, device=positions.device)
     return torch.floor(positions / h_t).to(torch.int32)
+
+
+def search_cells(positions, h, divide: bool = False):
+    """The cells the gather search bins with: ``floor(p * (1 / h))`` with
+    the float32 reciprocal, as the JAX package's jitted step bins (XLA
+    compiles the division by the constant ``h`` as that multiplication,
+    which puts some particles on a cell edge one cell higher than a true
+    division does); with ``divide``, :func:`cell_coords`."""
+    if divide:
+        return cell_coords(positions, h)
+    inv = float(np.float32(1.0) / np.float32(h))
+    return torch.floor(positions * inv).to(torch.int32)
 
 
 class SpatialGrid(NamedTuple):
@@ -84,11 +97,13 @@ class SpatialGrid(NamedTuple):
     cells: torch.Tensor
 
 
-def build_grid(positions, alive, h, dim: int) -> SpatialGrid:
+def build_grid(positions, alive, h, dim: int,
+               divide: bool = False) -> SpatialGrid:
     """Build the sorted cell index for a point set (``HGrid::insert``
     over all particles, ``contacts.rs:133-151``): one key computation and
-    one stable sort, as ``jnp.argsort`` is stable."""
-    cells = cell_coords(positions, h)
+    one stable sort, as ``jnp.argsort`` is stable. The cells are
+    :func:`search_cells` (``divide``: a true division)."""
+    cells = search_cells(positions, h, divide)
     keys = torch.where(alive, morton_key(cells, dim), DEAD_KEY)
     order = torch.argsort(keys, stable=True)
     return SpatialGrid(order=order, sorted_keys=keys[order], cells=cells)

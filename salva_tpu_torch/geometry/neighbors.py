@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from .grid import SpatialGrid, cell_coords, morton_key, neighbor_cell_offsets
+from .grid import SpatialGrid, morton_key, neighbor_cell_offsets, search_cells
 
 
 class GroupInfo(NamedTuple):
@@ -80,13 +80,13 @@ def _groups_allowed(q_groups: GroupInfo, s_groups: GroupInfo, j, qi,
 
 
 def _candidate_block(q_pos, grid: SpatialGrid, n_src: int, h, dim: int,
-                     max_candidates: int):
+                     max_candidates: int, divide: bool):
     """Up to C candidate source indices per query row: (j [B, C] int64,
     cand_valid [B, C] bool, truncated [B] bool)."""
     dev = q_pos.device
     offsets = torch.tensor(neighbor_cell_offsets(dim), dtype=torch.int32,
                            device=dev)  # [S, dim]
-    ncells = cell_coords(q_pos, h)[:, None, :] + offsets[None]  # [B, S, dim]
+    ncells = search_cells(q_pos, h, divide)[:, None, :] + offsets[None]
     nkeys = morton_key(ncells, dim)  # [B, S]
     starts = torch.searchsorted(grid.sorted_keys, nkeys)
     lens = torch.searchsorted(grid.sorted_keys, nkeys, right=True) - starts
@@ -126,7 +126,7 @@ def _block_valid(q_pos, q_alive, qi, j, cand_valid, src_pos, src_alive,
 
 
 def _pad_truncations(query_pos, grid, n_src, h, dim, max_candidates,
-                     query_chunk):
+                     query_chunk, divide):
     """Truncated-window count of the JAX package's padding rows (dead rows
     at the origin filling the last block to ``query_chunk``)."""
     n_pad = (-query_pos.shape[0]) % query_chunk
@@ -135,7 +135,7 @@ def _pad_truncations(query_pos, grid, n_src, h, dim, max_candidates,
     origin = torch.zeros((1, dim), dtype=query_pos.dtype,
                          device=query_pos.device)
     _, _, truncated = _candidate_block(origin, grid, n_src, h, dim,
-                                       max_candidates)
+                                       max_candidates, divide)
     return n_pad * truncated.to(torch.int32)[0]
 
 
@@ -153,21 +153,24 @@ def find_neighbors(
     max_candidates: int,
     same_model_always: bool,
     query_chunk: int = 65536,
+    divide: bool = False,
 ) -> NeighborLists:
     """Build the [Nq, K] neighbour table of ``query`` points against
-    ``src``, in row blocks of ``query_chunk``."""
+    ``src``, in row blocks of ``query_chunk``. ``divide``: the query
+    cells by a true division, as ``grid`` was built
+    (``grid.search_cells``)."""
     nq, n_src = query_pos.shape[0], src_pos.shape[0]
     dev = query_pos.device
     k_cap = max_neighbors
     idx_parts, valid_parts, count_parts = [], [], []
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
     cand_overflow = _pad_truncations(query_pos, grid, n_src, h, dim,
-                                     max_candidates, query_chunk)
+                                     max_candidates, query_chunk, divide)
     for lo in range(0, nq, query_chunk):
         hi = min(lo + query_chunk, nq)
         qi = torch.arange(lo, hi, device=dev)
         j, cand_valid, truncated = _candidate_block(
-            query_pos[lo:hi], grid, n_src, h, dim, max_candidates)
+            query_pos[lo:hi], grid, n_src, h, dim, max_candidates, divide)
         _, valid = _block_valid(query_pos[lo:hi], query_alive[lo:hi], qi, j,
                                 cand_valid, src_pos, src_alive, q_groups,
                                 s_groups, h, same_model_always)
@@ -211,6 +214,7 @@ def weighted_sum_over_neighbors(
     same_model_always: bool,
     w_fn,
     query_chunk: int = 65536,
+    divide: bool = False,
 ):
     """Sum ``W(|p_i - p_j|, h)`` over all neighbours without building a
     neighbour table (boundary volumes ``V_b = 1 / sum_k W_bk``,
@@ -219,12 +223,12 @@ def weighted_sum_over_neighbors(
     dev = query_pos.device
     parts = []
     cand_overflow = _pad_truncations(query_pos, grid, n_src, h, dim,
-                                     max_candidates, query_chunk)
+                                     max_candidates, query_chunk, divide)
     for lo in range(0, nq, query_chunk):
         hi = min(lo + query_chunk, nq)
         qi = torch.arange(lo, hi, device=dev)
         j, cand_valid, truncated = _candidate_block(
-            query_pos[lo:hi], grid, n_src, h, dim, max_candidates)
+            query_pos[lo:hi], grid, n_src, h, dim, max_candidates, divide)
         dist2, valid = _block_valid(query_pos[lo:hi], query_alive[lo:hi], qi,
                                     j, cand_valid, src_pos, src_alive,
                                     q_groups, s_groups, h, same_model_always)

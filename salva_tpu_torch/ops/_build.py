@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``) and the
+host-side C++ of ``csrc/*.cpp`` (the triangle-mesh sampler, ``native``).
 
 Each source compiles with ``nvcc`` into a shared library of its own with
 a plain C interface, loaded with ``ctypes``; the ``nvcc`` processes of
@@ -6,7 +7,9 @@ all sources run at once. The build runs at first use — never at import,
 so the package imports on machines without a GPU or a CUDA toolkit —
 into ``build/salva_tpu_torch/<hash>/`` beside the package (a git-ignored
 directory), keyed by a hash of the source and the flags: an edited
-source builds anew, an unchanged one loads the cached library.
+source builds anew, an unchanged one loads the cached library. The host
+sources build the same way with ``g++`` (``build_host``), only when
+first used.
 The port is meant to run from a source checkout, where that directory
 is ``build/`` at the checkout's root; an installed copy (which ships
 ``csrc/*.cu`` as package data) builds beside its install directory,
@@ -35,6 +38,8 @@ _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+_HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _NOT_LAUNCHED = -1  # the C entries' kNotLaunched: nothing to launch
 
@@ -78,16 +83,16 @@ def _nvcc() -> str:
     )
 
 
-def _source_hash(src: Path) -> str:
+def _source_hash(src: Path, flags=_FLAGS) -> str:
     h = hashlib.sha256()
     h.update(src.name.encode())
     h.update(src.read_bytes())
-    h.update(" ".join(_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
-def library_path(src: Path) -> Path:
-    return _BUILD_ROOT / _source_hash(src) / f"libsalva_{src.stem}.so"
+def library_path(src: Path, flags=_FLAGS) -> Path:
+    return _BUILD_ROOT / _source_hash(src, flags) / f"libsalva_{src.stem}.so"
 
 
 def library_paths():
@@ -132,6 +137,37 @@ def build():
             if os.path.exists(tmp):
                 os.unlink(tmp)
     return library_paths()
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/<name>`` (host C++) with ``g++`` unless its hashed
+    library exists; returns the library's path. A failed build raises
+    with the compiler's output."""
+    src = _PKG_DIR / "csrc" / name
+    out = library_path(src, _HOST_FLAGS)
+    if out.exists():
+        return out
+    cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [cxx, *_HOST_FLAGS, "-o", tmp, str(src)]
+    try:
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300)
+        except (OSError, subprocess.SubprocessError) as e:
+            raise RuntimeError(
+                f"building {src.name} failed: {' '.join(cmd)}: {e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building {src.name} failed: {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
 
 
 class _Kernels:

@@ -11,9 +11,10 @@ classified by the shape's SDF:
 
 Host-side and deterministic: the SDF runs on CPU tensors of the float32
 lattice, and the output is a float32 numpy array of local-space points,
-equal to the JAX package's. ``TriMesh`` (the native ray-cast sampler) is
-not ported and raises ``NotImplementedError``; a ``HalfSpace`` has no
-bounding box, so it raises ``TypeError`` as in the JAX package.
+equal to the JAX package's. A ``TriMesh`` goes to the native ray-cast
+sampler (``native``: C++ built with ``g++`` at first use; a failed build
+raises). A ``HalfSpace`` has no bounding box, so it raises ``TypeError``
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -96,6 +97,14 @@ def shape_surface_sample(shape, particle_radius: float, dim: int = 3):
     (the `shape_surface_ray_sample` equivalent, `sampling/mod.rs:3-5`)."""
     if isinstance(shape, shp.Heightfield):
         return _heightfield_surface(shape, particle_radius)
+    if isinstance(shape, shp.TriMesh):
+        from ..native import trimesh_surface_sample
+
+        return trimesh_surface_sample(
+            np.asarray(shape.vertices, np.float32),
+            np.asarray(shape.indices, np.int32),
+            particle_radius,
+        )
     mins, maxs = _shape_aabb(shape, dim)
     return surface_sample_sdf(_host_sdf(shape), mins, maxs, particle_radius)
 
@@ -103,6 +112,14 @@ def shape_surface_sample(shape, particle_radius: float, dim: int = 3):
 def shape_volume_sample(shape, particle_radius: float, dim: int = 3):
     """Volume sample of an analytic shape in its local frame
     (`shape_volume_ray_sample` equivalent)."""
+    if isinstance(shape, shp.TriMesh):
+        from ..native import trimesh_volume_sample
+
+        return trimesh_volume_sample(
+            np.asarray(shape.vertices, np.float32),
+            np.asarray(shape.indices, np.int32),
+            particle_radius,
+        )
     mins, maxs = _shape_aabb(shape, dim)
     return volume_sample_sdf(_host_sdf(shape), mins, maxs, particle_radius)
 

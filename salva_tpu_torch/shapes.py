@@ -1,8 +1,9 @@
 """Analytic shapes as signed distance fields.
 
 Port of ``salva_tpu.shapes``: ``Ball``, ``Cuboid``, ``Capsule``,
-``HalfSpace`` and ``Heightfield`` (2D and 3D), with ``sdf_normal``,
-``world_sdf`` and ``project_point``. Projection of ``p`` onto a surface is
+``HalfSpace`` and ``Heightfield`` (2D and 3D), the triangle mesh
+``TriMesh`` and its voxelized field ``VoxelSdf`` (3D), with
+``sdf_normal``, ``world_sdf`` and ``project_point``. Projection of ``p`` onto a surface is
 ``p - sdf(p) * normal(p)``; penetration is ``sdf(p) < 0``. Each ``sdf``
 takes a float32 torch tensor of points on any device; the host-side
 sampling (``sampling.shape_sampling``) evaluates it on CPU tensors made
@@ -18,15 +19,20 @@ maximum shares the gradient equally among the entries that attain it.
 So the normal at a cube's centre is (1, 1, 1) / sqrt(3), as in the JAX
 package, and never the zero vector torch's autograd would give.
 
-``TriMesh`` and ``VoxelSdf`` (the voxelized SDF of triangle meshes) are
-not ported: there is no such class here, and a query on an object
-without ``sdf_and_grad`` raises ``NotImplementedError`` by name.
+A ``TriMesh`` has no analytic SDF: its queries go through its cached
+voxelized field (``sampling.voxelize.trimesh_sdf``, a ``VoxelSdf``), as
+the JAX package's coupling and queries take it. A query on an object
+that is not a shape of this package (a ``salva_tpu`` shape, say) raises
+``NotImplementedError`` by name.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Tuple
+
+import numpy as np
 
 import torch
 
@@ -224,12 +230,130 @@ class Heightfield:
         return p[..., 1] - h, g
 
 
-SHAPES = (Ball, Cuboid, Capsule, HalfSpace, Heightfield)
+@dataclasses.dataclass(frozen=True)
+class TriMesh:
+    """Triangle mesh (host-side shape for boundary sampling).
+
+    Sampled through the native ray-cast sampler (``native``), covering
+    the reference's parry TriMesh support in ``shape_surface_ray_sample``
+    (`ray_sampling.rs`). SDF queries (DynamicContactSampling coupling,
+    shape intersection tests) go through a cached voxelized
+    signed-distance field (``sampling.voxelize.trimesh_sdf`` ->
+    :class:`VoxelSdf`). ``vertices`` / ``indices`` are nested tuples so
+    the mesh stays hashable.
+    """
+
+    vertices: Tuple[Tuple[float, float, float], ...]
+    indices: Tuple[Tuple[int, int, int], ...]
+
+    @staticmethod
+    def from_arrays(vertices, indices) -> "TriMesh":
+        v = np.asarray(vertices, np.float32).reshape(-1, 3)
+        t = np.asarray(indices, np.int32).reshape(-1, 3)
+        return TriMesh(
+            tuple(tuple(float(x) for x in row) for row in v),
+            tuple(tuple(int(x) for x in row) for row in t),
+        )
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class VoxelSdf:
+    """Discretized signed-distance field on a regular 3D grid (trilinear).
+
+    The stand-in for shapes with no analytic SDF, triangle meshes above
+    all (``sampling.voxelize.trimesh_sdf``): it gives TriMesh colliders
+    the DynamicContactSampling the reference gets from parry's per-shape
+    point projection (`fluids_pipeline.rs:192-255`). Outside the grid box
+    the clamped border value plus the distance to the box is returned, so
+    projection directions stay sane far away.
+
+    ``values`` is held as a read-only float32 ndarray (flattened
+    row-major) and hashed once by digest, so a coupling can key its
+    per-field tensors on the shape cheaply.
+    """
+
+    values: object
+    origin: Tuple[float, float, float]
+    spacing: float
+    shape: Tuple[int, int, int]
+
+    def __post_init__(self):
+        v = np.ascontiguousarray(
+            np.asarray(self.values, np.float32).reshape(-1)
+        )
+        v.setflags(write=False)
+        object.__setattr__(self, "values", v)
+        key = (
+            hashlib.sha1(v.tobytes()).digest(),
+            tuple(self.origin),
+            float(self.spacing),
+            tuple(self.shape),
+        )
+        object.__setattr__(self, "_key", key)
+
+    def __eq__(self, other):
+        return isinstance(other, VoxelSdf) and self._key == other._key
+
+    def __hash__(self):
+        return hash(self._key)
+
+    def sdf(self, p):
+        return self.sdf_and_grad(p)[0]
+
+    def sdf_and_grad(self, p):
+        """Value and gradient under JAX's rules: ``fc = clip(f, 0, n - 1)``
+        and each weight ``t = clip(fc - i0, 0, 1)`` pass one half of the
+        gradient on their bounds (``t`` is tied at 1 in the top cell), and
+        the outside term ``sqrt(d2 + 1e-12) * spacing`` adds its own."""
+        vals = _const(self, "values", p, torch.float32).reshape(self.shape)
+        hi = _const(self, "shape", p) - 1.0
+        f = (p - _const(self, "origin", p)) / self.spacing
+        fc, dfc = _clip_and_grad(f, 0.0, hi)
+        top = _const(self, "shape", p, torch.int64) - 2
+        i0 = torch.minimum(torch.clamp(torch.floor(fc).to(torch.int64),
+                                       min=0), top)
+        t, dt = _clip_and_grad(fc - i0.to(fc.dtype), 0.0, 1.0)
+        ix, iy, iz = i0[..., 0], i0[..., 1], i0[..., 2]
+        tx, ty, tz = t[..., 0], t[..., 1], t[..., 2]
+
+        def v(dx, dy, dz):
+            return vals[ix + dx, iy + dy, iz + dz]
+
+        v000, v100, v010, v110 = v(0, 0, 0), v(1, 0, 0), v(0, 1, 0), v(1, 1, 0)
+        v001, v101, v011, v111 = v(0, 0, 1), v(1, 0, 1), v(0, 1, 1), v(1, 1, 1)
+        c00 = v000 * (1 - tx) + v100 * tx
+        c10 = v010 * (1 - tx) + v110 * tx
+        c01 = v001 * (1 - tx) + v101 * tx
+        c11 = v011 * (1 - tx) + v111 * tx
+        c0 = c00 * (1 - ty) + c10 * ty
+        c1 = c01 * (1 - ty) + c11 * ty
+        inner = c0 * (1 - tz) + c1 * tz
+        # Outside the grid: the distance to the grid box (the epsilon
+        # keeps the normal finite where f == fc).
+        off = f - fc
+        root = torch.sqrt(dot(off, off) + 1.0e-12)
+        value = inner + root * self.spacing
+
+        # d inner / d t, weighted as JAX's reverse pass weights each
+        # corner (the cotangent of a corner product, then its value).
+        w0, w1 = 1 - tz, tz
+        w00, w10, w01, w11 = w0 * (1 - ty), w0 * ty, w1 * (1 - ty), w1 * ty
+        g_tx = (v111 * w11 - v011 * w11 + v101 * w01 - v001 * w01
+                + v110 * w10 - v010 * w10 + v100 * w00 - v000 * w00)
+        g_ty = c11 * w1 - c01 * w1 + c10 * w0 - c00 * w0
+        g_tz = c1 - c0
+        g_fc = torch.stack([g_tx, g_ty, g_tz], dim=-1) * dt
+        g_off = (0.5 / root * self.spacing)[..., None] * (off + off)
+        g_f = g_fc * dfc + g_off * (1.0 - dfc)
+        return value, g_f / self.spacing
+
+
+SHAPES = (Ball, Cuboid, Capsule, HalfSpace, Heightfield, TriMesh, VoxelSdf)
 
 
 def check_ported(shape):
-    """Raise ``NotImplementedError``, by name, for a shape this package has
-    no SDF for (``TriMesh``, ``VoxelSdf``)."""
+    """Raise ``NotImplementedError``, by name, for an object that is not a
+    shape of this package (a ``salva_tpu`` shape, say)."""
     if not isinstance(shape, SHAPES):
         raise NotImplementedError(
             f"{type(shape).__name__} is not a shape of salva_tpu_torch "
@@ -238,8 +362,13 @@ def check_ported(shape):
 
 
 def sdf_and_grad(shape, p):
-    """(SDF value, SDF gradient) of ``shape`` at local points ``p``."""
+    """(SDF value, SDF gradient) of ``shape`` at local points ``p``; a
+    ``TriMesh`` answers through its cached voxelized field."""
     check_ported(shape)
+    if isinstance(shape, TriMesh):
+        from .sampling.voxelize import trimesh_sdf
+
+        shape = trimesh_sdf(shape, device=p.device)
     return shape.sdf_and_grad(p)
 
 

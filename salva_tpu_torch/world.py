@@ -8,7 +8,10 @@ the alive mask (``emit_particles``, ``delete_where``) and on the host
 (``add_particles``, ``delete_particles``, the deferred
 ``delete_particle_at_next_timestep``), boundary resampling
 (``set_boundary_particles``, ``set_boundaries_bulk``), isometries
-(``transform_*_by``), particle queries and diagnostics. The host side
+(``transform_*_by``), Morton reordering (``z_sort``), the particle
+queries (``particles_intersecting_aabb`` / ``_shape``), adaptive CFL
+substepping (``adaptive_timestep``) and the failure checks
+(``debug_checks``). The host side
 manages slots, capacity growth and the auto-tuned dense layout (cap tier
 with overflow self-heal, fluid-tracking grid window, sparse
 fluid-boundary table); every per-step array operation runs on ``device``
@@ -28,9 +31,7 @@ carries a ``CustomForce``). Every SPH kernel choice
 (``SimConfig.kernel_density`` / ``kernel_gradient``), and the XSPH,
 artificial-viscosity, DFSPH-viscosity, Akinci 2013 / WCSPH / He 2014
 surface-tension, Becker 2009 elasticity and custom non-pressure forces.
-Not ported: ``adaptive_timestep`` (raises ``NotImplementedError``),
-``z_sort``, the particle-intersection queries and the debug checks
-(absent).
+Checkpoints: ``io.save_world`` / ``load_world``.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from .config import DFSPHConfig, NeighborConfig, SimConfig, particle_volume
 from .counters import Counters
 from .geometry import build_grid, evaluate_contacts, find_neighbors
 from .geometry import dense_grid as dg
+from .geometry.grid import DEAD_KEY, cell_coords, morton_key
 from .geometry.neighbors import GroupInfo
 from .kernels import get_kernel
 from .object.interaction_groups import InteractionGroups
@@ -78,6 +80,7 @@ from .solver.viscosity import (
     DFSPHViscosityForce,
     XSPHViscosityForce,
 )
+from .shapes import dot, world_sdf
 from .step import (
     StepDiagnostics,
     build_step_fn,
@@ -229,11 +232,6 @@ class LiquidWorld:
         fit_grid: bool = True,
         device=None,
     ):
-        if adaptive_timestep:
-            raise NotImplementedError(
-                "adaptive_timestep (CFL substepping) is not ported to "
-                "salva_tpu_torch"
-            )
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -281,7 +279,9 @@ class LiquidWorld:
             ),
         )
         self.counters = Counters()
-        self.timestep_manager = TimestepManager(particle_radius)
+        self.timestep_manager = TimestepManager(
+            particle_radius, adaptive=adaptive_timestep
+        )
 
         self.fluids_state = FluidsState.empty(64, dim, self.device)
         self.boundaries_state = BoundariesState.empty(64, dim, self.device)
@@ -298,6 +298,10 @@ class LiquidWorld:
         self._elasticity_state = None
         self._elasticity_dirty = False
 
+        # Failure detection (SURVEY.md §5.3): after each step, raise on
+        # non-finite positions and warn on every overflow (one host sync
+        # a step) instead of the interval checks below.
+        self.debug_checks = False
         # Boundary volumes must be recomputed after any boundary change.
         self._boundary_dirty = True
         self._solver_state = None
@@ -882,12 +886,15 @@ class LiquidWorld:
         nbcfg = self.sim.neighbors
         zero_groups = GroupInfo(torch.zeros_like(fl.memberships),
                                 torch.zeros_like(fl.filter), fl.fluid_id)
-        grid = build_grid(fl.positions, is_elastic, h, dim)
+        # Binned by a true division, as the JAX package's eager rest
+        # state is (its step's search multiplies by the reciprocal).
+        grid = build_grid(fl.positions, is_elastic, h, dim, divide=True)
         nl = find_neighbors(
             fl.positions, is_elastic, zero_groups,
             grid, fl.positions, is_elastic, zero_groups,
             h, dim, nbcfg.max_neighbors, nbcfg.max_candidates,
             same_model_always=True, query_chunk=nbcfg.query_chunk,
+            divide=True,
         )
         contacts = evaluate_contacts(
             fl.positions, fl.positions, nl, h, dim,
@@ -907,13 +914,24 @@ class LiquidWorld:
         expected = solver_state_shape(
             self.solver_config, self.fluids_state.capacity, self.dim
         )
-        if self._solver_state is None or tuple(
-            self._solver_state.shape
-        ) != expected:
-            self._solver_state = init_solver_state(
+        st = self._solver_state
+        if st is None or tuple(st.shape) != expected:
+            fresh = init_solver_state(
                 self.solver_config, self.fluids_state.capacity, self.dim,
                 self.device,
             )
+            if (
+                st is not None
+                and st.ndim == 2
+                and len(expected) == 2
+                and st.shape[0] == expected[0]
+                and st.shape[1] < expected[1]
+            ):
+                # Legacy DFSPH state (velocity changes only, as older
+                # checkpoints hold it): keep it and zero the warm-start
+                # stiffness columns.
+                fresh[:, : st.shape[1]] = st
+            self._solver_state = fresh
 
     def step(self, dt: float, gravity):
         """Advance the simulation by dt seconds (`liquid_world.rs:62-64`)."""
@@ -1303,8 +1321,24 @@ class LiquidWorld:
 
         tm = self.timestep_manager
         tm.reset(dt)
+        # The CFL bound (`timestep_manager.rs:36-46`) uses the particles'
+        # accelerations; they are folded inside the substep here, so
+        # a_i = (v - v_prev) / dt is recovered from the previous substep's
+        # velocity change (slots never move inside the loop), and gravity
+        # stands in on a step's first substep. One scalar device-to-host
+        # fetch a substep, only when adaptive.
+        prev_vel = self.fluids_state.velocities
+        inv_prev_dt = 0.0
         while not tm.is_done():
-            sub_dt = tm.advance()
+            vmax = 0.0
+            if tm.adaptive:
+                fl = self.fluids_state
+                vmax = float(_cfl_vmax(fl.velocities, prev_vel, fl.alive,
+                                       gravity, inv_prev_dt,
+                                       tm.remaining_time))
+                prev_vel = fl.velocities
+            sub_dt = tm.advance(vmax)
+            inv_prev_dt = 1.0 / sub_dt if sub_dt > 0.0 else 0.0
             if coupling is not None:
                 self.counters.cd.boundary_update_time.resume()
                 coupling.update_boundaries(self, sub_dt)
@@ -1345,7 +1379,10 @@ class LiquidWorld:
         if coupling is None:
             self._boundary_dirty = False
         self._steps_taken += 1
-        if self.warn_overflow and (
+        if self.debug_checks:
+            self._run_debug_checks()
+            self._maybe_refit_grid()
+        elif self.warn_overflow and (
             self._steps_taken == 1
             or self._steps_taken % max(self.overflow_check_interval, 1) == 0
             or self._overflow_alert > 0
@@ -1390,6 +1427,37 @@ class LiquidWorld:
                 "clamped); enlarge the domain"
             )
 
+    def _run_debug_checks(self):
+        """Failure detection (SURVEY.md §5.3): warn on every capacity
+        overflow (growing the auto cap tier), raise on non-finite live
+        positions, the structured equivalent of the reference's asserts
+        and clamps (`dfsph_solver.rs:92,662`)."""
+        d = self.last_diagnostics
+        if d is not None:
+            n_over = int(d.neighbor_overflow)
+            if n_over > 0:
+                bumped = self._bump_auto_dense_cap()
+                warnings.warn(
+                    f"neighbor capacity overflow: {n_over}"
+                    " entries dropped — "
+                    + ("auto-grew the dense cap/spill sizing for "
+                       "subsequent steps" if bumped else
+                       "physics degraded; raise max_neighbors / dense_cap")
+                )
+            c_over = int(d.candidate_overflow)
+            if c_over > 0:
+                warnings.warn(
+                    "candidate window / domain overflow: "
+                    f"{c_over} (particles clamped or candidates truncated)"
+                )
+        fl = self.fluids_state
+        bad = ~torch.isfinite(fl.positions).all(dim=-1) & fl.alive
+        if bool(bad.any()):
+            raise FloatingPointError(
+                "non-finite fluid positions after step (instability: reduce "
+                "dt or check force coefficients)"
+            )
+
     def _bump_auto_dense_cap(self) -> bool:
         """Self-healing for the auto cap tier: rank overflow raises the
         fluid tier to 16, then in steps of 8 up to 48 (beyond that the
@@ -1408,3 +1476,133 @@ class LiquidWorld:
             self._auto_caps = (cap_f + 8, cap_b)
         self.grid_refit_count += 1
         return True
+
+    # -- ordering / queries ------------------------------------------------
+
+    def z_sort(self):
+        """Reorder the fluid slots in Morton order for gather locality
+        (`Fluid::z_sort`, `fluid.rs:153-163`; dead slots sort last),
+        carrying the host slot mirrors, the solver state, the elasticity
+        rest state (``rest_j`` through the inverse permutation) and the
+        pending deletions along. The cells divide by ``h`` as the JAX
+        package's eager ``z_sort`` does (``geometry.grid.cell_coords``).
+        Returns the permutation: slot ``i`` now holds what slot
+        ``perm[i]`` held."""
+        self._sync_fluid_mirrors()
+        fl = self.fluids_state
+        keys = morton_key(cell_coords(fl.positions, self.h), self.dim)
+        keys = torch.where(fl.alive, keys, DEAD_KEY)
+        perm = torch.argsort(keys, stable=True)
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(len(perm), device=perm.device)
+        perm_np = perm.cpu().numpy()
+
+        self.fluids_state = fl.replace(**{
+            f.name: getattr(fl, f.name)[perm] for f in dataclasses.fields(fl)
+        })
+        self._fluid_alive = self._fluid_alive[perm_np]
+        self._fluid_slot_owner = self._fluid_slot_owner[perm_np]
+        if self._pending_deletions:
+            inv_np = inv.cpu().numpy()
+            self._pending_deletions = {int(inv_np[s])
+                                       for s in self._pending_deletions}
+        if self._solver_state is not None:
+            self._solver_state = self._solver_state[perm]
+        if self._elasticity_state is not None:
+            es = self._elasticity_state
+            self._elasticity_state = dataclasses.replace(
+                es,
+                positions0=es.positions0[perm],
+                volumes0=es.volumes0[perm],
+                rest_j=inv[es.rest_j[perm]].to(es.rest_j.dtype),
+                rest_valid=es.rest_valid[perm],
+                rest_w=es.rest_w[perm],
+                rest_grad=es.rest_grad[perm],
+            )
+        return perm_np
+
+    def _query_sets(self):
+        self._sync_fluid_mirrors()
+        return (
+            ("fluid", self.fluids_state, self._fluid_alive,
+             self._fluid_slot_owner),
+            ("boundary", self.boundaries_state, self._boundary_alive,
+             self._boundary_slot_owner),
+        )
+
+    def particles_intersecting_aabb(self, mins, maxs):
+        """Particle ids near an AABB (loosened by the particle radius),
+        `liquid_world.rs:211-246`: (kind, handle, index) tuples. The
+        distances are taken on the world's device in the dtype numpy
+        gives them in the JAX package (float64 for Python bounds), so the
+        hits are the same."""
+        mins = np.asarray(mins)
+        maxs = np.asarray(maxs)
+        dtype = getattr(torch, np.result_type(np.float32, mins, maxs).name)
+        lo = torch.as_tensor(mins, dtype=dtype, device=self.device)
+        hi = torch.as_tensor(maxs, dtype=dtype, device=self.device)
+        out = []
+        for kind, state, alive, owner in self._query_sets():
+            pos = state.positions.to(dtype)
+            off = pos - torch.minimum(torch.maximum(pos, lo), hi)
+            d = torch.sqrt(dot(off, off))
+            near = (d < self.particle_radius).cpu().numpy()
+            hits = np.where(alive & near)[0]
+            out.extend(_slot_ids(kind, owner, alive, hits))
+        return out
+
+    def particles_intersecting_shape(self, shape, rotation, translation):
+        """Particle ids near a posed SDF shape (`liquid_world.rs:248-280`):
+        (kind, handle, index) tuples; a ``TriMesh`` answers through its
+        voxelized field, on the world's device."""
+        rotation = torch.as_tensor(np.asarray(rotation), dtype=torch.float32,
+                                   device=self.device)
+        translation = torch.as_tensor(np.asarray(translation),
+                                      dtype=torch.float32, device=self.device)
+        out = []
+        for kind, state, alive, owner in self._query_sets():
+            d = world_sdf(shape, state.positions, rotation, translation)
+            near = (d <= self.particle_radius).cpu().numpy()
+            hits = np.where(alive & near)[0]
+            out.extend(_slot_ids(kind, owner, alive, hits))
+        return out
+
+
+def _cfl_vmax(vel, prev_vel, alive, gravity, inv_prev_dt, t_rem):
+    """``max_i ||v_i + a_i * t_remaining||`` (`timestep_manager.rs:36-46`)
+    over alive slots, with ``a_i`` recovered from the previous substep's
+    velocity change; gravity on the first substep of a step
+    (``inv_prev_dt == 0``). ``inv_prev_dt`` and ``t_rem`` are Python
+    floats rounded to float32 first, as the JAX package casts them."""
+    inv_prev_dt = float(np.float32(inv_prev_dt))
+    t_rem = float(np.float32(t_rem))
+    if inv_prev_dt > 0.0:
+        accel = (vel - prev_vel) * inv_prev_dt
+    else:
+        accel = gravity[None, :].expand_as(vel)
+    v_pred = vel + accel * t_rem
+    speed = torch.sqrt(dot(v_pred, v_pred))
+    return torch.where(alive, speed, 0.0).amax()
+
+
+def _slot_ids(kind, owner, alive, hits):
+    """(kind, handle, index-within-handle) tuples for hit slots: one
+    rank pass over the live slots, not a scan per hit."""
+    live = np.flatnonzero(alive & (owner >= 0))
+    ow = owner[live]
+    order = np.argsort(ow, kind="stable")
+    so = ow[order]
+    n = len(so)
+    is_first = np.ones(n, bool)
+    if n > 1:
+        is_first[1:] = so[1:] != so[:-1]
+    first = np.maximum.accumulate(np.where(is_first, np.arange(n), 0))
+    ranks = np.empty(n, np.int64)
+    ranks[order] = np.arange(n) - first
+    idx_of_slot = np.full(len(owner), -1, np.int64)
+    idx_of_slot[live] = ranks
+    return [
+        (kind, int(owner[s]), int(idx_of_slot[s]))
+        for s in hits
+        if idx_of_slot[s] >= 0
+    ]

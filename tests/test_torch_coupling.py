@@ -224,20 +224,33 @@ def test_unregister_coupling():
 @pytest.mark.parametrize("device_coupling", [False, True],
                          ids=["host", "device"])
 def test_trimesh_collider_is_refused(device_coupling):
-    from salva_tpu.shapes import TriMesh
+    """A collider of the JAX package's TriMesh class is refused by name;
+    the port's own TriMesh couples on either path (its voxelized field
+    pushes a particle placed inside the mesh out)."""
+    from salva_tpu.shapes import TriMesh as JaxTriMesh
+    from test_voxelize import cube_mesh
 
-    coupling, _, _, Boundary, Fluid, kw = _pkg("torch")
-    pip = coupling.FluidsPipeline(RADIUS, 2.0, dim=3,
-                                  device_coupling=device_coupling, **kw)
-    pip.liquid_world.add_fluid(Fluid(np.zeros((1, 3), np.float32)))
-    body = pip.bodies.add_body("fixed")
-    mesh = TriMesh.from_arrays(np.eye(3), [[0, 1, 2]])
-    co = pip.bodies.add_collider(body, mesh)
-    bo = pip.liquid_world.add_boundary(Boundary(np.zeros((0, 3))))
-    pip.coupling.register_coupling(
-        bo, co, coupling.ColliderSampling.dynamic_contact_sampling())
-    with pytest.raises(NotImplementedError, match="TriMesh"):
+    coupling, shapes, _, Boundary, Fluid, kw = _pkg("torch")
+    cube = cube_mesh()
+    for mesh in (JaxTriMesh.from_arrays(np.eye(3), [[0, 1, 2]]),
+                 shapes.TriMesh(cube.vertices, cube.indices)):
+        pip = coupling.FluidsPipeline(RADIUS, 2.0, dim=3,
+                                      device_coupling=device_coupling, **kw)
+        fl = pip.liquid_world.add_fluid(
+            Fluid(np.float32([[0.0, 0.45, 0.0]])))
+        body = pip.bodies.add_body("fixed")
+        co = pip.bodies.add_collider(body, mesh)
+        bo = pip.liquid_world.add_boundary(Boundary(np.zeros((0, 3))))
+        pip.coupling.register_coupling(
+            bo, co, coupling.ColliderSampling.dynamic_contact_sampling())
+        if isinstance(mesh, JaxTriMesh):
+            with pytest.raises(NotImplementedError, match="TriMesh"):
+                pip.step((0.0, -9.81, 0.0), 0.01)
+            continue
         pip.step((0.0, -9.81, 0.0), 0.01)
+        (y,) = pip.liquid_world.fluid_positions(fl)[:, 1]
+        assert y > 0.5 - RADIUS, y  # out of the cube (half-extent 0.5)
+        assert int(pip.liquid_world.boundaries_state.alive.sum()) == 1
 
 
 def pose_static_samples(pip):

@@ -1,5 +1,5 @@
-"""Package-level guarantees of the PyTorch port: it imports neither jax nor
-flax, the default device is the card (no silent CPU fallback), CPU runs
+"""Package-level guarantees of the PyTorch port: it imports neither jax,
+flax nor the JAX package, the default device is the card (no silent CPU fallback), CPU runs
 never launch a kernel, the kernel wrappers validate their operands,
 unported paths raise (and the gather layout, the elasticity and custom
 forces and coupling, ported since, run), and the state converters
@@ -24,7 +24,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_leaves_jax_and_flax_out():
     """Every module of the package imports in a fresh interpreter without
-    pulling in jax or flax."""
+    pulling in jax, flax or any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"sys.path.insert(0, {_ROOT!r})\n"
@@ -33,7 +33,7 @@ def test_import_leaves_jax_and_flax_out():
         " 'salva_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
-        " ('jax', 'jaxlib', 'flax'))\n"
+        " ('jax', 'jaxlib', 'flax', 'salva_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len([n for n in sys.modules"
         " if n.startswith('salva_tpu_torch')]))\n"
@@ -186,21 +186,48 @@ def test_unported_paths_raise():
         coupled.step_with_coupling(0.01, (0.0, -9.81), NoOpCoupling())
         assert torch.equal(coupled.fluids_state.positions,
                            plain.fluids_state.positions)
-    with pytest.raises(NotImplementedError, match="adaptive_timestep"):
-        st.LiquidWorld(dim=2, adaptive_timestep=True, device="cpu")
-    from salva_tpu.shapes import TriMesh
+    # Ported since: adaptive substepping, a TriMesh collider on the device
+    # coupling path, z_sort, the queries and the debug checks run; a shape
+    # of the JAX package is refused by name.
+    w = _tiny_world()
+    w.timestep_manager.adaptive = True
+    w.debug_checks = True
+    vel = torch.zeros_like(w.fluids_state.velocities)
+    vel[:, 0] = 3.0
+    w.fluids_state = w.fluids_state.replace(velocities=vel)
+    w.counters.enable()
+    w.step(1.0 / 30.0, (0.0, -9.81))
+    assert w.counters.nsubsteps > 1
+    assert st.LiquidWorld(dim=2, adaptive_timestep=True,
+                          device="cpu").timestep_manager.adaptive
+    w.z_sort()
+    assert len(w.particles_intersecting_aabb((-1.0, -1.0), (1.0, 1.0))) \
+        == 36 + 15
+    from salva_tpu_torch.shapes import Ball, TriMesh
     from salva_tpu_torch.coupling import FluidsPipeline
+
+    assert len(w.particles_intersecting_shape(Ball(5.0), np.eye(2),
+                                              np.zeros(2))) == 36 + 15
+    mesh = TriMesh.from_arrays(
+        [[-0.5, 0.0, -0.5], [0.5, 0.0, -0.5], [0.0, 0.0, 0.5],
+         [0.0, 0.5, 0.0]], [[0, 1, 2], [0, 3, 1], [1, 3, 2], [2, 3, 0]])
+    pip = FluidsPipeline(0.05, dim=3, device="cpu")
+    pip.liquid_world.add_fluid(st.Fluid(np.float32([[0.0, 0.1, 0.0]])))
+    body = pip.bodies.add_body("fixed")
+    pip.bodies.add_collider(body, mesh)
+    pip._device_request = True
+    pip.step((0.0, -9.81, 0.0), 0.01)
+    assert pip.device_coupling
+    assert isinstance(pip._device.colliders[0].shape, st.shapes.VoxelSdf)
+    from salva_tpu.shapes import TriMesh as JaxTriMesh
 
     pip = FluidsPipeline(0.05, dim=3, device="cpu")
     body = pip.bodies.add_body("fixed")
-    pip.bodies.add_collider(body, TriMesh.from_arrays(np.eye(3),
-                                                      [[0, 1, 2]]))
+    pip.bodies.add_collider(body, JaxTriMesh.from_arrays(np.eye(3),
+                                                         [[0, 1, 2]]))
     pip._device_request = True
     with pytest.raises(NotImplementedError, match="TriMesh"):
         pip.step((0.0, -9.81, 0.0), 0.01)
-    for name in ("z_sort", "particles_intersecting_aabb",
-                 "particles_intersecting_shape", "_run_debug_checks"):
-        assert not hasattr(st.LiquidWorld, name)
     for flag in (dict(dense_spill_columns=512), dict(dense_compact=True),
                  dict(dense_frozen_pairs=True)):
         w = _tiny_world()

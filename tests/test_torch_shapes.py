@@ -210,10 +210,19 @@ def test_scene_grounds_sample_equal_jax():
 
 
 def test_unported_shapes_raise():
+    """A shape of the JAX package is refused by name; the port's TriMesh
+    answers (through its voxelized field) and samples (the native
+    sampler)."""
     mesh = jshapes.TriMesh.from_arrays(np.eye(3), [[0, 1, 2]])
     with pytest.raises(NotImplementedError, match="TriMesh"):
         tshapes.sdf_normal(mesh, torch.zeros((1, 3)))
     with pytest.raises(NotImplementedError, match="TriMesh"):
         tsamp.shape_surface_sample(mesh, 0.05, 3)
+    tet = tshapes.TriMesh.from_arrays(
+        [[-0.5, 0.0, -0.5], [0.5, 0.0, -0.5], [0.0, 0.0, 0.5],
+         [0.0, 0.5, 0.0]], [[0, 1, 2], [0, 3, 1], [1, 3, 2], [2, 3, 0]])
+    n = tshapes.sdf_normal(tet, torch.tensor([[0.0, -0.3, 0.0]]))
+    assert float(n[0, 1]) < -0.9  # below the base: the normal points down
+    assert len(tsamp.shape_surface_sample(tet, 0.05, 3)) > 20
     with pytest.raises(TypeError):  # no bounding box, as in JAX
         tsamp.shape_volume_sample(tshapes.HalfSpace((0.0, 1.0)), 0.05, 2)
