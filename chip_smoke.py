@@ -55,8 +55,10 @@ phases:
    fluid-boundary hoist on both boundary layouts (the sparse one the
    world resolves, and the same state binned into the full grid), the
    slot-group ``k_pass_v2`` (which no main path runs, as in the JAX
-   package) against ``k_pass``'s plain version, and the binning's
-   ``expand`` on the fluid and the boundary binning (exact):
+   package; it launches the tiled ``k_pass`` body) against ``k_pass``'s
+   plain version, and the binning's ``expand`` on the fluid binning, on
+   the boundary binning and on both in one launch (``expand_many``, the
+   call a substep makes) (exact):
    per-output errors and tolerances, a bitwise rerun, CUDA-event times,
    the least time the card could take (bound: the bytes of the live
    slots the pass must read and of its outputs, or its float32
@@ -79,6 +81,20 @@ phases:
 7. the DFSPH dam break on the full-grid boundary binning
    (``dense_sparse_boundary=False``) for 5 steps, through the kernels,
    against the phase-6 kernel run on the sparse binning;
+7b. slab_97k (``phase_slab_path``, ``slab_kernel_checks``): the slab path
+   of ``salva_tpu_torch.parallel`` (replicated binning) on the DFSPH dam
+   break with the full-grid boundary binning and caps 16 / 16, SLAB_N = 4
+   slabs under ``LocalHalos`` on the one card (NCCL refuses two ranks on
+   one GPU), 10 steps beside its single-device twin (the same full-domain
+   grid without the half stencil, the kernels in the forms the slabs run
+   them): identical iterations and ff contacts at every step, each step's
+   overflow under its gate, positions within PATH_POS_ATOL after step 5
+   (the gap after step 10 logged), every main-path kernel launched, ms/step
+   of both; then each main-path kernel on the local grid of the slab
+   owning the most particles, against its plain version on the interior
+   columns (pair counts exact, ``expand`` bitwise), timed beside the
+   twin's, with bounds; then IISPH with the viscosity forces, 5 steps,
+   held to its twin the same way;
 8. the brute all-pairs tier: two small worlds on the card,
    ``tests/test_brute.py``'s dam world (125 particles) and the bench
    scene at 16^3 = 4,096 particles (capacity at the brute ceiling), each
@@ -160,7 +176,9 @@ first step; ``kernel_names``: the SPH kernel names held in phase 5, with
 their numbers under ``by_kernel``; ``dim2``: the kernel's phase-9
 numbers at dim = 2, with the 2D twin's launches; ``harness``: its
 phase-11 numbers at the 64,000-particle harness's state, with the
-harness's launches; ``contacts`` / ``impulses`` for ``rigid_solve``:
+harness's launches; ``slab``: its phase-7b numbers on one slab's
+local grid, with the slab run's launches and the twin's device time;
+``contacts`` / ``impulses`` for ``rigid_solve``:
 its table's live rows and the impulses its bound counts). The coupled
 phases' numbers are logged on one ``[coupled] summary`` JSON line, and
 phases 13-14's on one ``[host world] summary`` line; ``adaptive`` /
@@ -336,6 +354,14 @@ MAIN_PATH_KERNELS = ("k_pass", "t_pass", "hoist_ff", "hoist_fb", "expand")
 # bandwidth and float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# The slab path (phase 7b, slab_97k): SLAB_N slabs of the 97k dam break
+# on the one card (LocalHalos: NCCL refuses two ranks on one GPU), its
+# DFSPH run SLAB_STEPS steps beside its single-device twin, positions held
+# after SLAB_HOLD_AT; then IISPH with FORCES, SLAB_IISPH_STEPS steps.
+SLAB_N = 4
+SLAB_STEPS = 10
+SLAB_HOLD_AT = 5
+SLAB_IISPH_STEPS = 5
 # Float32 operations per pair, counted from the kernel source (a sqrt,
 # rsqrt or division counts as one): the distance test every candidate pair
 # needs (dim subtractions, dim products, dim - 1 sums), and the rest of
@@ -899,7 +925,7 @@ def stage_split(step, steps=2):
     stages = (
         (tdg, "bin_particles", "binning, full grid"),
         (tdg, "bin_particles_active", "binning, compact (boundary)"),
-        (binning, "expand", "expand kernel"),
+        (binning, "expand_many", "expand kernel"),
         (tdg, "from_grid_multi", "unbinning"),
         (pair, "hoist_ff", "hoist_ff kernel"),
         (pair, "hoist_fb", "hoist_fb kernel"),
@@ -1798,40 +1824,56 @@ def gather(src, items):
 
 def phase_expand(world, ctx):
     """Phase 5, the binning's ``expand``: the kernel against
-    ``expand_plain`` on the fluid binning (the positions and velocities,
-    the main path's first call) and on the compact boundary binning, at
+    ``expand_plain`` on the fluid binning (the positions and velocities),
+    on the compact boundary binning (positions, velocities, volumes), and
+    on both in one launch (``expand_many``, the call a substep makes), at
     the world's state. Exact equality (it moves data only), a bitwise
     rerun, and two planted faults that must break it: a column's start
     off by one, and one row dropped from a column's count. The library
     call: the JAX package's packed row gather ``packed[grid_src]``
-    (:func:`gather`, ``grid_src`` made once beforehand). Bound: bytes (the live
-    slots' channels and sort-order entry read once, the run table read
-    once, the output planes written once)."""
+    (:func:`gather`, ``grid_src`` made once beforehand), one per binning.
+    Bound: bytes (the live slots' channels and sort-order entry read once,
+    the run table read once, the output planes written once). Returns the
+    two-binning call's record, with the single binnings' under ``fluid``
+    and ``boundary``."""
     from salva_tpu_torch.geometry import dense_grid as tdg
     from salva_tpu_torch.ops import binning
 
     fl, bd = world.fluids_state, world.boundaries_state
     calls = {
-        "fluid": (ctx.binf, [(fl.positions, tdg.POS_SENTINEL),
-                             (fl.velocities, 0.0)]),
-        "boundary": (ctx.binb, [(bd.positions, tdg.POS_SENTINEL),
-                                (bd.velocities, 0.0)]),
+        "fluid": [(ctx.binf, [(fl.positions, tdg.POS_SENTINEL),
+                              (fl.velocities, 0.0)])],
+        "boundary": [(ctx.binb, [(bd.positions, tdg.POS_SENTINEL),
+                                 (bd.velocities, 0.0), (bd.volumes, 0.0)])],
     }
+    calls["fused"] = calls["fluid"] + calls["boundary"]
     rec = {}
-    for label, (binned, items) in calls.items():
-        cap, C = binned.mask.shape
-        src = slot_sources(binned)
-        out = binning.expand(binned, items)
-        ref = binning.expand_plain(binned, items)
-        again = binning.expand(binned, items)
-        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
-        for o, r, a in zip(out, ref, again):
-            assert torch.equal(o, r), f"expand ({label}) differs from plain"
-            assert torch.equal(o, a), f"expand ({label}): not deterministic"
-        for o, g in zip(out, gather(src, items)):
-            assert torch.equal(o, g), f"expand ({label}) differs from gather"
-        # Planted faults, in the column with the most rows up to the cap
-        # (a row dropped past the cap would change nothing).
+    for label, call in calls.items():
+        srcs = [slot_sources(binned) for binned, _ in call]
+        out = binning.expand_many(call)
+        ref = binning.expand_many_plain(call)
+        again = binning.expand_many(call)
+        err = 0.0
+        read = written = 0
+        for (binned, items), src, o_t, r_t, a_t in zip(call, srcs, out, ref,
+                                                       again):
+            err = max([err] + [float((o - r).abs().max())
+                               for o, r in zip(o_t, r_t)])
+            for o, r, a in zip(o_t, r_t, a_t):
+                assert torch.equal(o, r), f"expand ({label}) differs from plain"
+                assert torch.equal(o, a), f"expand ({label}): not deterministic"
+            for o, g in zip(o_t, gather(src, items)):
+                assert torch.equal(o, g), \
+                    f"expand ({label}) differs from gather"
+            cap, C = binned.mask.shape
+            nch = sum(1 if v.ndim == 1 else v.shape[1] for v, _ in items)
+            n_live = int(torch.clamp(binned.count, max=cap).sum())
+            read += n_live * 4 * (nch + 1) + 8 * C
+            written += 4 * nch * cap * C
+        # Planted faults, in the last binning's column with the most rows
+        # up to the cap (a row dropped past the cap would change nothing).
+        binned, items = call[-1]
+        cap = binned.mask.shape[0]
         cnt = binned.count
         col = int(torch.argmax(torch.where(cnt <= cap, cnt, 0)))
         assert int(cnt[col]) >= 2
@@ -1842,31 +1884,28 @@ def phase_expand(world, ctx):
         for fault, bad in (("start off by one", binned._replace(
                 start=start_bad)), ("one row dropped", binned._replace(
                 count=count_bad))):
-            wrong = binning.expand(bad, items)
-            assert not all(torch.equal(w, r) for w, r in zip(wrong, ref)), \
+            wrong = binning.expand_many(call[:-1] + [(bad, items)])[-1]
+            assert not all(torch.equal(w, r) for w, r in zip(wrong, ref[-1])), \
                 f"planted fault {fault} passed"
             log(f"[kernels] expand ({label}): planted fault '{fault}' in "
                 f"column {col} ({int(cnt[col])} rows) caught")
-        nch = sum(1 if v.ndim == 1 else v.shape[1] for v, _ in items)
-        n_live = int(torch.clamp(cnt, max=cap).sum())
-        read = n_live * 4 * (nch + 1) + 8 * C
-        written = 4 * nch * cap * C
         b_ms = (read + written) / HBM_BYTES_PER_S * 1e3
-        ms = cuda_ms(lambda: binning.expand(binned, items), 50)
-        one = call_ms(lambda: binning.expand(binned, items), 20)
-        plain_ms = cuda_ms(lambda: binning.expand_plain(binned, items), 10)
-        lib_ms = cuda_ms(lambda: gather(src, items), 20)
+        ms = cuda_ms(lambda: binning.expand_many(call), 50)
+        one = call_ms(lambda: binning.expand_many(call), 20)
+        plain_ms = cuda_ms(lambda: binning.expand_many_plain(call), 10)
+        lib_ms = cuda_ms(lambda: [gather(src, items) for src, (_, items)
+                                  in zip(srcs, call)], 20)
         rec[label] = dict(max_abs_err=err, ms=ms, call_ms=one,
                           plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=b_ms, bound_by="bytes")
-        log(f"[kernels] expand ({label}): [{nch}, {cap}, {C}] planes, "
-            f"{n_live} live slots; equal to plain and to the gather "
-            f"bitwise (max abs err {err}); kernel {ms:.4f} ms device time ({one:.4f} ms a "
+        shapes = ", ".join(f"{tuple(b.mask.shape)}" for b, _ in call)
+        log(f"[kernels] expand ({label}): {len(call)} binning(s) {shapes} in "
+            f"one launch; equal to plain and to the gather bitwise (max abs "
+            f"err {err}); kernel {ms:.4f} ms device time ({one:.4f} ms a "
             f"call), plain {plain_ms:.4f} ms, library (packed gather) "
-            f"{lib_ms:.4f} ms; "
-            f"bound {b_ms:.5f} ms (bytes; {read} B read, {written} B "
-            f"written); kernel / bound {ms / b_ms:.1f}")
-    return dict(rec["fluid"], boundary=rec["boundary"])
+            f"{lib_ms:.4f} ms; bound {b_ms:.5f} ms (bytes; {read} B read, "
+            f"{written} B written); kernel / bound {ms / b_ms:.1f}")
+    return dict(rec["fused"], fluid=rec["fluid"], boundary=rec["boundary"])
 
 
 def run_steps(name, steps=5, sparse_boundary=True):
@@ -1914,7 +1953,7 @@ def phase_path_parity(pair, name):
     kernel_run = run_steps(name)
     it_k, pos_k, _ = kernel_run
     subs = {(pair, n): getattr(pair, n + "_plain") for n in names}
-    subs[(binning, "expand")] = binning.expand_plain
+    subs[(binning, "expand_many")] = binning.expand_many_plain
     reset_counts(pair)
     with substituted(subs):
         it_p, pos_p, _ = run_steps(name)
@@ -1934,11 +1973,11 @@ def phase_expand_vs_gather(pair, kernel_run):
     ``expand`` kernel: bitwise equal positions after 5 steps."""
     from salva_tpu_torch.ops import binning
 
-    def by_gather(binned, items):
-        return gather(slot_sources(binned), items)
+    def by_gather(calls):
+        return [gather(slot_sources(binned), items) for binned, items in calls]
 
     reset_counts(pair)
-    with substituted({(binning, "expand"): by_gather}):
+    with substituted({(binning, "expand_many"): by_gather}):
         iters, pos, _ = run_steps("dfsph")
     assert read_counts(pair)["expand"] == 0
     dpos = float((pos - kernel_run[1]).abs().max())
@@ -1969,6 +2008,289 @@ def phase_full_grid(pair, sparse_run):
     assert bool(torch.isfinite(pos).all())
     assert dpos <= PATH_POS_ATOL["dfsph"], f"positions differ by {dpos}"
     return launches
+
+
+def slab_setup(world):
+    """The slab path's configuration of ``world``'s next step (the full
+    static domain, as ``build_sharded_step_fn`` clears the fitted window),
+    its single-device twin's (the same grid without the half stencil and
+    with the full-grid boundary binning: the kernels in the forms the
+    slabs run them), and the slab path's padded grid specs."""
+    from salva_tpu_torch.parallel import pad_spec_for_devices
+    from salva_tpu_torch.solver.nonpressure import ForceSet
+    from salva_tpu_torch.step import _dense_config
+
+    world._prepare()
+    sim = world._boundary_volume_mode(world._effective_sim(), None)
+    sim = sim.replace(fitted_dims=None)
+    twin = sim.replace(dense_half_stencil=False, dense_sparse_boundary=False)
+    spec_f, spec_b, _ = _dense_config(sim, world.solver_config, ForceSet())
+    spec_f = pad_spec_for_devices(spec_f, SLAB_N)
+    spec_b = spec_b.replace(dims=spec_f.dims, clamp_nx=spec_f.clamp_nx)
+    return sim, twin, spec_f, spec_b
+
+
+def phase_slab_path(pair, name, world, steps, hold_at, pos_atol):
+    """Phase 7b: the slab path (``salva_tpu_torch.parallel``, replicated
+    binning) of ``world`` on SLAB_N slabs under ``LocalHalos`` on the one
+    card, beside its single-device twin (:func:`slab_setup`), ``steps``
+    steps each from the same state: identical pressure and divergence
+    iterations and ff contacts at every step, each step's neighbour
+    overflow under max(1, N // 1000) on both, positions within
+    ``pos_atol`` after step ``hold_at`` (the gap after the last step
+    logged, ungated), every main-path kernel launched by the slab run
+    (counts reset just before it and read just after). Returns its
+    record, with the final state."""
+    from salva_tpu_torch.parallel import LocalHalos, build_sharded_step_fn
+    from salva_tpu_torch.step import build_step_fn
+
+    tag = f"[{name}]"
+    sim, twin_sim, spec_f, _ = slab_setup(world)
+    args = (world.solver_config, world._force_set, max(world.num_fluids, 1))
+    twin_fn = build_step_fn(twin_sim, *args)
+    slab_fn = build_sharded_step_fn(sim, *args, LocalHalos(SLAB_N))
+    alive = world.fluids_state.alive
+    n = int(alive.sum())
+    gate = max(1, n // 1000)
+    g = torch.tensor(GRAVITY, dtype=torch.float32, device="cuda")
+    es = world._elasticity_state
+    log(f"{tag} N={n}, {SLAB_N} slabs (LocalHalos, one thread each) of the "
+        f"grid {spec_f.dims} (x padded from {spec_f.clamp_nx or spec_f.dims[0]}"
+        f"; {spec_f.dims[0] // SLAB_N} owned x-layers a slab, "
+        f"{(spec_f.dims[0] // SLAB_N + 2) * int(np.prod(spec_f.dims[1:]))} "
+        f"local cells), caps {spec_f.cap} / {sim.dense_cap_boundary}, "
+        f"forces {world._force_set}")
+
+    def drive(fn):
+        state = (world.fluids_state, world.boundaries_state,
+                 world._solver_state)
+        rows, pos, ms = [], {}, []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            *state, d = fn(*state, es, DT, g)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append((d.solver.pressure_iters, d.solver.divergence_iters,
+                         int(d.ncontacts_ff), int(d.neighbor_overflow)))
+            if i + 1 in (hold_at, steps):
+                pos[i + 1] = state[0].positions[alive].clone()
+        return rows, pos, ms, state
+
+    twin_rows, twin_pos, twin_ms, _ = drive(twin_fn)
+    reset_counts(pair)
+    slab_rows, slab_pos, slab_ms, state = drive(slab_fn)
+    launches = read_counts(pair)
+    gaps = {k: float((slab_pos[k] - twin_pos[k]).abs().max())
+            for k in slab_pos}
+    for i, (a, b) in enumerate(zip(slab_rows, twin_rows)):
+        log(f"{tag} step {i + 1}: (pressure, divergence iterations, ff "
+            f"contacts, overflow) slabs {a}, twin {b}; overflow gate "
+            f"< {gate}; {slab_ms[i]:.1f} / {twin_ms[i]:.1f} ms")
+    ms = statistics.mean(slab_ms[1:])
+    twin = statistics.mean(twin_ms[1:])
+    log(f"{tag} slab path {ms:.3f} ms/step, twin {twin:.3f} ms/step "
+        f"(steps 2-{steps}); max |dpos| slabs vs twin after step {hold_at} "
+        f"{gaps[hold_at]:.3e} m (atol {pos_atol}), after step {steps} "
+        f"{gaps[steps]:.3e} m (ungated); kernel launches of the slab run "
+        f"{launches}")
+    for i, (a, b) in enumerate(zip(slab_rows, twin_rows)):
+        assert a[:3] == b[:3], f"{tag} step {i + 1}: {a} vs twin {b}"
+        assert a[3] < gate and b[3] < gate, f"{tag} step {i + 1}: overflow"
+    assert bool(torch.isfinite(slab_pos[steps]).all())
+    assert gaps[hold_at] <= pos_atol, f"{tag} positions differ by {gaps}"
+    for k in MAIN_PATH_KERNELS:
+        assert launches[k] > 0, f"{k} was never launched on {tag}"
+    return dict(n=n, ms=ms, twin_ms=twin, launches=launches,
+                gap_hold=gaps[hold_at], gap_last=gaps[steps],
+                iters=[r[:2] for r in slab_rows], state=state, sim=sim,
+                twin_sim=twin_sim)
+
+
+def fb_read_bytes(c, counts, h, shifts, dim=3):
+    """What the fluid-boundary hoist must read on a full-grid boundary
+    binning, every column visited (phase 5's count for its ``full``
+    layout): the positions of the fluid slots with a boundary particle
+    around, the counts and boundary counts of the cells the live columns
+    reach, the positions of the boundary slots in those cells, and the
+    volume and velocity of the boundary slots within h of a live fluid
+    slot. Returns (bytes, candidate pairs)."""
+    C = counts.shape[0]
+    c64, cb = counts.long(), c.counts_b.long()
+    around = sum(shift_flat(cb, s) for s in shifts)
+    n_pf = int((c64 * (around > 0)).sum())
+    need = sum(shift_flat((c64 > 0).long(), -s) for s in shifts) > 0
+    n_need = int(need.sum())
+    n_pb = int((cb * need).sum())
+    visit = torch.ones(C, dtype=torch.int64, device="cuda")
+    n_wb = boundary_slots_within(c, counts, visit, h, shifts)
+    idx = 4 * (C + 2 * n_need)
+    read = 4 * (dim * n_pf + dim * n_pb + (1 + dim) * n_wb) + idx
+    return read, int((c64 * around).sum())
+
+
+def near_ties(label, c, got, want, own, boundary=False):
+    """Hold a kernel's pair counts ``got`` to the plain version's ``want``
+    on the columns ``own``: equal, except in a slot with a candidate pair
+    whose r^2 lies within 2 float32 ulps of h^2, and by no more than such
+    pairs. The kernels compute r^2 with fused multiply-adds, the plain
+    versions round each product, and the two can fall on either side of
+    h^2 at a near tie (the 97k lattice holds pairs at r = h: ROADMAP Queue
+    3, items 5 and 25). Logs every differing slot with its near ties."""
+    from salva_tpu_torch.geometry import dense_grid as tdg
+
+    diff = ((got != want) & own[None, :]).nonzero().tolist()
+    if not diff:
+        return
+    h2 = float(np.float32(c.h * c.h))
+    ulp = float(np.spacing(np.float32(h2)))
+    Pj, cnt_j = (c.Pb, c.counts_b) if boundary else (c.P, c.counts)
+    for r, col in diff:
+        pi = c.P[:, r, col]
+        ties = []
+        for s_ in tdg.flat_shifts(c.spec_f):
+            n = col + s_
+            if not 0 <= n < Pj.shape[-1]:
+                continue
+            d = pi[:, None] - Pj[:, :int(cnt_j[n]), n]
+            r2 = d[0] * d[0]
+            r2 = r2 + d[1] * d[1]
+            r2 = r2 + d[2] * d[2]
+            ties += [float(v) for v in r2 if abs(float(v) - h2) <= 2 * ulp]
+        delta = int(got[r, col]) - int(want[r, col])
+        log(f"[slab_97k kernels] {label}: slot ({r}, {col}) counts {int(got[r, col])} "
+            f"(kernel) vs {int(want[r, col])} (plain); candidate r^2 within 2 "
+            f"ulps of h^2 = {h2!r}: {ties}")
+        assert ties and abs(delta) <= len(ties), \
+            f"{label}: pair counts differ in slot ({r}, {col}) with no near tie"
+
+
+def slab_kernel_checks(pair, world, run):
+    """Phase 7b: each main-path kernel on one slab's local grid at the
+    slab run's final state (the slab owning the most particles), against
+    its plain version on the interior columns (the kernels treat the cells
+    beyond the local grid as empty, the plain versions roll cyclically;
+    every reader of a pass output refreshes the ghost columns first):
+    phase 5's tolerances, pair counts exact, the two-binning ``expand``
+    bitwise; device times beside the single-device twin's at the same
+    state, bounds. Returns {kernel: record}."""
+    from salva_tpu_torch.geometry import dense_grid as tdg
+    from salva_tpu_torch.ops import binning
+    from salva_tpu_torch.parallel import LocalHalos
+    from salva_tpu_torch.solver.dense_common import DenseCtx
+    from salva_tpu_torch.solver.nonpressure import ForceSet
+    from salva_tpu_torch.step import _dense_config
+
+    sim, twin_sim = run["sim"], run["twin_sim"]
+    _, _, spec_f, spec_b = slab_setup(world)
+    fl, bd = run["state"][0], run["state"][1].clear_forces()
+    nxl = spec_f.dims[0] // SLAB_N
+    ctxs = LocalHalos(SLAB_N).run(
+        nxl, int(np.prod(spec_f.dims[1:])),
+        lambda halo: DenseCtx(sim, spec_f, spec_b, fl, bd, halo=halo,
+                              need_s2=True))
+    owned = [int((c.counts * c.interior[0]).sum()) for c in ctxs]
+    rank = int(np.argmax(owned))
+    tf, tb, _ = _dense_config(twin_sim, world.solver_config, ForceSet())
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    records = {}
+    for label, c in (("slab", ctxs[rank]), ("twin", DenseCtx(
+            twin_sim, tf, tb, fl, bd, need_s2=True))):
+        own = (c.interior[0] if label == "slab" else
+               torch.ones(c.spec_f.num_cells, dtype=torch.bool,
+                          device="cuda"))
+        spec, h, P, M, counts = c.spec_f, c.h, c.P, c.M, c.counts
+        C = spec.num_cells
+        shifts = tdg.flat_shifts(spec)
+        K = (c.rho * 1e-6 * c.maskf).contiguous()
+        Q = c.V.contiguous()
+        Vb = (torch.randn(c.Vbvel.shape, generator=gen, device="cuda")
+              * c.maskb[None]).contiguous()
+        fb = (spec, h, 3, "cubic", "cubic", P, counts, c.Pb, c.Volb, Vb,
+              c.counts_b)
+        items = [(c.binf, [(fl.positions, tdg.POS_SENTINEL),
+                           (fl.velocities, 0.0)]),
+                 (c.binb, [(bd.positions, tdg.POS_SENTINEL),
+                           (bd.velocities, 0.0), (bd.volumes, 0.0)])]
+        # hoist_ff first: its pair count is the others' within-h count.
+        calls = {
+            "hoist_ff": (lambda: pair.hoist_ff(spec, h, 3, "cubic", "cubic",
+                                               P, M, counts),
+                         lambda: pair.hoist_ff_plain(spec, h, 3, "cubic",
+                                                     "cubic", P, M, counts),
+                         HOIST_TOL),
+            "k_pass": (lambda: pair.k_pass(spec, h, 3, "cubic", P, M, K,
+                                           counts),
+                       lambda: pair.k_pass_plain(spec, h, 3, "cubic", P, M,
+                                                 K, counts), KT_TOL),
+            "t_pass": (lambda: pair.t_pass(spec, h, 3, "cubic", P, M, Q,
+                                           counts),
+                       lambda: pair.t_pass_plain(spec, h, 3, "cubic", P, M,
+                                                 Q, counts), KT_TOL),
+            "hoist_fb": (lambda: pair.hoist_fb(*fb),
+                         lambda: pair.hoist_fb_plain(*fb), HOIST_TOL),
+            "expand": (lambda: tuple(binning.expand_many(items)),
+                       lambda: tuple(binning.expand_many_plain(items)),
+                       None),
+        }
+        c64 = counts.long()
+        n_live = int(c64.sum())
+        cand = sum(int((c64 * shift_flat(c64, s)).sum()) for s in shifts)
+        within = 0
+        for name, (kern, plain, tol) in calls.items():
+            out, ref = kern(), plain()
+            if name == "expand":
+                for o_t, r_t in zip(out, ref):
+                    assert all(torch.equal(o, r) for o, r in zip(o_t, r_t)), \
+                        f"expand ({label}) differs from plain"
+                err = 0.0
+                read = written = 0
+                for binned, its in items:
+                    cap_, C_ = binned.mask.shape
+                    nch = sum(1 if v.ndim == 1 else v.shape[1] for v, _ in its)
+                    read += (int(torch.clamp(binned.count, max=cap_).sum())
+                             * 4 * (nch + 1) + 8 * C_)
+                    written += 4 * nch * cap_ * C_
+                b_ms, b_by = (read + written) / HBM_BYTES_PER_S * 1e3, "bytes"
+            else:
+                out, ref = as_tuple(out), as_tuple(ref)
+                names = OUTPUTS[name]
+                if len(out) > len(names):
+                    near_ties(f"{name} ({label})", c, out[-1], ref[-1], own,
+                              boundary=name == "hoist_fb")
+                err = max(check_output(f"{name} ({label}).{o}",
+                                       out[i][..., own], ref[i][..., own],
+                                       tol)[0]
+                          for i, o in enumerate(names))
+                if name == "hoist_ff":
+                    within = int(out[-1].sum())
+                if name == "hoist_fb":
+                    read, fb_cand = fb_read_bytes(c, counts, h, shifts)
+                    b_ms, b_by, _ = bound(name, 3, read, nbytes(out),
+                                          fb_cand, int(out[-1].sum()))
+                else:
+                    planes = {"k_pass": [P, M, K], "t_pass": [P, M, Q],
+                              "hoist_ff": [P, M]}[name]
+                    b_ms, b_by, _ = bound(
+                        name, 3, live_bytes(planes, n_live) + 4 * C,
+                        nbytes(out), cand,
+                        within)
+            ms = cuda_ms(kern, 50)
+            plain_ms = cuda_ms(plain, 5) if label == "slab" else None
+            rec = records.setdefault(name, {})
+            if label == "slab":
+                rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, cells=C, rank=rank)
+            else:
+                rec.update(twin_ms=ms, twin_bound_ms=b_ms, twin_cells=C)
+            log(f"[slab_97k kernels] {name} ({label}, {C} cells"
+                + (f", slab {rank}, interior columns" if label == "slab"
+                   else ", single device") + f"): max abs err {err:.4e}; "
+                f"kernel {ms:.4f} ms device time"
+                + (f", plain {plain_ms:.4f} ms" if plain_ms else "")
+                + f"; bound {b_ms:.5f} ms ({b_by}); kernel / bound "
+                f"{ms / b_ms:.1f}")
+    return records
 
 
 def small_dam_world(device, layout, dense_caps=(None, None)):
@@ -2143,7 +2465,7 @@ def plain_subs(pair):
 
     subs = {(pair, n): getattr(pair, n + "_plain")
             for n in ("k_pass", "t_pass", "hoist_ff", "hoist_fb")}
-    subs[(binning, "expand")] = binning.expand_plain
+    subs[(binning, "expand_many")] = binning.expand_many_plain
     subs[(rigid, "solve_contacts")] = rigid.solve_contacts_plain
     return subs
 
@@ -3196,6 +3518,24 @@ def main() -> int:
     paths["dfsph_full_grid"] = phase_full_grid(pair, sparse_run)
     log(f"[full grid] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    slab_world = dam_break_world("cuda", "dfsph", sparse_boundary=False,
+                                 dense_caps=(16, 16))
+    slab = phase_slab_path(pair, "slab_97k", slab_world, SLAB_STEPS,
+                           SLAB_HOLD_AT, PATH_POS_ATOL["dfsph"])
+    paths["slab_97k"] = slab["launches"]
+    kernels_slab = slab_kernel_checks(pair, slab_world, slab)
+    del slab_world, slab
+    torch.cuda.empty_cache()
+    slab_iisph = phase_slab_path(
+        pair, "slab_97k_iisph_forces",
+        dam_break_world("cuda", "iisph", sparse_boundary=False,
+                        forces=FORCES, dense_caps=(16, 16)),
+        SLAB_IISPH_STEPS, SLAB_IISPH_STEPS, PATH_POS_ATOL["iisph"])
+    paths["slab_97k_iisph_forces"] = slab_iisph["launches"]
+    del slab_iisph
+    torch.cuda.empty_cache()
+    log(f"[slab_97k] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     paths.update(phase_brute(pair))
     log(f"[brute] phase took {time.perf_counter() - t0:.1f} s")
     # The coupled phases: 2D on the card first (its phase-5 checks profile
@@ -3255,9 +3595,13 @@ def main() -> int:
         else:
             on, launches = "dfsph_forces", paths["dfsph_forces"][name]
         extra = {key: k[key] for key in ("kernel_names", "by_kernel",
-                                         "full_grid", "boundary",
+                                         "full_grid", "fluid", "boundary",
                                          "contacts", "impulses")
                  if key in k}
+        if name in kernels_slab:
+            extra["slab"] = dict(kernels_slab[name],
+                                 launches=paths["slab_97k"][name],
+                                 launches_path="slab_97k")
         for label, checks, path in (("dim2", kernels_2d, "twin_2d"),
                                     ("harness", kernels_harness,
                                      "coupled_harness"),

@@ -30,6 +30,16 @@
 // value in one small struct (so that a [N, D] input's columns are read in
 // place, with no per-channel copy).
 //
+// Two binnings, one launch. A substep expands its fluid binning and its
+// boundary binning (each with its own run table, cap, column count,
+// channels and output). The boundary's output is small (~3.4 MB at the
+// 97k state, ~1 us of bytes), so a launch of its own costs the fixed
+// latency of a dependent count -> order -> vals chain over a grid of few
+// blocks, not its bytes. So one launch takes up to kMaxTables run tables:
+// the flat block range is cut into one range per table (blocks
+// [first[t], first[t + 1]) serve table t), and the boundary's blocks run
+// in the fluid call's waves.
+//
 // Determinism: pure data movement, no atomics; the result is bitwise the
 // gather's.
 
@@ -40,31 +50,47 @@
 namespace {
 
 constexpr int kMaxChannels = 16;
+constexpr int kMaxTables = 2;
 constexpr int kThreads = 128;
 
-struct Channels {
+// One binning's expansion: its run table, its grid shape, its channels
+// and its output [nch, cap, C].
+struct Table {
+  const int* order;
+  const int* start;
+  const int* count;
+  float* out;
+  int cap, C, nch;
+  int col_blocks;                  // blocks along c: ceil(C / kThreads)
   const float* in[kMaxChannels];   // channel k of particle i: in[k][i * stride[k]]
   long long stride[kMaxChannels];  // in elements
   float fill[kMaxChannels];        // value of an empty slot
 };
 
-__global__ void expand_kernel(const int* __restrict__ order,
-                              const int* __restrict__ start,
-                              const int* __restrict__ count,
-                              float* __restrict__ out, int cap, int C,
-                              int nch, Channels ch) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (c >= C) return;
-  const size_t plane = (size_t)cap * C;
-  const size_t slot = (size_t)r * C + c;
-  if (r < min(count[c], cap)) {
-    const long long src = order[start[c] + r];
-    for (int k = 0; k < nch; ++k) {
-      out[k * plane + slot] = ch.in[k][src * ch.stride[k]];
+struct Tables {
+  Table t[kMaxTables];
+  int first[kMaxTables + 1];  // table t's blocks: [first[t], first[t + 1])
+  int n;
+};
+
+__global__ void __launch_bounds__(kThreads)
+    expand_kernel(const __grid_constant__ Tables tabs) {
+  int b = blockIdx.x, ti = 0;
+  while (ti + 1 < tabs.n && b >= tabs.first[ti + 1]) ++ti;  // block-uniform
+  const Table& t = tabs.t[ti];
+  b -= tabs.first[ti];
+  const int r = b / t.col_blocks;
+  const int c = (b - r * t.col_blocks) * kThreads + threadIdx.x;
+  if (c >= t.C) return;
+  const size_t plane = (size_t)t.cap * t.C;
+  const size_t slot = (size_t)r * t.C + c;
+  if (r < min(t.count[c], t.cap)) {
+    const long long src = t.order[t.start[c] + r];
+    for (int k = 0; k < t.nch; ++k) {
+      t.out[k * plane + slot] = t.in[k][src * t.stride[k]];
     }
   } else {
-    for (int k = 0; k < nch; ++k) out[k * plane + slot] = ch.fill[k];
+    for (int k = 0; k < t.nch; ++k) t.out[k * plane + slot] = t.fill[k];
   }
 }
 
@@ -72,31 +98,53 @@ __global__ void expand_kernel(const int* __restrict__ order,
 
 extern "C" {
 
-// Launches on `stream` and returns cudaGetLastError() (0 = success), or
-// kNotLaunched (-1) when the grid is empty and there is nothing to launch.
-// `in_ptrs`, `strides` and `fills` are host arrays of `nch` entries; `out`
-// is [nch, cap, C] float32 on the device.
-int salva_expand(const int* order, const int* start, const int* count,
-                 int cap, int C, int nch, const void* const* in_ptrs,
-                 const long long* strides, const float* fills, float* out,
-                 void* stream) {
+// Expands `n_tables` (1 or kMaxTables) binnings in one launch on `stream`
+// and returns cudaGetLastError() (0 = success), or kNotLaunched (-1) when
+// every table's grid is empty and there is nothing to launch. Per table
+// t: `order[t]`, `start[t]`, `count[t]` its run table (device int32),
+// `cap[t]`, `C[t]`, `nch[t]` its shape, `out[t]` its [nch, cap, C]
+// float32 output; `in_ptrs`, `strides` and `fills` hold the channels of
+// every table, table after table (sum of nch entries, host arrays).
+int salva_expand(int n_tables, const void* const* order,
+                 const void* const* start, const void* const* count,
+                 const int* cap, const int* C, const int* nch,
+                 const void* const* in_ptrs, const long long* strides,
+                 const float* fills, void* const* out, void* stream) {
   static const int kNotLaunched = -1;
-  if (cap <= 0 || C <= 0 || nch <= 0) return kNotLaunched;
-  if (nch > kMaxChannels) return (int)cudaErrorInvalidValue;
-  Channels ch;
-  for (int k = 0; k < nch; ++k) {
-    ch.in[k] = static_cast<const float*>(in_ptrs[k]);
-    ch.stride[k] = strides[k];
-    ch.fill[k] = fills[k];
+  if (n_tables < 1 || n_tables > kMaxTables) {
+    return (int)cudaErrorInvalidValue;
   }
-  for (int k = nch; k < kMaxChannels; ++k) {
-    ch.in[k] = nullptr;
-    ch.stride[k] = 0;
-    ch.fill[k] = 0.0f;
+  Tables tabs = {};
+  tabs.n = n_tables;
+  long long blocks = 0;
+  int k0 = 0;
+  for (int i = 0; i < n_tables; ++i) {
+    if (nch[i] <= 0 || nch[i] > kMaxChannels || cap[i] < 0 || C[i] < 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    Table& t = tabs.t[i];
+    t.order = static_cast<const int*>(order[i]);
+    t.start = static_cast<const int*>(start[i]);
+    t.count = static_cast<const int*>(count[i]);
+    t.out = static_cast<float*>(out[i]);
+    t.cap = cap[i];
+    t.C = C[i];
+    t.nch = nch[i];
+    t.col_blocks = (C[i] + kThreads - 1) / kThreads;
+    for (int k = 0; k < nch[i]; ++k) {
+      t.in[k] = static_cast<const float*>(in_ptrs[k0 + k]);
+      t.stride[k] = strides[k0 + k];
+      t.fill[k] = fills[k0 + k];
+    }
+    k0 += nch[i];
+    tabs.first[i] = (int)blocks;
+    blocks += (long long)t.col_blocks * cap[i];
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((unsigned)((C + kThreads - 1) / kThreads), (unsigned)cap);
-  expand_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      order, start, count, out, cap, C, nch, ch);
+  tabs.first[n_tables] = (int)blocks;
+  if (blocks == 0) return kNotLaunched;
+  expand_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      tabs);
   return (int)cudaGetLastError();
 }
 

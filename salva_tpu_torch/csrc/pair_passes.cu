@@ -20,7 +20,8 @@
 //               twins of solver/dense_common.py: _hoist_fb_sparse and the
 //               roll fold of DenseCtx._hoist); see hoist_fb_warps
 //   k_pass_v2 <- pallas_pair2.py k_pass_pallas2 / _build_k2_kernel (the
-//               slot-group-predicated formulation); see k_pass_v2_kernel
+//               slot-group-predicated formulation); the k_pass body, see
+//               salva_k_pass_v2
 // The TPU kernels split each pass into an ungated 8-row slice plus a
 // gated complement over 8-row slot groups, because the TPU computes in
 // (8, 128) tiles. Here every kernel walks the true occupancy of each
@@ -67,7 +68,7 @@
 //    lane of each (item, row) instead of each item; a block waits at a
 //    barrier per row; and a warp holds all its items' sums at once.
 //  - Lanes on live work: a warp per live (cell, 8-slot group) item of the
-//    tile, lane = 4 il + jl as in k_pass_v2_kernel: i-slot 8 g + il, and
+//    tile, lane = 4 il + jl: i-slot 8 g + il, and
 //    j-lane jl takes entries jl, jl + 4, ... of each row's run. Every
 //    branch on liveness and counts is warp-uniform (counts come from
 //    shared memory); the 4 partial sums of an i-slot meet in a fixed
@@ -127,7 +128,7 @@
 // (cell_to_col[n], then count_b[b]) before a serial loop over the
 // candidates. The design:
 //  - Items: a warp owns one (listed column, 8-slot group) item, lane =
-//    4 il + jl as in k_pass_v2_kernel (i-slot 8 g + il; j-lane jl takes
+//    4 il + jl as in the tiled passes (i-slot 8 g + il; j-lane jl takes
 //    boundary slots jl, jl + 4, ... of each neighbour cell). An unused
 //    table entry (outside [0, C)) or a dead group exits at once
 //    (warp-uniform), doing no pair work.
@@ -383,87 +384,6 @@ template <int DIM>
 struct Stencil {
   static constexpr int kOffsets = DIM == 3 ? 27 : 9;
 };
-
-// K_i = sum_j (m k)_j (p_i - p_j) dW/dr / r, as salva_k_pass, in the
-// slot-group formulation of pallas_pair2.py k_pass_pallas2 (v2): slots are
-// taken in groups of 8 ranks, and group g of cell c is live iff the cell
-// holds more than 8 g particles. An (own group, stencil shift, j group)
-// block is computed only when both groups are live; the dead slots inside
-// a live group contribute exactly zero (they hold the far sentinel
-// position and zero mass), so the gating is pure work elision, as on the
-// TPU. The TPU predicated [8, 8, 128] blocks with pl.when; here one warp
-// owns one (cell, own group): lane = 4 i + jl puts the group's 8 i-slots
-// on 8 lanes each and lets 4 j-lanes split every live j group (slots
-// jl and jl + 4 of it). Every branch on liveness is warp-uniform (it
-// depends on counts only), so the warp never diverges on it; the 4 partial
-// sums of each i-slot are combined by a fixed butterfly of shuffles (the
-// same order in every run, no atomics), and j-lane 0 writes the slot.
-// Dead own groups write zeros. What bounds it is the pair work of the
-// thread-per-slot design (the file note): the same pairs, read through
-// L1/L2 behind dependent count loads, the full spline for every
-// candidate, and the dead slots of live groups.
-template <int DIM, int Kg>
-__global__ void k_pass_v2_kernel(const float* __restrict__ P,
-                                 const float* __restrict__ M,
-                                 const float* __restrict__ K,
-                                 const int* __restrict__ count,
-                                 float* __restrict__ out, int cap, int C,
-                                 int ny, int nz, Params k) {
-  const int lane = threadIdx.x & 31;
-  const long long item =
-      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int groups = (cap + 7) >> 3;
-  if (item >= (long long)groups * C) return;  // warp-uniform
-  const int g = (int)(item / C);
-  const int c = (int)(item % C);
-  const int r = 8 * g + (lane >> 2);  // this lane's own slot
-  const int jl = lane & 3;
-  const bool has_i = r < cap;
-  const size_t plane = (size_t)cap * C;
-  float acc[DIM];
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) acc[d] = 0.0f;
-  if (min(count[c], cap) > 8 * g) {  // live own group (warp-uniform)
-    float pi[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) {
-      pi[d] = has_i ? P[d * plane + (size_t)r * C + c] : 0.0f;
-    }
-    for (int o = 0; o < Stencil<DIM>::kOffsets; ++o) {
-      const int n = c + flat_shift<DIM>(o, ny, nz);
-      if (n < 0 || n >= C) continue;  // outside the grid: an empty cell
-      const int cnt = min(count[n], cap);
-      for (int gj = 0; 8 * gj < cnt; ++gj) {  // live j groups
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int j = 8 * gj + jl + 4 * half;
-          if (!has_i || j >= cap) continue;
-          const size_t js = (size_t)j * C + n;
-          float dp[DIM];
-#pragma unroll
-          for (int d = 0; d < DIM; ++d) dp[d] = pi[d] - P[d * plane + js];
-          float r2 = dp[0] * dp[0];
-#pragma unroll
-          for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
-          const float coeff = (M[js] * K[js]) * Sph<Kg>::dwr(r2, k);
-#pragma unroll
-          for (int d = 0; d < DIM; ++d) acc[d] += dp[d] * coeff;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) {
-    float v = acc[d];
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    v += __shfl_xor_sync(0xffffffffu, v, 2);
-    acc[d] = v;
-  }
-  if (jl == 0 && has_i) {
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) out[d * plane + (size_t)r * C + c] = acc[d];
-  }
-}
 
 // ---- k_pass, t_pass, hoist_ff: tiles of cells, neighbour rows in shared
 // memory
@@ -1148,8 +1068,6 @@ int query_tiling(int pass, int cap, int C, int* shape) {
   return (int)cudaErrorInvalidValue;
 }
 
-constexpr int kThreads = 128;  // k_pass_v2's block
-
 }  // namespace
 
 extern "C" {
@@ -1253,29 +1171,19 @@ int salva_hoist_ff(const float* P, const float* M, const int* count,
   });
 }
 
+// k_pass_pallas2's slot-group formulation gates pair blocks by live
+// 8-slot groups; the dead slots inside a live group hold the far sentinel
+// and zero mass, so they add exactly +-0 there, and its result is
+// k_pass's. The tiled k_pass body computes that function on the true
+// counts (a warp per live (cell, 8-slot group) item, the spline only
+// within h), so this entry launches it: the thread-per-group kernel of the
+// first port is gone.
 int salva_k_pass_v2(const float* P, const float* M, const float* K,
                     const int* count, float* out, int dim, int cap, int C,
                     int ny, int nz, int kg, const float* params,
                     void* stream) {
-  if (cap <= 0 || C <= 0) return kNotLaunched;
-  const Params k = load_params(params);
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long warps = (long long)((cap + 7) / 8) * C;
-  const int per_block = kThreads / 32;
-  const dim3 grid((unsigned)((warps + per_block - 1) / per_block));
-  return with_kernel(kg, [&](auto g) {
-    constexpr int G = decltype(g)::value;
-    if (dim == 3) {
-      k_pass_v2_kernel<3, G><<<grid, kThreads, 0, s>>>(P, M, K, count, out,
-                                                       cap, C, ny, nz, k);
-    } else if (dim == 2) {
-      k_pass_v2_kernel<2, G><<<grid, kThreads, 0, s>>>(P, M, K, count, out,
-                                                       cap, C, ny, nz, k);
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-    return (int)cudaGetLastError();
-  });
+  return salva_k_pass(P, M, K, count, out, dim, cap, C, ny, nz, kg, params,
+                      stream);
 }
 
 // `cols` may be null (visit all C columns; n_cols = C) and `cell_to_col`

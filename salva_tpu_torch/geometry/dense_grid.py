@@ -38,6 +38,11 @@ class DenseGridSpec:
     dims: Tuple[int, ...]  # number of cells per axis (incl. ghost ring)
     cap: int  # max particles per cell
     cell_width: float
+    # Unpadded x-extent for interior clamping: when the x-axis is padded
+    # up to a slab-count multiple (``parallel.domain.pad_spec_for_devices``),
+    # escaped particles must still clamp to the ORIGINAL border ring, or
+    # the slab and single-device runs bin them into different cells.
+    clamp_nx: int = None
     # All-pairs brute tier (:func:`brute_spec`): ``dims`` is a 1D CYCLIC
     # group of cells with no spatial meaning; offsets 0..C-1 of
     # :func:`shift_j` pair every cell with every cell once, so every
@@ -188,8 +193,6 @@ def bin_particles(spec: DenseGridSpec, positions, alive,
         raise NotImplementedError(
             "dense_spill_columns (the dense+spill structure) is not ported"
         )
-    dev = positions.device
-    n = positions.shape[0]
     C = spec.num_cells
     cap = spec.cap
     cell, clamped_mask = cell_of(spec, positions, origin=origin)
@@ -197,12 +200,36 @@ def bin_particles(spec: DenseGridSpec, positions, alive,
         alive = alive & torch.logical_not(clamped_mask)
         clamped_mask = torch.zeros_like(clamped_mask)
     key = torch.where(alive, cell, C).to(torch.int32)
+    order, rank, starts, counts, mask = _run_table(key, C, cap)
+    fits = alive & (rank < cap)
+    clamped = (alive & clamped_mask).sum(dtype=torch.int32)
+    slot = torch.where(fits, cell * cap + rank, C * cap).to(torch.int32)
+    overflow = (alive & (rank >= cap)).sum(dtype=torch.int32)
+    return Binned(
+        slot_of=slot,
+        in_grid=fits,
+        mask=mask,
+        overflow=overflow,
+        clamped=clamped,
+        order=order,
+        start=starts,
+        count=counts,
+    )
+
+
+def _run_table(key, C: int, cap: int):
+    """The sorted binning of int32 cell keys in ``[0, C]`` (``C``: not
+    binned): (order [N], each particle's rank in its cell [N], per column
+    ``start`` and ``count`` [C] (the run table of ``ops/binning.expand``;
+    start 0 for an empty cell, counts past ``cap`` kept), the slot
+    occupancy mask [cap, C])."""
+    n = key.shape[0]
+    dev = key.device
     order, rank_sorted, sk, is_first = _sorted_ranks(key)
     rank = torch.empty((n,), dtype=torch.int32, device=dev)
     rank[order.long()] = rank_sorted
-
     # Per-cell sorted-run starts/ends: slot (c, r) is fed by sorted
-    # position starts[c] + r (the run table of ``ops/binning.expand``).
+    # position starts[c] + r.
     iota = torch.arange(n, dtype=torch.int32, device=dev)
     live_sorted = sk < C
     first_live = is_first & live_sorted
@@ -216,18 +243,80 @@ def bin_particles(spec: DenseGridSpec, positions, alive,
     counts = ends - starts
     r = torch.arange(cap, dtype=torch.int32, device=dev)
     valid = r[:, None] < torch.clamp(counts, max=cap)[None, :]  # [cap, C]
-    mask = valid.to(torch.float32)
+    return order, rank, starts, counts, valid.to(torch.float32)
 
-    fits = alive & (rank < cap)
-    clamped = (alive & clamped_mask).sum(dtype=torch.int32)
-    slot = torch.where(fits, cell * cap + rank, C * cap).to(torch.int32)
-    overflow = (alive & (rank >= cap)).sum(dtype=torch.int32)
-    return Binned(
+
+class SlabBinned(NamedTuple):
+    """A particle set bound to slots of one slab of the grid and its two
+    ghost x-layers (``salva_tpu``'s ``SlabBinned``; the slab path of
+    ``parallel/domain.py``).
+
+    The slab owning x-layers ``[x0, x0 + nxl)`` bins every particle whose
+    (global, interior-clamped) cell lies in the extended slab
+    ``[x0 - 1, x0 + nxl + 1)``; the two extra layers are the ghost layers,
+    whose content mirrors the neighbouring slabs' border cells. Ranks
+    within a cell follow global particle order, so per-cell pair sums see
+    the single-device :func:`bin_particles` slots.
+
+    - ``slot_of`` / ``in_grid`` / ``mask``: as in :class:`Binned`, over
+      the local ``C_local = (nxl + 2) * prod(dims[1:])`` cells;
+    - ``in_interior``: [N] bool, binned into a layer this slab owns (each
+      alive in-grid particle is interior on exactly one slab);
+    - ``overflow`` / ``clamped``: counted over interior cells only, so
+      their sum over the slabs is the global count;
+    - ``order`` / ``start`` / ``count``: the run table, as in
+      :class:`Binned`, over the local columns.
+    """
+
+    slot_of: torch.Tensor
+    in_grid: torch.Tensor
+    in_interior: torch.Tensor
+    mask: torch.Tensor
+    overflow: torch.Tensor
+    clamped: torch.Tensor
+    order: torch.Tensor
+    start: torch.Tensor
+    count: torch.Tensor
+
+
+def bin_particles_slab(spec: DenseGridSpec, nxl: int, x0: int, positions,
+                       alive) -> SlabBinned:
+    """Bin particles into one slab's extended x-range (see
+    :class:`SlabBinned`); ``x0`` = rank * ``nxl``. Cells are found as
+    :func:`cell_of` finds them (a multiplication by the float32 reciprocal
+    of the width), clamped into the interior of the unpadded grid
+    (``spec.clamp_nx``)."""
+    dev = positions.device
+    cap = spec.cap
+    origin = torch.tensor(spec.origin, dtype=positions.dtype, device=dev)
+    hi = np.asarray(spec.dims, np.int32) - 2
+    if spec.clamp_nx is not None:
+        hi[0] = spec.clamp_nx - 2
+    hi = torch.from_numpy(hi).to(dev)
+    c = torch.floor((positions - origin) * inv_width(spec.cell_width)).to(
+        torch.int32)
+    clamped_mask = torch.any((c < 1) | (c > hi), dim=-1)
+    c = torch.minimum(torch.maximum(c, torch.ones_like(hi)), hi)
+    rest = c[..., 1]
+    for axis in range(2, spec.dim):
+        rest = rest * spec.dims[axis] + c[..., axis]
+    nyz = int(np.prod(spec.dims[1:]))
+    lx = c[..., 0] - (int(x0) - 1)
+    in_slab = alive & (lx >= 0) & (lx < nxl + 2)
+    interior = in_slab & (lx >= 1) & (lx < nxl + 1)
+    c_local = (nxl + 2) * nyz
+    cell = torch.where(in_slab, lx * nyz + rest, c_local).to(torch.int32)
+    order, rank, starts, counts, mask = _run_table(cell, c_local, cap)
+    fits = in_slab & (rank < cap)
+    slot = torch.where(fits, cell * cap + rank, c_local * cap).to(
+        torch.int32)
+    return SlabBinned(
         slot_of=slot,
         in_grid=fits,
+        in_interior=interior & (rank < cap),
         mask=mask,
-        overflow=overflow,
-        clamped=clamped,
+        overflow=(interior & (rank >= cap)).sum(dtype=torch.int32),
+        clamped=(interior & clamped_mask).sum(dtype=torch.int32),
         order=order,
         start=starts,
         count=counts,
@@ -323,6 +412,22 @@ def to_grid_multi(spec, binned, items):
     if src is not None:
         return [_gather_grid(src, v, f) for v, f in items]
     return binning.expand(binned, items)
+
+
+def to_grid_multi2(spec_a, binned_a, items_a, spec_b, binned_b, items_b):
+    """:func:`to_grid_multi` of two binnings (a substep's fluid and
+    boundary binnings) in one call of ``ops.binning.expand_many``: one
+    kernel launch for both on CUDA tensors. A brute-tier binding gathers
+    its items through ``grid_src`` instead (it has no sorted order), and
+    the other binning then expands alone. Returns (grids_a, grids_b)."""
+    from ..ops import binning
+
+    if (getattr(binned_a, "grid_src", None) is not None
+            or getattr(binned_b, "grid_src", None) is not None):
+        return (to_grid_multi(spec_a, binned_a, items_a),
+                to_grid_multi(spec_b, binned_b, items_b))
+    return tuple(binning.expand_many([(binned_a, items_a),
+                                      (binned_b, items_b)]))
 
 
 def from_grid_multi(spec, binned, grids):

@@ -25,6 +25,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -43,6 +44,11 @@ _HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _NOT_LAUNCHED = -1  # the C entries' kNotLaunched: nothing to launch
 
+# The slab path (parallel.LocalHalos) launches from one thread per slab:
+# the first build and the launch counts are taken under these locks.
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -59,7 +65,7 @@ _SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "salva_k_pass_v2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                         _P],
-    "salva_expand": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "salva_expand": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "salva_rigid_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _F, _F, _P],
     "salva_pass_tiling": [_I, _I, _I, _I, _I, _I, _P],
@@ -187,10 +193,15 @@ class _Kernels:
             raise RuntimeError(f"kernel entry points not built: {missing}")
 
 
-@functools.lru_cache(maxsize=None)
 def load() -> _Kernels:
     """Build if needed, load once per process, and declare every entry
     point's argument and return types."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> _Kernels:
     return _Kernels([ctypes.CDLL(str(p)) for p in build()])
 
 
@@ -209,5 +220,6 @@ def launch(launches, name, fn, *args, device):
         return
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed (error {err})")
-    launches[name] += 1
+    with _COUNT_LOCK:
+        launches[name] += 1
 

@@ -20,6 +20,8 @@ contiguous view of one output buffer.
 the port of the Pallas prototype ``tools/exp_pallas_expand.py``) for CUDA
 tensors, and runs ``expand_plain`` (the run-table index arithmetic in
 PyTorch) for CPU tensors; every launch adds one to ``LAUNCHES["expand"]``.
+``expand_many`` expands two binnings (a substep's fluid and boundary
+binnings) in one launch of the same kernel.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 LAUNCHES = {"expand": 0}
 MAX_CHANNELS = 16  # csrc/expand.cu kMaxChannels
+MAX_TABLES = 2  # csrc/expand.cu kMaxTables: binnings one launch takes
 
 
 def reset_launches():
@@ -106,30 +109,68 @@ def expand_plain(binned, items):
     return _split(out, widths)
 
 
+def expand_many_plain(calls):
+    """The plain version of :func:`expand_many`: :func:`expand_plain` per
+    binning."""
+    return [expand_plain(binned, items) for binned, items in calls]
+
+
 def expand(binned, items):
     """``items``: ``[(values [N] or [N, D] float32, fill)]`` -> one grid
     per item, ``[cap, C]`` or ``[D, cap, C]`` (see the module note). CPU
     tensors run :func:`expand_plain`; CUDA tensors launch the kernel (one
     launch for all channels) or raise."""
-    cap, C, chans, fills, widths = _check(binned, items)
-    dev = binned.order.device
+    return expand_many([(binned, items)])[0]
+
+
+def expand_many(calls):
+    """``calls``: ``[(binned, items)]``, one or two binnings (a substep's
+    fluid and boundary binnings), each with its own channels, as
+    :func:`expand` takes them -> one list of grids per call. CPU tensors
+    run :func:`expand_plain` per binning; CUDA tensors launch the kernel
+    once for every binning and channel, or raise."""
+    if not 1 <= len(calls) <= MAX_TABLES:
+        raise ValueError(f"expand: 1 to {MAX_TABLES} binnings, got "
+                         f"{len(calls)}")
+    checked = [_check(binned, items) for binned, items in calls]
+    devs = {binned.order.device for binned, _ in calls}
+    if len(devs) != 1:
+        raise ValueError(f"expand: the binnings lie on several devices "
+                         f"{sorted(map(str, devs))}")
+    (dev,) = devs
     if dev.type == "cpu":
-        return expand_plain(binned, items)
+        return expand_many_plain(calls)
     if dev.type != "cuda":
         raise RuntimeError(f"expand runs on CPU (plain) or CUDA (kernel) "
                            f"tensors, got {dev}")
-    nch = len(chans)
-    if nch > MAX_CHANNELS:
-        raise ValueError(f"expand: {nch} channels, the kernel takes at most "
-                         f"{MAX_CHANNELS}")
-    out = torch.empty((nch, cap, C), dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * nch)(*[v.data_ptr() for v in chans])
-    strides = (ctypes.c_longlong * nch)(*[v.stride(0) for v in chans])
-    fill_arr = (ctypes.c_float * nch)(*fills)
+    n = len(calls)
+    outs, chans, fills = [], [], []
+    for cap, C, ch, fl, _widths in checked:
+        if len(ch) > MAX_CHANNELS:
+            raise ValueError(f"expand: {len(ch)} channels, the kernel takes "
+                             f"at most {MAX_CHANNELS}")
+        outs.append(torch.empty((len(ch), cap, C), dtype=torch.float32,
+                                device=dev))
+        chans += ch
+        fills += fl
+
+    def ptrs(tensors):
+        return (ctypes.c_void_p * len(tensors))(*[t.data_ptr()
+                                                   for t in tensors])
+
+    def ints(values):
+        return (ctypes.c_int * len(values))(*values)
+
+    binnings = [binned for binned, _ in calls]
     from . import _build
 
-    _build.launch(LAUNCHES, "expand", "salva_expand",
-                  binned.order.data_ptr(), binned.start.data_ptr(),
-                  binned.count.data_ptr(), cap, C, nch, ptrs, strides,
-                  fill_arr, out.data_ptr(), device=dev)
-    return _split(out, widths)
+    _build.launch(
+        LAUNCHES, "expand", "salva_expand", n,
+        ptrs([b.order for b in binnings]), ptrs([b.start for b in binnings]),
+        ptrs([b.count for b in binnings]),
+        ints([c[0] for c in checked]), ints([c[1] for c in checked]),
+        ints([len(c[2]) for c in checked]), ptrs(chans),
+        (ctypes.c_longlong * len(chans))(*[v.stride(0) for v in chans]),
+        (ctypes.c_float * len(chans))(*fills),
+        ptrs(outs), device=dev)
+    return [_split(out, c[4]) for out, c in zip(outs, checked)]

@@ -19,7 +19,9 @@ wrapper        computes, per live slot i of the [cap, C] grid  plain version
 formulation of ``salva_tpu.ops.pallas_pair2.k_pass_pallas2``: a pair block
 runs only where both 8-slot groups are live (group g of cell c is live iff
 ``counts[c] > 8 g``); the dead slots inside a live group must hold the
-sentinel position and zero mass, as every binned grid does. As in the
+sentinel position and zero mass, as every binned grid does, and then add
+nothing. So its kernel is ``k_pass``'s tiled body, which walks each
+cell's true count (one launch, counted under ``k_pass_v2``). As in the
 JAX package, no solver calls it.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -460,7 +462,8 @@ def k_pass(spec, h, dim, kernel_gradient, P, M, K, counts):
 
 def k_pass_v2(spec, h, dim, kernel_gradient, P, M, K, counts):
     """``k_pass`` by live 8-slot groups (``k_pass_pallas2``) -> [dim, cap,
-    C]; dead slots of a live group must hold the sentinel and zero mass."""
+    C]; dead slots of a live group must hold the sentinel and zero mass.
+    On CUDA tensors one launch of the tiled ``k_pass`` kernel."""
     if _check("k_pass_v2", spec, dim, (kernel_gradient,),
               [(P, _vec), (M, _scl), (K, _scl)], counts):
         return k_pass_plain(spec, h, dim, kernel_gradient, P, M, K, counts)

@@ -26,11 +26,20 @@ kernels, which walk the full stencil). The sorted binnings' layout
 shuffles (``to_grid`` / ``to_grid_multi``) go through ``ops.binning``.
 Everything else, the non-pressure forces included, is plain torch.
 
+With a ``halo`` (``parallel/domain.py``, the slab path) the context
+covers one x-slab of the grid and its two ghost layers
+(``dense_grid.bin_particles_slab``), with the full-grid boundary binning
+and neither the half stencil, the fitted window nor the sparse fb
+table, as in the JAX package. Unlike the JAX package's slab path, the
+hand kernels stay on for CUDA tensors: they treat the cells beyond the
+local grid as empty where the plain folds roll cyclically, which gives
+different values on the ghost columns only, and every ghost column a
+solver or force reads is first overwritten by a ``halo.exchange``.
+
 Not ported (each raises ``NotImplementedError`` naming its flag): the
 dense+spill structure (``dense_spill_columns``), the compact layout
 (``dense_compact``) and frozen pair coefficients
-(``dense_frozen_pairs``); the multi-device halo path has no counterpart
-yet.
+(``dense_frozen_pairs``).
 """
 
 from __future__ import annotations
@@ -46,15 +55,25 @@ from ..ops.pair import fold_pairs
 from . import full_folds
 
 
-def per_fluid_mean_max_grid(values, fid, mask, num_fluids: int):
+def per_fluid_mean_max_grid(values, fid, mask, num_fluids: int, halo=None,
+                            interior=None):
     """`per_fluid_mean_max` on grid layout: the mean over each fluid's
-    live slots, then the max over fluids (`dfsph_solver.rs:150-160`)."""
+    live slots, then the max over fluids (`dfsph_solver.rs:150-160`).
+
+    With ``halo`` / ``interior`` set (the slab path), each slab reduces
+    over its owned slots and the sums and counts are summed over the
+    slabs, so every slab computes the reference's global mean error."""
     err = torch.zeros((), dtype=torch.float32, device=values.device)
     live = mask > 0
+    if interior is not None:
+        live = live & interior
     for f in range(num_fluids):
         sel = live & (fid == f)
         s = torch.sum(torch.where(sel, values, 0.0))
         cnt = torch.sum(sel.to(torch.float32))
+        if halo is not None:
+            s = halo.psum(s)
+            cnt = halo.psum(cnt)
         err = torch.maximum(
             err, torch.where(cnt > 0, s / torch.clamp(cnt, min=1.0), 0.0)
         )
@@ -84,7 +103,7 @@ class DenseCtx:
     """
 
     def __init__(self, sim: SimConfig, spec_f, spec_b, fluids, boundaries,
-                 need_s2: bool = True):
+                 halo=None, need_s2: bool = True):
         flag = _unsupported(sim)
         if flag is not None:
             raise NotImplementedError(
@@ -92,7 +111,6 @@ class DenseCtx:
             )
         # ``need_s2``: accumulate the IISPH-only sums (s2_ff / s2_m).
         self.need_s2 = need_s2
-        self._boundaries_volumes = boundaries.volumes
         self.sim = sim
         self.spec_f = spec_f
         self.spec_b = spec_b
@@ -106,11 +124,14 @@ class DenseCtx:
         # grid whose offsets 0..C-1 pair every cell with every cell.
         self.brute = spec_f.brute
         self.offsets = dg.stencil_offsets(spec_f)
+        self.halo = halo
         # The full-stencil plain folds run the hot passes on the brute
         # tier (every device) and, for CPU tensors, on a grid without the
-        # half stencil; ``ops.pair`` runs them everywhere else.
+        # half stencil (a slab has none); ``ops.pair`` runs them
+        # everywhere else.
         self.use_full_folds = self.brute or (
-            not sim.dense_half_stencil and dev.type == "cpu"
+            dev.type == "cpu"
+            and (halo is not None or not sim.dense_half_stencil)
         )
         # Fluid-tracking grid window (config.fitted_dims): static dims,
         # origin recomputed here from the live fluid extent each substep.
@@ -118,7 +139,7 @@ class DenseCtx:
         # (> h from any fluid by the margin) rather than clamped into the
         # border ring.
         self.fitted = (getattr(sim, "fitted_dims", None) is not None
-                       and not self.brute)
+                       and halo is None and not self.brute)
         self.drop_b = self.fitted
         self.origin_dyn = None
         if self.fitted:
@@ -148,6 +169,23 @@ class DenseCtx:
             )
 
         self.sf = spec_f
+        self.interior = None
+        if halo is not None:
+            # The slab path: this slab's extended x-range of the grid;
+            # every view rolls the LOCAL cell axis, and the slab binning
+            # fills the ghost layers.
+            nxl = halo.nxl
+            self.binf = dg.bin_particles_slab(
+                spec_f, nxl, halo.x0, fluids.positions, fluids.alive)
+            self.binb = dg.bin_particles_slab(
+                spec_b, nxl, halo.x0, boundaries.positions, boundaries.alive)
+            spec_f = spec_f.replace(dims=(nxl + 2,) + spec_f.dims[1:])
+            spec_b = spec_b.replace(dims=(nxl + 2,) + spec_b.dims[1:])
+            self.spec_f = self.sf = spec_f
+            self.spec_b = spec_b
+            # Slot ownership: the columns of the owned layers.
+            layer = torch.arange(spec_f.num_cells, device=dev) // halo.nyz
+            self.interior = ((layer >= 1) & (layer < nxl + 1))[None, :]
         offs = self.offsets
         self.jff = lambda arr, o: dg.shift_j(spec_f, arr, offs[o])
         # Fluid-owner / boundary-j view of the non-pressure forces: a roll
@@ -155,13 +193,14 @@ class DenseCtx:
         # the boundary arrays rematerialized onto the full grid, see
         # ``force_field_views``).
         self.jfb = self.jff
-        self.sparse_b = bool(sim.dense_sparse_boundary) and not self.brute
+        self.sparse_b = (bool(sim.dense_sparse_boundary) and not self.brute
+                         and halo is None)
         if self.brute:
             # Identity bindings on the same cyclic columns: every view is
             # a roll (the fitted window and the sparse tables stay off).
             self.binf = dg.bin_particles_brute(spec_f, fluids.alive)
             self.binb = dg.bin_particles_brute(spec_b, boundaries.alive)
-        else:
+        elif halo is None:
             self.binf = dg.bin_particles(
                 spec_f, fluids.positions, fluids.alive,
                 origin=self.origin_dyn,
@@ -193,7 +232,18 @@ class DenseCtx:
         ]
         if self.uniform is None:
             f_items += [(fluids.masses, 0.0), (fluids.density0, 1.0)]
-        f_grids = dg.to_grid_multi(self.sf, self.binf, f_items)
+        b_items = [(boundaries.positions, dg.POS_SENTINEL),
+                   (boundaries.velocities, 0.0)]
+        # The volumes a previous step stored, when the world marks the
+        # boundaries unchanged (``_compute_boundary_volumes``).
+        self._volumes_cached = not getattr(sim, "recompute_boundary_volumes",
+                                           True)
+        if self._volumes_cached:
+            b_items.append((boundaries.volumes, 0.0))
+        # Both binnings' layout shuffles in one call (one kernel launch on
+        # the card).
+        f_grids, b_grids = dg.to_grid_multi2(self.sf, self.binf, f_items,
+                                             self.sb, self.binb, b_items)
         self.P, self.V = f_grids[0], f_grids[1]
         if self.uniform is not None:
             # Constant channels derived from the mask — no shuffle at all.
@@ -209,11 +259,8 @@ class DenseCtx:
             self.M, self.R0 = f_grids[2], f_grids[3]
             self.FID = dg.to_grid(self.sf, self.binf, fluids.fluid_id,
                                   fill=-1)
-        self.Pb, self.Vbvel = dg.to_grid_multi(
-            self.sb, self.binb,
-            [(boundaries.positions, dg.POS_SENTINEL),
-             (boundaries.velocities, 0.0)],
-        )
+        self.Pb, self.Vbvel = b_grids[0], b_grids[1]
+        self._volumes_grid = b_grids[2] if self._volumes_cached else None
         self.maskb = self.binb.mask
         self.counts_b = (self.maskb > 0).sum(dim=0, dtype=torch.int32)
 
@@ -273,10 +320,8 @@ class DenseCtx:
         """V_b = 1 / sum W_bb (`dfsph_solver.rs:72-96`), or the volumes a
         previous step stored when the world marks the boundaries unchanged
         (``sim.recompute_boundary_volumes = False``)."""
-        if not getattr(self.sim, "recompute_boundary_volumes", True):
-            self.Volb = dg.to_grid(
-                self.sb, self.binb, self._boundaries_volumes
-            )
+        if self._volumes_cached:
+            self.Volb = self._volumes_grid
             return
         kd_w, kd_dw = self.kd
 
@@ -294,6 +339,10 @@ class DenseCtx:
             1.0 / torch.where(wsum > 0, wsum, 1.0),
             0.0,
         )
+        if self.halo is not None:
+            # A ghost boundary cell summed half its neighbourhood; the fb
+            # passes read Volb at j, so refresh it from the owners.
+            self.Volb = self.halo.exchange(self.Volb)
 
     def _hoist(self):
         dim, h = self.dim, self.h
@@ -332,6 +381,10 @@ class DenseCtx:
 
         R0 = self.R0
         self.rho = torch.where(self.live, rho_ff + R0 * rho_fb, R0)
+        if self.halo is not None:
+            # The single-pass forces (XSPH, artificial viscosity) and the
+            # solvers read rho at j.
+            self.rho = self.halo.exchange(self.rho)
         self.Gf = Gf
         self.Gb = R0[None] * Gb_raw
         self.Gsum = self.Gf + self.Gb
@@ -342,6 +395,28 @@ class DenseCtx:
         self.count = cnt_ff + cnt_fb
         self.cnt_ff = cnt_ff
         self.cnt_fb = cnt_fb
+
+    def contact_diagnostics(self):
+        """The binning's and the hoist's ``StepDiagnostics`` fields: contact
+        counts over the owned live slots, bin overflow, clamps and the peak
+        density ratio; on the slab path summed (the ratio: maxed) over the
+        slabs."""
+        own = self.live if self.interior is None else self.live & self.interior
+        d = dict(
+            ncontacts_ff=torch.where(own, self.cnt_ff, 0).sum(
+                dtype=torch.int32),
+            ncontacts_fb=torch.where(own, self.cnt_fb, 0).sum(
+                dtype=torch.int32),
+            neighbor_overflow=torch.as_tensor(self.bin_overflow,
+                                              dtype=torch.int32),
+            candidate_overflow=self.binf.clamped + self.binb.clamped,
+            max_density_ratio=torch.clamp(
+                torch.where(own, self.rho / self.R0, 0.0).amax(), min=0.0),
+        )
+        if self.halo is not None:
+            d = {k: (self.halo.pmax(v) if k == "max_density_ratio"
+                     else self.halo.psum(v)) for k, v in d.items()}
+        return d
 
     # -- sparse fluid-boundary hoist (config.dense_fb_columns) ---------------
 
@@ -506,6 +581,7 @@ class DenseCtx:
                     Volb=Volb, maskb=maskb, h=self.h, dim=self.dim, dt=dt,
                     inv_dt=inv_dt, kernel_density=self.sim.kernel_density,
                     kernel_gradient=self.sim.kernel_gradient,
+                    halo=self.halo, interior=self.interior,
                 )
             a_d, fb_d = force.apply(fields)
             A = A + a_d * self.maskf[None]
@@ -522,17 +598,11 @@ class DenseCtx:
     def unbin_f(self, grid, fallback):
         """Fluid grid [cap, C] / [D, cap, C] -> particles; particles not
         in the grid keep ``fallback``."""
-        return self._unbin(self.sf, self.binf, grid, fallback)
+        return self.unbin_f_multi([(grid, fallback)])[0]
 
     def unbin_b(self, grid, fallback):
         """Boundary twin of :meth:`unbin_f`."""
-        return self._unbin(self.sb, self.binb, grid, fallback)
-
-    @staticmethod
-    def _unbin(spec, binned, grid, fallback):
-        out = dg.from_grid(spec, binned, grid, 0.0)
-        sel = binned.in_grid[:, None] if out.ndim == 2 else binned.in_grid
-        return torch.where(sel, out, fallback)
+        return self.unbin_b_multi([(grid, fallback)])[0]
 
     def unbin_f_multi(self, items):
         """Unbin several fluid grids with ONE packed row gather.
@@ -543,11 +613,17 @@ class DenseCtx:
         """Boundary twin of :meth:`unbin_f_multi`."""
         return self._unbin_multi(self.sb, self.binb, items)
 
-    @staticmethod
-    def _unbin_multi(spec, binned, items):
+    def _unbin_multi(self, spec, binned, items):
+        """On the slab path each particle is read from the one slab that
+        owns it (``halo.merge_particles``); the others give zeros."""
         outs = dg.from_grid_multi(spec, binned, [g for g, _ in items])
+        keep = binned.in_grid if self.halo is None else binned.in_interior
         res = []
         for out, (_g, fb) in zip(outs, items):
-            sel = binned.in_grid[:, None] if out.ndim == 2 else binned.in_grid
-            res.append(torch.where(sel, out, fb))
+            sel = keep[:, None] if out.ndim == 2 else keep
+            if self.halo is None:
+                res.append(torch.where(sel, out, fb))
+            else:
+                res.append(self.halo.merge_particles(
+                    torch.where(sel, out, 0.0), keep, fb))
         return res

@@ -11,6 +11,11 @@ The divergence and pressure solves are Python loops in place of
 once (the convergence test). The iteration count follows the JAX loop
 exactly: the counter increments on the iteration that finds
 convergence, and that iteration applies no update.
+
+With a ``halo`` (``parallel/domain.py``) the substep runs on one slab of
+the grid: the stiffness is exchanged before each ``k_pass`` and the
+velocity changes after each update, the errors and diagnostics are
+summed over the slabs, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,14 +36,15 @@ def _converged(err, tol, i: int, min_iter: int) -> bool:
 
 def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
                         spec_f: dg.DenseGridSpec, spec_b: dg.DenseGridSpec,
-                        dense_forces=()):
+                        dense_forces=(), halo=None):
     """Build the dense-layout DFSPH substep
     ``substep(fluids, boundaries, solver_state, es, dt, gravity)``.
 
     ``dense_forces``: tuple of dense non-pressure forces
     (``forces_dense.py``), each ``apply(fields) -> (accel, bforces|None)``,
     or a ``ParticleWiseForce`` run on the elasticity state ``es``,
-    applied in predict_advection."""
+    applied in predict_advection. ``halo``: one slab's
+    ``parallel.domain.Halo`` (the slab path), or None."""
     dim = sim.dim
     min_nb = cfg.min_neighbors(dim)
     warm = float(getattr(cfg, "warm_start", 0.0))
@@ -50,8 +56,17 @@ def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
         inv_dt = torch.where(dt > 0, 1.0 / dt, 0.0)
         boundaries = boundaries.clear_forces()
 
-        ctx = DenseCtx(sim, spec_f, spec_b, fluids, boundaries,
+        ctx = DenseCtx(sim, spec_f, spec_b, fluids, boundaries, halo=halo,
                        need_s2=False)  # s2_ff / s2_m are IISPH-only sums
+
+        def exchange(arr):
+            return arr if halo is None else halo.exchange(arr)
+
+        def mean_max(values):
+            return per_fluid_mean_max_grid(values, ctx.FID, maskf,
+                                           num_fluids, halo=halo,
+                                           interior=ctx.interior)
+
         maskf, live, R0 = ctx.maskf, ctx.live, ctx.R0
         # solver_state: [:, :dim] velocity changes, [:, dim] / [:, dim+1]
         # the previous step's divergence / pressure stiffness sums.
@@ -69,8 +84,8 @@ def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
         max_div_err = cfg.max_divergence_error * inv_dt * 0.01
         ksum_d = torch.zeros_like(maskf)
         if warm > 0.0:
-            k0 = torch.clamp(kd_prev * warm, min=0.0) * maskf
-            DV = DV - (k0[None] * ctx.Gsum + ctx.k_pass(k0))
+            k0 = exchange(torch.clamp(kd_prev * warm, min=0.0) * maskf)
+            DV = exchange(DV - (k0[None] * ctx.Gsum + ctx.k_pass(k0)))
             ksum_d = k0
         enough = (ctx.count >= min_nb) & live
         div_iters = 0
@@ -78,15 +93,16 @@ def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
         while div_iters < cfg.max_divergence_iter:
             delta = ctx.delta_density(ctx.V + DV)
             div = torch.where(enough, torch.clamp(delta, min=0.0), 0.0)
-            div_err = per_fluid_mean_max_grid(div / R0, ctx.FID, maskf,
-                                              num_fluids)
+            div_err = mean_max(div / R0)
             done = _converged(div_err, max_div_err, div_iters,
                               cfg.min_divergence_iter)
             div_iters += 1
             if done:
                 break
-            ki = div * alpha
-            DV = DV - (ki[None] * ctx.Gsum + ctx.k_pass(ki))
+            # On a slab ki is valid on owned cells only (delta at a ghost
+            # cell sees half its neighbourhood); k_pass reads ki at j.
+            ki = exchange(div * alpha)
+            DV = exchange(DV - (ki[None] * ctx.Gsum + ctx.k_pass(ki)))
             ksum_d = ksum_d + ki
 
         # Commit velocities; reset velocity changes (`:688-691`).
@@ -98,28 +114,30 @@ def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
         if dense_forces:
             A, np_Fb = ctx.apply_forces(dense_forces, fluids, V2, dt, inv_dt,
                                         A, es)
-        DV = A * dt
+        # The force passes are valid on owned cells only.
+        DV = exchange(A * dt)
 
         # --- pressure solve (`dfsph_solver.rs:432-464`)
         ksum_p = torch.zeros_like(maskf)
         if warm > 0.0:
-            kp0 = torch.clamp(kp_prev * warm, min=0.0) * maskf
-            DV = DV - (kp0[None] * ctx.Gsum + ctx.k_pass(kp0)) * inv_dt
+            kp0 = exchange(torch.clamp(kp_prev * warm, min=0.0) * maskf)
+            DV = exchange(
+                DV - (kp0[None] * ctx.Gsum + ctx.k_pass(kp0)) * inv_dt)
             ksum_p = kp0
         p_iters = 0
         p_err = torch.zeros((), dtype=torch.float32, device=dev)
         while p_iters < cfg.max_pressure_iter:
             predicted = ctx.rho + ctx.delta_density(V2 + DV) * dt
             err_i = torch.where(predicted < R0, 0.0, predicted / R0 - 1.0)
-            p_err = per_fluid_mean_max_grid(err_i, ctx.FID, maskf,
-                                            num_fluids)
+            p_err = mean_max(err_i)
             done = _converged(p_err, cfg.max_density_error, p_iters,
                               cfg.min_pressure_iter)
             p_iters += 1
             if done:
                 break
-            ki_p = torch.clamp((predicted - R0) * alpha, min=0.0)
-            DV = DV - (ki_p[None] * ctx.Gsum + ctx.k_pass(ki_p)) * inv_dt
+            ki_p = exchange(torch.clamp((predicted - R0) * alpha, min=0.0))
+            DV = exchange(
+                DV - (ki_p[None] * ctx.Gsum + ctx.k_pass(ki_p)) * inv_dt)
             ksum_p = ksum_p + ki_p
 
         # --- positions (`:411-420`)
@@ -160,16 +178,7 @@ def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
                 divergence_iters=div_iters,
                 divergence_error=div_err,
             ),
-            ncontacts_ff=torch.where(live, ctx.cnt_ff, 0).sum(
-                dtype=torch.int32),
-            ncontacts_fb=torch.where(live, ctx.cnt_fb, 0).sum(
-                dtype=torch.int32),
-            neighbor_overflow=torch.as_tensor(ctx.bin_overflow,
-                                              dtype=torch.int32),
-            candidate_overflow=ctx.binf.clamped + ctx.binb.clamped,
-            max_density_ratio=torch.clamp(
-                torch.where(live, ctx.rho / R0, 0.0).amax(), min=0.0
-            ),
+            **ctx.contact_diagnostics(),
         )
         return fluids, boundaries, new_state, diag
 

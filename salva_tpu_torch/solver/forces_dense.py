@@ -16,8 +16,11 @@ The Becker 2009 elasticity runs inside the dense substeps as
 contact table, so the solvers evaluate it in particle layout and bin its
 acceleration into the grid once. ``CustomForce`` has no dense form
 (``to_dense_force`` returns None), so a world carrying one runs the
-gather layout. ``DenseFields.halo`` / ``interior`` (the multi-device slab
-path) have no counterpart yet.
+gather layout. On the slab path (``parallel/domain.py``)
+``DenseFields.halo`` exchanges the ghost layers of the intermediates a
+later pass reads at j (Akinci's normals, He 2014's colours and squared
+colour gradients, the DFSPH viscosity's iterate), and ``interior``
+restricts the viscosity's mean error to the owned slots.
 """
 
 from __future__ import annotations
@@ -65,6 +68,18 @@ class DenseFields(NamedTuple):
     inv_dt: torch.Tensor
     kernel_density: str
     kernel_gradient: str
+    # The slab path (parallel/domain.py): one slab's ghost-layer exchange,
+    # for per-force intermediates computed on owned cells but read at j.
+    # None on one device.
+    halo: object = None
+    # Slot ownership on the slab path ([1, C] bool, owned layers True), for
+    # the global mean-error rule of the iterative forces.
+    interior: object = None
+
+
+def _exchange(f: "DenseFields", arr):
+    """``arr`` with its ghost layers refreshed on the slab path."""
+    return arr if f.halo is None else f.halo.exchange(arr)
 
 
 def per_slot(values: Tuple[float, ...], FID):
@@ -324,6 +339,9 @@ class Akinci2013SurfaceTensionDense:
             N = N + torch.stack(
                 [f.h * torch.sum(dpos[d] * s, dim=1) for d in range(f.dim)]
             )
+        # Normals at ghost columns saw half a neighbourhood; pass 2 reads
+        # n_j.
+        N = _exchange(f, N)
 
         # Pass 2: cohesion + curvature (`:137-165`).
         accel = torch.zeros_like(f.P)
@@ -489,6 +507,7 @@ class He2014SurfaceTensionDense:
             colors = colors + torch.sum(
                 torch.where(within, w * j["vol"][None, :, :], 0.0), dim=1
             )
+        colors = _exchange(f, colors)
 
         # Pass 2: |grad c|^2 (`:77-105`).
         safe_colors = torch.where(torch.abs(colors) > 0, colors, 1.0)
@@ -505,7 +524,7 @@ class He2014SurfaceTensionDense:
                 [torch.sum(dpos[d] * s, dim=1) for d in range(f.dim)]
             )
         gradc = gradc / safe_colors[None]
-        gradcs = torch.sum(gradc * gradc, dim=0)
+        gradcs = _exchange(f, torch.sum(gradc * gradc, dim=0))
 
         # Pass 3: fluid force (`:138-158`).
         m_over_rho = f.M / torch.clamp(f.RHO, min=EPSILON)
@@ -742,15 +761,23 @@ class DFSPHViscosityDense:
         target = strain_rate(torch.zeros_like(f.P)) * (1.0 - nu)[None]
 
         live_part = (f.maskf > 0) & (part > 0)
+        if f.interior is not None:
+            # The slab path: reduce over owned slots, summed over the
+            # slabs for the reference's global mean-error rule.
+            live_part = live_part & f.interior
         sel = [live_part & (f.FID == fl)
                for fl in range(len(self.viscosity_coefficients))]
         counts = [torch.sum(torch.where(m, 1.0, 0.0)) for m in sel]
+        if f.halo is not None:
+            counts = [f.halo.psum(c) for c in counts]
 
         def mean_err(err_vec):
             contrib = torch.sum(torch.abs(err_vec), dim=0) / 6.0
             err = torch.zeros((), dtype=torch.float32, device=f.P.device)
             for m, cnt in zip(sel, counts):
                 s = torch.sum(torch.where(m, contrib, 0.0))
+                if f.halo is not None:
+                    s = f.halo.psum(s)
                 err = torch.maximum(
                     err,
                     torch.where(cnt > 0, s / torch.clamp(cnt, min=1.0), 0.0))
@@ -760,6 +787,8 @@ class DFSPHViscosityDense:
             ev = torch.movedim(err_vec, 0, -1)  # [cap, C, S]
             u = torch.einsum("...st,...t->...s", beta, ev)
             u = torch.movedim(u, -1, 0) / (rho * rho)[None]  # [S, cap, C]
+            # u is valid on owned cells; u_pass reads u at j.
+            u = _exchange(f, u)
             upass = u_pass(u)
             own = []
             for d in range(dim):
@@ -774,6 +803,8 @@ class DFSPHViscosityDense:
         accel = torch.zeros_like(f.P)
         i = 0
         while i < self.max_viscosity_iter:
+            # ts_pass reads (V + accel dt) at j.
+            accel = _exchange(f, accel)
             err_vec = strain_rate(accel) - target
             err = mean_err(err_vec)
             counters.FORCE_ITERATIONS["dfsph_viscosity"] += 1

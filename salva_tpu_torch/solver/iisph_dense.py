@@ -24,8 +24,14 @@ iteration's pressures are kept.
 The dense non-pressure forces (``dense_forces``: the viscosity and
 surface-tension pair forces, and the elasticity as a
 ``ParticleWiseForce``) act in predict_advection on the substep's start
-velocities. Not ported: the precomputed particle-wise accelerations of
-the multi-device path (``a_pw``) and its halo exchange.
+velocities.
+
+With a ``halo`` (``parallel/domain.py``, the slab path) the velocity
+changes of the forces, the pressures before each ``k_pass`` and the
+vector ``q`` before each ``t_pass`` are exchanged, and the error and
+diagnostics are summed over the slabs, as in the JAX package. Not
+ported: the precomputed particle-wise accelerations (``a_pw``) of the
+JAX package's sharded binning, which comes with particle migration.
 """
 
 from __future__ import annotations
@@ -42,10 +48,11 @@ from .dfsph_dense import _converged
 
 def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
                         spec_f: dg.DenseGridSpec, spec_b: dg.DenseGridSpec,
-                        dense_forces=()):
+                        dense_forces=(), halo=None):
     """Build the dense-layout IISPH substep
     ``substep(fluids, boundaries, pressures, es, dt, gravity)`` (``es``:
-    the elasticity state a ``ParticleWiseForce`` reads)."""
+    the elasticity state a ``ParticleWiseForce`` reads; ``halo``: one
+    slab's ``parallel.domain.Halo``, or None)."""
     dim = sim.dim
 
     def substep(fluids: FluidsState, boundaries: BoundariesState,
@@ -56,8 +63,12 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
         dt2 = dt * dt
         boundaries = boundaries.clear_forces()
 
-        ctx = DenseCtx(sim, spec_f, spec_b, fluids, boundaries)
+        ctx = DenseCtx(sim, spec_f, spec_b, fluids, boundaries, halo=halo)
         maskf, live, R0 = ctx.maskf, ctx.live, ctx.R0
+
+        def exchange(arr):
+            return arr if halo is None else halo.exchange(arr)
+
         P_grid = ctx.to_f(pressures)
 
         # predict_advection: gravity + non-pressure forces.
@@ -66,7 +77,9 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
         if dense_forces:
             A, np_Fb = ctx.apply_forces(dense_forces, fluids, ctx.V, dt,
                                         inv_dt, A, es)
-        DV = A * dt
+        # The force passes are valid on owned cells only; the predicted
+        # densities read (V + DV) at j.
+        DV = exchange(A * dt)
 
         rho_safe = torch.clamp(ctx.rho, min=1e-12)
         inv_rho2 = 1.0 / (rho_safe * rho_safe)
@@ -87,10 +100,14 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
         iters = 0
         err = torch.zeros((), dtype=torch.float32, device=dev)
         while iters < cfg.max_pressure_iter:
+            # On a slab the ghost pressures are one iteration stale (the
+            # update is valid on owned cells only); pass 1 reads p at j.
+            P_grid = exchange(P_grid)
             # Pass 1: D = dij_pjl (`:235-268`).
             D = -dt2 * ctx.k_pass(P_grid * inv_rho2)
-            # Pass 2: q_j = d_jj p_j + D_j reduction (`:270-353`).
-            q = dii * P_grid[None] + D
+            # Pass 2: q_j = d_jj p_j + D_j reduction (`:270-353`); dii and
+            # D are ghost-incomplete on a slab, and t_pass reads q at j.
+            q = exchange(dii * P_grid[None] + D)
             t_q = ctx.t_pass(q)
             sum_all = (
                 torch.sum(D * ctx.Gsum, dim=0)  # D_i . (Gf + Gb)
@@ -105,7 +122,8 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
             err_i = torch.where(
                 usable & positive, (-sum_all - aii * next_p) / R0, 0.0
             )
-            err = per_fluid_mean_max_grid(err_i, ctx.FID, maskf, num_fluids)
+            err = per_fluid_mean_max_grid(err_i, ctx.FID, maskf, num_fluids,
+                                          halo=halo, interior=ctx.interior)
             done = _converged(err, cfg.max_density_error, iters,
                               cfg.min_pressure_iter)
             iters += 1
@@ -113,7 +131,9 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
             if done:
                 break
 
-        # Velocity changes from final pressures (`:355-404`).
+        # Velocity changes from final pressures (`:355-404`); the final
+        # k_pass and the boundary pass read p at j.
+        P_grid = exchange(P_grid)
         p_over_rho2 = P_grid * inv_rho2
         K = ctx.k_pass(p_over_rho2)
         DV = DV - dt * (p_over_rho2[None] * ctx.Gf + K)
@@ -152,16 +172,7 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
                 divergence_error=torch.zeros((), dtype=torch.float32,
                                              device=dev),
             ),
-            ncontacts_ff=torch.where(live, ctx.cnt_ff, 0).sum(
-                dtype=torch.int32),
-            ncontacts_fb=torch.where(live, ctx.cnt_fb, 0).sum(
-                dtype=torch.int32),
-            neighbor_overflow=torch.as_tensor(ctx.bin_overflow,
-                                              dtype=torch.int32),
-            candidate_overflow=ctx.binf.clamped + ctx.binb.clamped,
-            max_density_ratio=torch.clamp(
-                torch.where(live, ctx.rho / R0, 0.0).amax(), min=0.0
-            ),
+            **ctx.contact_diagnostics(),
         )
         return fluids, boundaries, new_pressures, diag
 

@@ -679,3 +679,97 @@ def test_rigid_solve_kernel_matches_plain(cuda, dim, friction):
     zero = args[:-1] + (torch.zeros((), dtype=torch.int32, device=cuda),)
     lin0, ang0 = rigid.solve_contacts(*zero, 0.0, friction, 8)
     assert torch.equal(lin0, args[2]) and torch.equal(ang0, args[3])
+
+
+def test_expand_serves_two_binnings_in_one_launch(cuda):
+    """``expand_many``: the full-grid and the compact binning of
+    :func:`_expand_case`, each with its own channels, in one launch,
+    bitwise each binning's plain expansion."""
+    full, items_f = _expand_case(3, cuda, "full")
+    active, items_a = _expand_case(3, cuda, "active")
+    before = binning.LAUNCHES["expand"]
+    got_f, got_a = binning.expand_many([(full, items_f),
+                                        (active, items_a[:2])])
+    assert binning.LAUNCHES["expand"] == before + 1
+    for got, ref in ((got_f, binning.expand_plain(full, items_f)),
+                     (got_a, binning.expand_plain(active, items_a[:2]))):
+        assert len(got) == len(ref)
+        for o, r in zip(got, ref):
+            assert o.is_contiguous() and torch.equal(o, r)
+
+
+@pytest.mark.parametrize("n_slabs", [2, 4])
+def test_kernels_on_slab_grids(cuda, n_slabs):
+    """The pair kernels and the fused ``expand`` on each slab's local grid
+    (``parallel.LocalHalos``): a 6^3 block lowered onto a floor, binned
+    into ``n_slabs`` slabs with their ghost layers. The kernels treat the
+    cells beyond the local grid as empty and the plain versions roll
+    cyclically, so only the interior columns (what every reader of a pass
+    output uses) are compared; pair counts exact, ``expand`` bitwise."""
+    from salva_tpu_torch import shapes
+    from salva_tpu_torch.config import DFSPHConfig
+    from salva_tpu_torch.parallel import LocalHalos, pad_spec_for_devices
+    from salva_tpu_torch.sampling import shape_surface_sample
+    from salva_tpu_torch.scenes import cube_fluid
+    from salva_tpu_torch.solver.dense_common import DenseCtx
+    from salva_tpu_torch.solver.nonpressure import ForceSet
+    from salva_tpu_torch.step import _dense_config
+    from salva_tpu_torch.world import Boundary, Fluid, LiquidWorld
+
+    world = LiquidWorld(solver=DFSPHConfig(), particle_radius=0.05, dim=3,
+                        domain=((-0.45, -0.2, -0.45), (0.45, 0.8, 0.45)),
+                        layout="dense", device=cuda)
+    pos = cube_fluid((6, 6, 6), 0.05)
+    pos[:, 1] += 0.40
+    world.add_fluid(Fluid(pos, density0=1000.0))
+    world.add_boundary(Boundary(shape_surface_sample(
+        shapes.Cuboid((0.4, 0.1, 0.4)), 0.05, 3)))
+    world._prepare()
+    sim = world._boundary_volume_mode(world._effective_sim(), None)
+    spec_f, spec_b, _ = _dense_config(sim, world.solver_config, ForceSet())
+    spec_f = pad_spec_for_devices(spec_f, n_slabs)
+    spec_b = spec_b.replace(dims=spec_f.dims, clamp_nx=spec_f.clamp_nx)
+    nxl = spec_f.dims[0] // n_slabs
+    fl, bd = world.fluids_state, world.boundaries_state
+    ctxs = LocalHalos(n_slabs).run(
+        nxl, int(np.prod(spec_f.dims[1:])),
+        lambda halo: DenseCtx(sim, spec_f, spec_b, fl, bd.clear_forces(),
+                              halo=halo, need_s2=True))
+    fb_pairs = 0
+    for ctx in ctxs:
+        own = ctx.interior[0]
+        spec, h, P, M, counts = ctx.spec_f, ctx.h, ctx.P, ctx.M, ctx.counts
+        K = (ctx.rho * 1e-6 * ctx.maskf).contiguous()
+        Q = ctx.V.contiguous()
+        pairs = [
+            (pair.k_pass(spec, h, 3, "cubic", P, M, K, counts),
+             pair.k_pass_plain(spec, h, 3, "cubic", P, M, K, counts),
+             KT_TOL),
+            (pair.t_pass(spec, h, 3, "cubic", P, M, Q, counts),
+             pair.t_pass_plain(spec, h, 3, "cubic", P, M, Q, counts),
+             KT_TOL),
+        ]
+        ff = pair.hoist_ff(spec, h, 3, "cubic", "cubic", P, M, counts)
+        ff_ref = pair.hoist_ff_plain(spec, h, 3, "cubic", "cubic", P, M,
+                                     counts)
+        fb_args = (spec, h, 3, "cubic", "cubic", P, counts, ctx.Pb,
+                   ctx.Volb, ctx.Vbvel, ctx.counts_b)
+        fb = pair.hoist_fb(*fb_args)
+        fb_ref = pair.hoist_fb_plain(*fb_args)
+        fb_pairs += int(fb[-1][..., own].sum())
+        for out, ref in ((ff, ff_ref), (fb, fb_ref)):
+            assert torch.equal(out[-1][..., own], ref[-1][..., own])
+            pairs += [(o, r, HOIST_TOL) for o, r in zip(out[:-1], ref[:-1])]
+        for i, (out, ref, tol) in enumerate(pairs):
+            _assert_close_peak(out[..., own], ref[..., own], tol,
+                               f"slab output {i}")
+        f_items = [(fl.positions, tdg.POS_SENTINEL), (fl.velocities, 0.0)]
+        b_items = [(bd.positions, tdg.POS_SENTINEL), (bd.velocities, 0.0)]
+        before = binning.LAUNCHES["expand"]
+        got_f, got_b = tdg.to_grid_multi2(ctx.sf, ctx.binf, f_items, ctx.sb,
+                                          ctx.binb, b_items)
+        assert binning.LAUNCHES["expand"] == before + 1
+        for got, ref in ((got_f, binning.expand_plain(ctx.binf, f_items)),
+                         (got_b, binning.expand_plain(ctx.binb, b_items))):
+            assert all(torch.equal(o, r) for o, r in zip(got, ref))
+    assert fb_pairs > 0, "no fluid-boundary pair"
