@@ -93,8 +93,25 @@ phases:
    of both; then each main-path kernel on the local grid of the slab
    owning the most particles, against its plain version on the interior
    columns (pair counts exact, ``expand`` bitwise), timed beside the
-   twin's, with bounds; then IISPH with the viscosity forces, 5 steps,
+   twin's, with bounds (pair counts exact: the kernels round r^2 as the
+   plain versions do; a differing slot is logged with its near ties
+   before the assertion); then IISPH with the viscosity forces, 5 steps,
    held to its twin the same way;
+7c. slab_97k_migrate (``phase_slab_migrate``): the same DFSPH world on
+   SLAB_N slabs with sharded binning (``sharded_binning=True``: the rows
+   migrate to their slabs each substep), from the state reordered by
+   ``shard_interleave``, 10 steps beside the replicated slab path and the
+   single-device twin from that state: identical iterations, ff contacts,
+   overflow and candidate overflow (send overflow 0) at every step,
+   positions bitwise (or within 1e-6 m) the replicated run's after step
+   5, every main-path kernel launched by the migrated run, each slab's
+   received rows, ms/step of the three; then phase 7b's kernel checks on
+   one slab's grid binned from its migrated rows (equal to the replicated
+   slab's grid); the elasticity case (dense_elastic's forces on that
+   world, the elasticity evaluated on the home rows before the migration)
+   3 steps against its single-device twin (identical iterations, positions
+   within 1e-5 m, velocities within 1e-4 m/s); and
+   ``salva_tpu_torch.parallel.dryrun(4)`` on the card;
 8. the brute all-pairs tier: two small worlds on the card,
    ``tests/test_brute.py``'s dam world (125 particles) and the bench
    scene at 16^3 = 4,096 particles (capacity at the brute ceiling), each
@@ -178,6 +195,8 @@ numbers at dim = 2, with the 2D twin's launches; ``harness``: its
 phase-11 numbers at the 64,000-particle harness's state, with the
 harness's launches; ``slab``: its phase-7b numbers on one slab's
 local grid, with the slab run's launches and the twin's device time;
+``slab_migrate``: its phase-7c numbers on one migrated slab's grid, with
+the migrated run's launches;
 ``contacts`` / ``impulses`` for ``rigid_solve``:
 its table's live rows and the impulses its bound counts). The coupled
 phases' numbers are logged on one ``[coupled] summary`` JSON line, and
@@ -362,6 +381,14 @@ SLAB_N = 4
 SLAB_STEPS = 10
 SLAB_HOLD_AT = 5
 SLAB_IISPH_STEPS = 5
+# Phase 7c (slab_97k_migrate): the sharded-binning run against the
+# replicated one, positions after SLAB_HOLD_AT (metres; the received
+# blocks keep their senders' row order, so the grids, and the runs, are
+# expected bitwise); the elasticity case MIGRATE_ELASTIC_STEPS steps
+# against the single-device twin at tests/test_domain.py:179-235's bounds.
+MIGRATE_POS_ATOL = 1e-6
+MIGRATE_ELASTIC_STEPS = 3
+ELASTIC_POS_ATOL, ELASTIC_VEL_ATOL = 1e-5, 1e-4
 # Float32 operations per pair, counted from the kernel source (a sqrt,
 # rsqrt or division counts as one): the distance test every candidate pair
 # needs (dim subtractions, dim products, dim - 1 sums), and the rest of
@@ -2107,6 +2134,189 @@ def phase_slab_path(pair, name, world, steps, hold_at, pos_atol):
                 twin_sim=twin_sim)
 
 
+def phase_slab_migrate(pair, world):
+    """Phase 7c, slab_97k_migrate: the sharded-binning slab path
+    (``build_sharded_step_fn(..., sharded_binning=True)``: each substep
+    migrates the rows to their slabs) of phase 7b's world on SLAB_N slabs
+    under ``LocalHalos``, SLAB_STEPS steps from the state reordered by
+    ``shard_interleave`` (in cube emission order a rank's whole block
+    would go to one slab and overflow its send buffer), beside the
+    replicated slab step and the single-device twin from the same state:
+    identical pressure and divergence iterations, ff contacts and
+    neighbour overflow at every step, ``candidate_overflow`` equal to the
+    replicated run's (send overflow 0), positions bitwise the replicated
+    run's after step SLAB_HOLD_AT (or within MIGRATE_POS_ATOL), every
+    main-path kernel launched by the migrated run (counts reset just
+    before it and read just after); logs each slab's received rows and the
+    three runs' ms/step. Returns its record, with the final state."""
+    from salva_tpu_torch.parallel import (
+        LocalHalos,
+        build_sharded_step_fn,
+        domain,
+        shard_interleave,
+    )
+    from salva_tpu_torch.step import build_step_fn
+
+    tag = "[slab_97k_migrate]"
+    sim, twin_sim, spec_f, spec_b = slab_setup(world)
+    args = (world.solver_config, world._force_set, max(world.num_fluids, 1))
+    fns = {
+        "twin": build_step_fn(twin_sim, *args),
+        "replicated": build_sharded_step_fn(sim, *args, LocalHalos(SLAB_N)),
+        "migrated": build_sharded_step_fn(sim, *args, LocalHalos(SLAB_N),
+                                          sharded_binning=True),
+    }
+    start = tuple(shard_interleave(st, SLAB_N) for st in (
+        world.fluids_state, world.boundaries_state, world._solver_state))
+    alive = start[0].alive
+    n = int(alive.sum())
+    g = torch.tensor(GRAVITY, dtype=torch.float32, device="cuda")
+    nxl = spec_f.dims[0] // SLAB_N
+    nl = start[0].capacity // SLAB_N
+    cap_f = max(64, -(-5 * nl // (2 * SLAB_N)) + 64)
+
+    def received(fl):
+        """Each slab's live fluid rows at state ``fl`` (owned and ghost
+        copies), as the migration routes them."""
+        t = domain._slab_targets(spec_f, nxl, SLAB_N, fl.positions,
+                                 fl.alive)
+        return [int((t == r).sum()) for r in range(SLAB_N)]
+
+    def drive(fn):
+        state, rows, pos, ms = start, [], {}, []
+        for i in range(SLAB_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            *state, d = fn(*state, None, DT, g)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append((d.solver.pressure_iters, d.solver.divergence_iters,
+                         int(d.ncontacts_ff), int(d.neighbor_overflow),
+                         int(d.candidate_overflow)))
+            if i + 1 in (SLAB_HOLD_AT, SLAB_STEPS):
+                pos[i + 1] = state[0].positions[alive].clone()
+        return rows, pos, ms, state
+
+    runs = {}
+    for name in ("twin", "replicated", "migrated"):
+        if name == "migrated":
+            reset_counts(pair)
+        runs[name] = drive(fns[name])
+        if name == "migrated":
+            launches = read_counts(pair)
+    (m_rows, m_pos, m_ms, state) = runs["migrated"]
+    r_rows, r_pos, r_ms, _ = runs["replicated"]
+    t_rows, t_pos, t_ms, _ = runs["twin"]
+    log(f"{tag} N={n} (capacity {start[0].capacity}, {nl} rows a rank), "
+        f"{SLAB_N} slabs (LocalHalos) of the grid {spec_f.dims}; send buffer "
+        f"{cap_f} rows a rank pair ({SLAB_N * cap_f} received rows a slab), "
+        f"boundary {max(64, start[1].capacity // SLAB_N)}; each slab's live "
+        f"received fluid rows at the start {received(start[0])}, after step "
+        f"{SLAB_STEPS} {received(state[0])}")
+    for i, (a, b, c) in enumerate(zip(m_rows, r_rows, t_rows)):
+        log(f"{tag} step {i + 1}: (pressure, divergence iterations, ff "
+            f"contacts, overflow, candidate overflow) migrated {a}, "
+            f"replicated {b}, twin {c}; {m_ms[i]:.1f} / {r_ms[i]:.1f} / "
+            f"{t_ms[i]:.1f} ms")
+    gaps = {k: float((m_pos[k] - r_pos[k]).abs().max()) for k in m_pos}
+    twin_gap = float((m_pos[SLAB_STEPS] - t_pos[SLAB_STEPS]).abs().max())
+    ms = {k: statistics.mean(v[2][1:]) for k, v in runs.items()}
+    bitwise = torch.equal(m_pos[SLAB_HOLD_AT], r_pos[SLAB_HOLD_AT])
+    log(f"{tag} ms/step (steps 2-{SLAB_STEPS}): migrated {ms['migrated']:.3f}"
+        f", replicated {ms['replicated']:.3f}, twin {ms['twin']:.3f}; max "
+        f"|dpos| migrated vs replicated after step {SLAB_HOLD_AT} "
+        f"{gaps[SLAB_HOLD_AT]:.3e} m (bitwise {bitwise}), after step "
+        f"{SLAB_STEPS} {gaps[SLAB_STEPS]:.3e} m; vs the twin after step "
+        f"{SLAB_STEPS} {twin_gap:.3e} m (ungated); kernel launches of the "
+        f"migrated run {launches}")
+    for i, (a, b, c) in enumerate(zip(m_rows, r_rows, t_rows)):
+        assert a == b, f"{tag} step {i + 1}: migrated {a} vs replicated {b}"
+        assert a[:3] == c[:3], f"{tag} step {i + 1}: {a} vs twin {c}"
+        assert a[3] < max(1, n // 1000), f"{tag} step {i + 1}: overflow"
+    assert bool(torch.isfinite(m_pos[SLAB_STEPS]).all())
+    assert gaps[SLAB_HOLD_AT] <= MIGRATE_POS_ATOL, \
+        f"{tag} positions differ by {gaps}"
+    for k in MAIN_PATH_KERNELS:
+        assert launches[k] > 0, f"{k} was never launched on {tag}"
+    return dict(n=n, ms=ms["migrated"], replicated_ms=ms["replicated"],
+                twin_ms=ms["twin"], launches=launches,
+                gap_hold=gaps[SLAB_HOLD_AT], gap_last=gaps[SLAB_STEPS],
+                bitwise=bitwise, state=state, sim=sim, twin_sim=twin_sim)
+
+
+def phase_slab_migrate_elastic(pair):
+    """Phase 7c: dense_elastic's forces (the Becker 2009 elasticity and
+    XSPH) on phase 7b's world (full-grid boundary binning, caps 16 / 16),
+    MIGRATE_ELASTIC_STEPS steps of the sharded-binning slab path on
+    SLAB_N slabs beside the single-device twin: the elasticity's
+    acceleration is evaluated on the home rows before the migration and
+    routed with them (``a_pw``). The storage stays in emission order (the
+    elasticity's rest contacts index the rows), so the send buffer holds a
+    rank's whole block (``send_cap``). Identical iterations at every step,
+    positions and velocities within tests/test_domain.py's bounds."""
+    from salva_tpu_torch.parallel import LocalHalos, build_sharded_step_fn
+    from salva_tpu_torch.step import build_step_fn
+
+    tag = "[slab_97k_migrate elastic]"
+    world = dam_break_world("cuda", "dfsph", sparse_boundary=False,
+                            forces=ELASTIC, dense_caps=(16, 16))
+    sim, twin_sim, _, _ = slab_setup(world)
+    args = (world.solver_config, world._force_set, max(world.num_fluids, 1))
+    nl = world.fluids_state.capacity // SLAB_N
+    fns = {"twin": build_step_fn(twin_sim, *args),
+           "migrated": build_sharded_step_fn(
+               sim, *args, LocalHalos(SLAB_N), sharded_binning=True,
+               send_cap=nl)}
+    es = world._elasticity_state
+    g = torch.tensor(GRAVITY, dtype=torch.float32, device="cuda")
+    out = {}
+    for name, fn in fns.items():
+        state = (world.fluids_state, world.boundaries_state,
+                 world._solver_state)
+        rows, ms = [], []
+        for _ in range(MIGRATE_ELASTIC_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            *state, d = fn(*state, es, DT, g)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append((d.solver.pressure_iters, d.solver.divergence_iters,
+                         int(d.ncontacts_ff), int(d.neighbor_overflow),
+                         int(d.candidate_overflow)))
+        out[name] = (rows, ms, state[0])
+    alive = world.fluids_state.alive
+    (m_rows, m_ms, m_fl), (t_rows, t_ms, t_fl) = out["migrated"], out["twin"]
+    dpos = float((m_fl.positions - t_fl.positions)[alive].abs().max())
+    dvel = float((m_fl.velocities - t_fl.velocities)[alive].abs().max())
+    for i, (a, b) in enumerate(zip(m_rows, t_rows)):
+        log(f"{tag} step {i + 1}: (pressure, divergence iterations, ff "
+            f"contacts, overflow, candidate overflow) migrated {a}, twin {b};"
+            f" {m_ms[i]:.1f} / {t_ms[i]:.1f} ms")
+    log(f"{tag} forces {world._force_set}; send cap {nl} rows (a rank's "
+        f"block); after {MIGRATE_ELASTIC_STEPS} steps max |dpos| {dpos:.3e} m "
+        f"(atol {ELASTIC_POS_ATOL}), max |dvel| {dvel:.3e} m/s (atol "
+        f"{ELASTIC_VEL_ATOL})")
+    for i, (a, b) in enumerate(zip(m_rows, t_rows)):
+        assert a[:2] == b[:2], f"{tag} step {i + 1}: {a} vs twin {b}"
+        assert a[4] == b[4], f"{tag} step {i + 1}: send overflow"
+    assert bool(torch.isfinite(m_fl.positions[alive]).all())
+    assert dpos <= ELASTIC_POS_ATOL and dvel <= ELASTIC_VEL_ATOL, \
+        f"{tag} |dpos| {dpos}, |dvel| {dvel}"
+    return dict(ms=statistics.mean(m_ms), twin_ms=statistics.mean(t_ms),
+                dpos=dpos, dvel=dvel, iters=[r[:2] for r in m_rows])
+
+
+def phase_dryrun():
+    """Phase 7c: ``salva_tpu_torch.parallel.dryrun(SLAB_N)`` on the card
+    (one sharded-binning step of a 6^3 block, with its asserts)."""
+    from salva_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    dryrun(SLAB_N)
+    log(f"[dryrun] dryrun({SLAB_N}) on the card passed in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
 def fb_read_bytes(c, counts, h, shifts, dim=3):
     """What the fluid-boundary hoist must read on a full-grid boundary
     binning, every column visited (phase 5's count for its ``full``
@@ -2129,19 +2339,17 @@ def fb_read_bytes(c, counts, h, shifts, dim=3):
     return read, int((c64 * around).sum())
 
 
-def near_ties(label, c, got, want, own, boundary=False):
-    """Hold a kernel's pair counts ``got`` to the plain version's ``want``
-    on the columns ``own``: equal, except in a slot with a candidate pair
-    whose r^2 lies within 2 float32 ulps of h^2, and by no more than such
-    pairs. The kernels compute r^2 with fused multiply-adds, the plain
-    versions round each product, and the two can fall on either side of
-    h^2 at a near tie (the 97k lattice holds pairs at r = h: ROADMAP Queue
-    3, items 5 and 25). Logs every differing slot with its near ties."""
+def near_ties(tag, label, c, got, want, own, boundary=False):
+    """Log each slot of the columns ``own`` where a kernel's pair counts
+    ``got`` differ from the plain version's ``want``, with its candidate
+    pairs whose r^2 lies within 2 float32 ulps of h^2 (the 97k lattice
+    holds pairs at r = h; ROADMAP Queue 3, items 5 and 25). The kernels
+    round r^2 as the plain versions do, so the caller then holds the
+    counts exactly; the log names the slots if they ever part again.
+    Returns the number of differing slots."""
     from salva_tpu_torch.geometry import dense_grid as tdg
 
     diff = ((got != want) & own[None, :]).nonzero().tolist()
-    if not diff:
-        return
     h2 = float(np.float32(c.h * c.h))
     ulp = float(np.spacing(np.float32(h2)))
     Pj, cnt_j = (c.Pb, c.counts_b) if boundary else (c.P, c.counts)
@@ -2157,23 +2365,70 @@ def near_ties(label, c, got, want, own, boundary=False):
             r2 = r2 + d[1] * d[1]
             r2 = r2 + d[2] * d[2]
             ties += [float(v) for v in r2 if abs(float(v) - h2) <= 2 * ulp]
-        delta = int(got[r, col]) - int(want[r, col])
-        log(f"[slab_97k kernels] {label}: slot ({r}, {col}) counts {int(got[r, col])} "
+        log(f"{tag} {label}: slot ({r}, {col}) counts {int(got[r, col])} "
             f"(kernel) vs {int(want[r, col])} (plain); candidate r^2 within 2 "
             f"ulps of h^2 = {h2!r}: {ties}")
-        assert ties and abs(delta) <= len(ties), \
-            f"{label}: pair counts differ in slot ({r}, {col}) with no near tie"
+    return len(diff)
 
 
-def slab_kernel_checks(pair, world, run):
+def migrated_ctxs(sim, spec_f, spec_b, fl, bd):
+    """One DenseCtx a slab of the sharded-binning path at state ``(fl,
+    bd)`` (the whole state, in rank blocks): each rank routes its block's
+    rows to their slabs (``domain._route_out`` at the step's default send
+    capacities) and bins only the rows it received, as a migrated substep
+    does. Returns (each rank's (context, received fluids, received
+    boundaries), each rank's received live fluid rows, the fluid send
+    buffer's rows a rank, the send overflow)."""
+    from salva_tpu_torch.object.state import (
+        map_state,
+        state_from_leaves,
+        state_leaves,
+    )
+    from salva_tpu_torch.parallel import LocalHalos, domain
+    from salva_tpu_torch.solver.dense_common import DenseCtx
+
+    nxl = spec_f.dims[0] // SLAB_N
+    nl, ml = fl.capacity // SLAB_N, bd.capacity // SLAB_N
+    cap_f = max(64, -(-5 * nl // (2 * SLAB_N)) + 64)
+    cap_b = max(64, ml)
+
+    def body(halo):
+        r = halo.rank
+        out, over = [], 0
+        for st, spec, n, cap in ((fl, spec_f, nl, cap_f),
+                                 (bd, spec_b, ml, cap_b)):
+            st = map_state(lambda a: a[r * n:(r + 1) * n], st)
+            leaves = state_leaves(st)
+            tgt = domain._slab_targets(spec, nxl, SLAB_N, st.positions,
+                                       st.alive)
+            recv, _dst, o = domain._route_out(
+                halo, domain._pack_rows(leaves), tgt, cap)
+            out.append(state_from_leaves(st, domain._unpack_rows(recv,
+                                                                 leaves)))
+            over += int(o)
+        ctx = DenseCtx(sim, spec_f, spec_b, out[0], out[1], halo=halo,
+                       need_s2=True)
+        return (ctx, *out), int(out[0].alive.sum()), over
+
+    res = LocalHalos(SLAB_N).run(nxl, int(np.prod(spec_f.dims[1:])), body,
+                                 migrate=True)
+    return ([c for c, _, _ in res], [n for _, n, _ in res],
+            SLAB_N * cap_f, sum(o for _, _, o in res))
+
+
+def slab_kernel_checks(pair, world, run, migrate=False):
     """Phase 7b: each main-path kernel on one slab's local grid at the
     slab run's final state (the slab owning the most particles), against
     its plain version on the interior columns (the kernels treat the cells
     beyond the local grid as empty, the plain versions roll cyclically;
     every reader of a pass output refreshes the ghost columns first):
-    phase 5's tolerances, pair counts exact, the two-binning ``expand``
-    bitwise; device times beside the single-device twin's at the same
-    state, bounds. Returns {kernel: record}."""
+    phase 5's tolerances, pair counts exact (the differing slots logged
+    first, with their near ties), the two-binning ``expand`` bitwise;
+    device times beside the single-device twin's at the same state,
+    bounds. ``migrate`` (phase 7c): the slab's grid binned from the rows
+    the migration routes to it (:func:`migrated_ctxs`), which must equal
+    the replicated binning's grid bitwise; no twin. Returns {kernel:
+    record}."""
     from salva_tpu_torch.geometry import dense_grid as tdg
     from salva_tpu_torch.ops import binning
     from salva_tpu_torch.parallel import LocalHalos
@@ -2181,6 +2436,7 @@ def slab_kernel_checks(pair, world, run):
     from salva_tpu_torch.solver.nonpressure import ForceSet
     from salva_tpu_torch.step import _dense_config
 
+    tag = "[slab_97k_migrate kernels]" if migrate else "[slab_97k kernels]"
     sim, twin_sim = run["sim"], run["twin_sim"]
     _, _, spec_f, spec_b = slab_setup(world)
     fl, bd = run["state"][0], run["state"][1].clear_forces()
@@ -2191,11 +2447,26 @@ def slab_kernel_checks(pair, world, run):
                               need_s2=True))
     owned = [int((c.counts * c.interior[0]).sum()) for c in ctxs]
     rank = int(np.argmax(owned))
-    tf, tb, _ = _dense_config(twin_sim, world.solver_config, ForceSet())
+    checks = [("slab", ctxs[rank], fl, bd)]
+    if migrate:
+        mctxs, received, buf_rows, over = migrated_ctxs(sim, spec_f, spec_b,
+                                                        fl, bd)
+        log(f"{tag} each slab's received live fluid rows {received} (send "
+            f"buffer {buf_rows} rows a slab; N = {int(fl.alive.sum())}, "
+            f"capacity {fl.capacity}); send overflow {over}")
+        assert over == 0, f"{tag} send overflow {over}"
+        m, c = mctxs[rank][0], ctxs[rank]
+        for what in ("P", "M", "counts", "Pb", "Volb", "counts_b"):
+            assert torch.equal(getattr(m, what), getattr(c, what)), \
+                f"{tag} migrated slab {rank}'s {what} differs"
+        checks = [("slab", *mctxs[rank])]
+    else:
+        tf, tb, _ = _dense_config(twin_sim, world.solver_config, ForceSet())
+        checks.append(("twin", DenseCtx(twin_sim, tf, tb, fl, bd,
+                                        need_s2=True), fl, bd))
     gen = torch.Generator(device="cuda").manual_seed(7)
     records = {}
-    for label, c in (("slab", ctxs[rank]), ("twin", DenseCtx(
-            twin_sim, tf, tb, fl, bd, need_s2=True))):
+    for label, c, fl, bd in checks:
         own = (c.interior[0] if label == "slab" else
                torch.ones(c.spec_f.num_cells, dtype=torch.bool,
                           device="cuda"))
@@ -2256,8 +2527,12 @@ def slab_kernel_checks(pair, world, run):
                 out, ref = as_tuple(out), as_tuple(ref)
                 names = OUTPUTS[name]
                 if len(out) > len(names):
-                    near_ties(f"{name} ({label})", c, out[-1], ref[-1], own,
-                              boundary=name == "hoist_fb")
+                    parted = near_ties(tag, f"{name} ({label})", c, out[-1],
+                                       ref[-1], own,
+                                       boundary=name == "hoist_fb")
+                    assert parted == 0 and torch.equal(
+                        out[-1][..., own], ref[-1][..., own]), \
+                        f"{tag} {name} ({label}): pair counts differ"
                 err = max(check_output(f"{name} ({label}).{o}",
                                        out[i][..., own], ref[i][..., own],
                                        tol)[0]
@@ -2283,7 +2558,7 @@ def slab_kernel_checks(pair, world, run):
                            bound_ms=b_ms, bound_by=b_by, cells=C, rank=rank)
             else:
                 rec.update(twin_ms=ms, twin_bound_ms=b_ms, twin_cells=C)
-            log(f"[slab_97k kernels] {name} ({label}, {C} cells"
+            log(f"{tag} {name} ({label}, {C} cells"
                 + (f", slab {rank}, interior columns" if label == "slab"
                    else ", single device") + f"): max abs err {err:.4e}; "
                 f"kernel {ms:.4f} ms device time"
@@ -3536,6 +3811,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[slab_97k] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    mig_world = dam_break_world("cuda", "dfsph", sparse_boundary=False,
+                                dense_caps=(16, 16))
+    migrate = phase_slab_migrate(pair, mig_world)
+    paths["slab_97k_migrate"] = migrate["launches"]
+    kernels_migrate = slab_kernel_checks(pair, mig_world, migrate,
+                                         migrate=True)
+    del mig_world, migrate
+    torch.cuda.empty_cache()
+    phase_slab_migrate_elastic(pair)
+    torch.cuda.empty_cache()
+    phase_dryrun()
+    log(f"[slab_97k_migrate] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     paths.update(phase_brute(pair))
     log(f"[brute] phase took {time.perf_counter() - t0:.1f} s")
     # The coupled phases: 2D on the card first (its phase-5 checks profile
@@ -3602,6 +3890,11 @@ def main() -> int:
             extra["slab"] = dict(kernels_slab[name],
                                  launches=paths["slab_97k"][name],
                                  launches_path="slab_97k")
+        if name in kernels_migrate:
+            extra["slab_migrate"] = dict(
+                kernels_migrate[name],
+                launches=paths["slab_97k_migrate"][name],
+                launches_path="slab_97k_migrate")
         for label, checks, path in (("dim2", kernels_2d, "twin_2d"),
                                     ("harness", kernels_harness,
                                      "coupled_harness"),

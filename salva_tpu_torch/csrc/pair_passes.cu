@@ -404,6 +404,20 @@ __device__ __forceinline__ float word(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
+// r^2 = dp_0^2 + dp_1^2 (+ dp_2^2), each product and each sum rounded, as
+// the plain versions and the JAX package on the CPU compute it. nvcc
+// would contract `r2 + dp * dp` into a fused multiply-add (one rounding
+// fewer): at a near tie r^2 = h^2 (the dam-break lattice holds pairs at
+// r = h) the two forms fall on either side of h^2 and the pair counts
+// part. Only r^2 is held to this; the weights keep their contraction.
+template <int DIM>
+__device__ __forceinline__ float r2_rounded(const float (&dp)[DIM]) {
+  float r2 = __fmul_rn(dp[0], dp[0]);
+#pragma unroll
+  for (int d = 1; d < DIM; ++d) r2 = __fadd_rn(r2, __fmul_rn(dp[d], dp[d]));
+  return r2;
+}
+
 // What k_pass stages per neighbour slot, and adds per pair: one float4
 // (p_j, (m k)_j), (m k)_j = M[js] * K[js] premultiplied as the pair term
 // takes it. A block: 8 warps and at most 56 KB of shared memory, 4 blocks
@@ -755,16 +769,14 @@ __global__ void __launch_bounds__(Pass::kThreads)
     for (int d = 0; d < Pass::kOut; ++d) acc[d] = 0.0f;
     int len = 0, pairs = 0;
     // r^2 of the pair (i, staged slot idx), p_i - p_j, and the slot's
-    // word DIM (hoist_ff: m_j).
+    // word DIM (hoist_ff: m_j). r^2 is rounded as the plain versions
+    // round it (see r2_rounded).
     auto dist2 = [&](int idx, float (&dp)[DIM], float& wj) {
       const float4 a = slots[(size_t)idx * kW];
 #pragma unroll
       for (int d = 0; d < DIM; ++d) dp[d] = pi[d] - word(a, d);
       wj = word(a, DIM);
-      float r2 = dp[0] * dp[0];
-#pragma unroll
-      for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
-      return r2;
+      return r2_rounded<DIM>(dp);
     };
     // Queue the pair on its kernels' rule (Pass::queue): beyond it the
     // pair term is +-0 (file note), so skipping the pair changes no sum.
@@ -973,14 +985,12 @@ __global__ void __launch_bounds__(kFbThreads)
   for (int d = 0; d < kOut; ++d) acc[d] = 0.0f;
   int pairs = 0, len = 0;
   int* q = &queues[warp][0][lane];
-  // p_i - p_j and r^2 for boundary slot js.
+  // p_i - p_j and r^2 (rounded as the plain version rounds it) for
+  // boundary slot js.
   auto dist2 = [&](size_t js, float (&dp)[DIM]) {
 #pragma unroll
     for (int d = 0; d < DIM; ++d) dp[d] = pi[d] - Pb[d * plane_b + js];
-    float r2 = dp[0] * dp[0];
-#pragma unroll
-    for (int d = 1; d < DIM; ++d) r2 = r2 + dp[d] * dp[d];
-    return r2;
+    return r2_rounded<DIM>(dp);
   };
   auto add = [&](size_t js) {
     float dp[DIM];

@@ -152,6 +152,30 @@ _DTYPES = {
 }
 
 
+def state_leaves(state):
+    """The tensors of a particle state in field order (``FluidsState``,
+    ``BoundariesState``), or ``[state]`` for the solver-state tensor."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    return [getattr(state, f.name) for f in dataclasses.fields(state)]
+
+
+def state_from_leaves(like, leaves):
+    """Inverse of :func:`state_leaves`: a state of ``like``'s kind built
+    from ``leaves``, in field order."""
+    if isinstance(like, torch.Tensor):
+        (leaf,) = leaves
+        return leaf
+    names = [f.name for f in dataclasses.fields(like)]
+    return like.replace(**dict(zip(names, leaves, strict=True)))
+
+
+def map_state(fn, state):
+    """``fn`` applied to every tensor of a particle state, or to the
+    solver-state tensor (``jax.tree_util.tree_map`` over one state)."""
+    return state_from_leaves(state, [fn(a) for a in state_leaves(state)])
+
+
 def set_rows(t, idx, values):
     """Copy of ``t`` with rows ``idx`` set (states are replaced, never
     written in place, so earlier state objects stay valid)."""

@@ -553,7 +553,8 @@ class DenseCtx:
                                              device=self.device)
         return self.to_f(fluids.volumes)
 
-    def apply_forces(self, dense_forces, fluids, V, dt, inv_dt, A, es=None):
+    def apply_forces(self, dense_forces, fluids, V, dt, inv_dt, A, es=None,
+                     particle_wise=True):
         """The non-pressure stage of predict_advection: ``A`` plus each
         dense force's acceleration on the live slots, in order, and the
         summed boundary feedback of the forces in the native boundary
@@ -561,13 +562,17 @@ class DenseCtx:
         forces read (DFSPH: after the divergence solve). A
         ``ParticleWiseForce`` (the elasticity) runs in particle layout on
         ``fluids`` and the elasticity state ``es``, and is binned into the
-        grid; the pair forces' field views are built only when one runs."""
+        grid; ``particle_wise=False`` skips it (the caller adds its
+        precomputed acceleration). The pair forces' field views are built
+        only when one runs."""
         from .forces_dense import DenseFields, ParticleWiseForce
 
         fields = None
         fb = None
         for force in dense_forces:
             if isinstance(force, ParticleWiseForce):
+                if not particle_wise:
+                    continue
                 a_p = force.force.apply_particles(fluids, es, self.dim)
                 A = A + self.to_f(a_p) * self.maskf[None]
                 continue

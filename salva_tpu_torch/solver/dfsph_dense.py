@@ -38,19 +38,25 @@ def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
                         spec_f: dg.DenseGridSpec, spec_b: dg.DenseGridSpec,
                         dense_forces=(), halo=None):
     """Build the dense-layout DFSPH substep
-    ``substep(fluids, boundaries, solver_state, es, dt, gravity)``.
+    ``substep(fluids, boundaries, solver_state, es, dt, gravity,
+    a_pw=None)``.
 
     ``dense_forces``: tuple of dense non-pressure forces
     (``forces_dense.py``), each ``apply(fields) -> (accel, bforces|None)``,
     or a ``ParticleWiseForce`` run on the elasticity state ``es``,
     applied in predict_advection. ``halo``: one slab's
-    ``parallel.domain.Halo`` (the slab path), or None."""
+    ``parallel.domain.Halo`` (the slab path), or None. ``a_pw``: the
+    particle-wise forces' acceleration [N, dim], computed by the caller
+    (the sharded-binning path evaluates the elasticity on its home rows
+    before the migration, since its rest topology is fixed in row space,
+    and routes the result here with the particle arrays); the
+    ``ParticleWiseForce`` is then skipped."""
     dim = sim.dim
     min_nb = cfg.min_neighbors(dim)
     warm = float(getattr(cfg, "warm_start", 0.0))
 
     def substep(fluids: FluidsState, boundaries: BoundariesState,
-                solver_state, es, dt, gravity):
+                solver_state, es, dt, gravity, a_pw=None):
         dev = fluids.positions.device
         dt = torch.as_tensor(dt, dtype=torch.float32, device=dev)
         inv_dt = torch.where(dt > 0, 1.0 / dt, 0.0)
@@ -113,7 +119,9 @@ def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
         np_Fb = None
         if dense_forces:
             A, np_Fb = ctx.apply_forces(dense_forces, fluids, V2, dt, inv_dt,
-                                        A, es)
+                                        A, es, particle_wise=a_pw is None)
+        if a_pw is not None:
+            A = A + ctx.to_f(a_pw) * maskf[None]
         # The force passes are valid on owned cells only.
         DV = exchange(A * dt)
 

@@ -29,9 +29,9 @@ velocities.
 With a ``halo`` (``parallel/domain.py``, the slab path) the velocity
 changes of the forces, the pressures before each ``k_pass`` and the
 vector ``q`` before each ``t_pass`` are exchanged, and the error and
-diagnostics are summed over the slabs, as in the JAX package. Not
-ported: the precomputed particle-wise accelerations (``a_pw``) of the
-JAX package's sharded binning, which comes with particle migration.
+diagnostics are summed over the slabs, as in the JAX package. The
+sharded-binning path hands the substep its particle-wise accelerations
+(``a_pw``), as for DFSPH (``dfsph_dense.build_dense_substep``).
 """
 
 from __future__ import annotations
@@ -50,13 +50,15 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
                         spec_f: dg.DenseGridSpec, spec_b: dg.DenseGridSpec,
                         dense_forces=(), halo=None):
     """Build the dense-layout IISPH substep
-    ``substep(fluids, boundaries, pressures, es, dt, gravity)`` (``es``:
-    the elasticity state a ``ParticleWiseForce`` reads; ``halo``: one
-    slab's ``parallel.domain.Halo``, or None)."""
+    ``substep(fluids, boundaries, pressures, es, dt, gravity, a_pw=None)``
+    (``es``: the elasticity state a ``ParticleWiseForce`` reads; ``halo``:
+    one slab's ``parallel.domain.Halo``, or None; ``a_pw``: the
+    particle-wise forces' precomputed acceleration [N, dim], in place of
+    the ``ParticleWiseForce``)."""
     dim = sim.dim
 
     def substep(fluids: FluidsState, boundaries: BoundariesState,
-                pressures, es, dt, gravity):
+                pressures, es, dt, gravity, a_pw=None):
         dev = fluids.positions.device
         dt = torch.as_tensor(dt, dtype=torch.float32, device=dev)
         inv_dt = torch.where(dt > 0, 1.0 / dt, 0.0)
@@ -76,7 +78,10 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
         np_Fb = None
         if dense_forces:
             A, np_Fb = ctx.apply_forces(dense_forces, fluids, ctx.V, dt,
-                                        inv_dt, A, es)
+                                        inv_dt, A, es,
+                                        particle_wise=a_pw is None)
+        if a_pw is not None:
+            A = A + ctx.to_f(a_pw) * maskf[None]
         # The force passes are valid on owned cells only; the predicted
         # densities read (V + DV) at j.
         DV = exchange(A * dt)

@@ -773,3 +773,29 @@ def test_kernels_on_slab_grids(cuda, n_slabs):
                          (got_b, binning.expand_plain(ctx.binb, b_items))):
             assert all(torch.equal(o, r) for o, r in zip(got, ref))
     assert fb_pairs > 0, "no fluid-boundary pair"
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_pair_counts_at_near_ties(cuda, dim):
+    """The pair counts of ``hoist_ff`` and ``hoist_fb`` equal the plain
+    versions' exactly on pairs at r^2 ~ h^2 whose r^2 falls below h^2 when
+    its sums are fused multiply-adds and above it when each product is
+    rounded (``tests/test_torch_near_ties.py``: the fixture, checked on
+    the CPU). The kernels round r^2 as the plain versions do; kernels that
+    fuse it count a pair more at the ends of such pairs."""
+    from test_torch_near_ties import H as TIE_H
+    from test_torch_near_ties import near_tie_grid
+
+    g = near_tie_grid(dim, cuda)
+    n = len(g.pi)
+    ff_args = (g.spec, TIE_H, dim, "cubic", "cubic", g.P, g.M, g.counts)
+    ff = pair.hoist_ff(*ff_args)[-1]
+    ff_ref = pair.hoist_ff_plain(*ff_args)[-1]
+    assert int(ff_ref.sum()) == 5 * n
+    assert torch.equal(ff, ff_ref)
+    fb_args = (g.spec, TIE_H, dim, "cubic", "cubic", g.P_i, g.counts_i,
+               g.Pb, g.Volb, g.Vb, g.counts_b)
+    fb = pair.hoist_fb(*fb_args)[-1]
+    fb_ref = pair.hoist_fb_plain(*fb_args)[-1]
+    assert int(fb_ref.sum()) == 0
+    assert torch.equal(fb, fb_ref)

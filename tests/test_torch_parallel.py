@@ -103,8 +103,12 @@ GLOO_CASES = ("all-forces", "iisph-all-forces")
 BASE_CASES = ("pressure-only", "iisph")
 
 
-def slab_world(case="pressure-only", domain=DOMAIN, floor=FLOOR, lift=LIFT):
-    solver, np_forces, _ = CASES[case]
+def slab_world(case="pressure-only", domain=DOMAIN, floor=FLOOR, lift=LIFT,
+               np_forces=None):
+    """The block over its floor, with ``case``'s solver and forces (or
+    ``np_forces`` in their place)."""
+    solver, case_forces, _ = CASES[case]
+    np_forces = case_forces if np_forces is None else np_forces
     cfg = DFSPHConfig() if solver == "dfsph" else IISPHConfig()
     world = LiquidWorld(solver=cfg, particle_radius=RADIUS, dim=3,
                         domain=domain, layout="dense", device="cpu")
