@@ -52,10 +52,14 @@ from the primary row's time (``ROW_FACTOR``) and skips them with a
 Knobs (as in ``bench.py``): ``BENCH_N``, ``BENCH_STEPS`` (20),
 ``BENCH_WARMUP`` (10), ``BENCH_SKIP_1M``, ``BENCH_BUDGET``,
 ``BENCH_LAYOUT``, ``BENCH_CAP`` (the fluid cap; default auto-sized),
-``BENCH_WARM`` (the DFSPH warm-start factor); ``BENCH_REPEATS``.
-``BENCH_PALLAS``, ``BENCH_FROZEN`` and ``BENCH_SPILL`` raise: the port
-has no Pallas switch (its hand kernels run on every CUDA tensor), and
-neither frozen pair coefficients nor the dense+spill structure.
+``BENCH_WARM`` (the DFSPH warm-start factor), ``BENCH_FROZEN`` (frozen
+pair coefficients, stored in ``BENCH_PAIR_DTYPE``: ``float32`` by
+default, or ``bfloat16``), ``BENCH_SPILL`` (lets the auto cap tier take
+12 + spill, ``dense_spill_auto``); ``BENCH_REPEATS``. ``BENCH_PALLAS``
+raises: the port has no Pallas switch (its hand kernels run on every
+CUDA tensor). Each row names the dense layout it ran
+(``dense_layout``: ``grid``, ``compact`` or ``brute``, with ``+spill<E>``
+and ``+frozen_<dtype>``), and so does the JSON line (the primary row's).
 
 Usage:  python3 bench_torch.py [--device cuda|cpu]
 It runs on the card; ``--device cpu`` runs the plain PyTorch passes on
@@ -118,16 +122,23 @@ def _env_int(name, default):
 
 
 def _refuse_unported_knobs():
-    for knob, what in (
-        ("BENCH_PALLAS", "the port has no Pallas kernels to switch: its "
-                         "hand kernels run on every CUDA tensor"),
-        ("BENCH_FROZEN", "frozen pair coefficients (dense_frozen_pairs) "
-                         "are not ported"),
-        ("BENCH_SPILL", "the dense+spill structure (dense_spill_auto) is "
-                        "not ported"),
-    ):
-        if os.environ.get(knob):
-            raise NotImplementedError(f"{knob}: {what}")
+    if os.environ.get("BENCH_PALLAS"):
+        raise NotImplementedError(
+            "BENCH_PALLAS: the port has no Pallas kernels to switch: its "
+            "hand kernels run on every CUDA tensor")
+
+
+def dense_layout(sim):
+    """The layout a resolved configuration runs, as the rows name it."""
+    if sim.layout in ("gather", "brute"):
+        name = sim.layout
+    else:
+        name = "compact" if sim.dense_compact else "grid"
+    if name == "grid" and sim.dense_spill_columns:
+        name += f"+spill{sim.dense_spill_columns}"
+    if name != "gather" and sim.dense_frozen_pairs:
+        name += f"+frozen_{sim.dense_pair_dtype}"
+    return name
 
 
 def _sync(device):
@@ -207,6 +218,13 @@ def build_world(n_target, solver, forces, layout, device):
                         smoothing_factor=2.0, dim=3, domain=domain,
                         layout=layout, dense_cap=int(cap) if cap else None,
                         dense_cap_boundary=None, device=device)
+    if os.environ.get("BENCH_FROZEN"):
+        world.sim = world.sim.replace(
+            dense_frozen_pairs=True,
+            dense_pair_dtype=os.environ.get("BENCH_PAIR_DTYPE", "float32"),
+        )
+    if os.environ.get("BENCH_SPILL"):
+        world.sim = world.sim.replace(dense_spill_auto=True)
     pos = cube_fluid((n_side, n_side, n_side), RADIUS)
     pos[:, 1] += half + RADIUS
     vel = np.zeros_like(pos)
@@ -282,6 +300,7 @@ def run_once(n_target, solver, forces, layout, steps, warmup, device):
         dispatch_us=sentinel, setup_s=setup_s,
         # "auto" stays in the sim when it resolves to the grid.
         layout="dense" if sim.layout == "auto" else sim.layout,
+        dense_layout=dense_layout(sim),
         dense_cap=sim.dense_cap,
         dense_cap_boundary=sim.dense_cap_boundary,
         fitted_dims=(list(sim.fitted_dims) if sim.fitted_dims else None),
@@ -336,6 +355,7 @@ def run_row(name, n_target, solver, forces, layout, steps, warmup, repeats,
                 f"{forces_txt} dam break"),
         n=n, solver=solver, forces=[f"{c}{a}" for c, a in VISC]
         if forces else [], layout_requested=layout, layout=first["layout"],
+        dense_layout=first["dense_layout"],
         dense_cap=first["dense_cap"],
         dense_cap_boundary=first["dense_cap_boundary"],
         fitted_dims=first["fitted_dims"],
@@ -449,7 +469,8 @@ def main(argv=None) -> int:
     primary = rows[0]
     out = {k: primary.get(k) for k in (
         "metric", "value", "ms_per_step", "pressure_iters",
-        "divergence_iters", "grid_refits_in_window", "iters_per_step")}
+        "divergence_iters", "grid_refits_in_window", "iters_per_step",
+        "dense_layout")}
     out["unit"] = "particle-steps/s"
     out.update(skipped)
     out["failed_rows"] = failed

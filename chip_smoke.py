@@ -16,6 +16,8 @@ phases:
    at once, at first use);
 2. the DFSPH main path: ``LiquidWorld(..., device="cuda")``, 10 warm-up
    and 20 timed steps, with every kernel's launch count from that run;
+   on every main path each step's neighbour overflow is recorded and the
+   largest printed beside the last step's (the gate reads the last);
 3. the IISPH main path: the same scene with ``solver=IISPHConfig()``,
    10 warm-up and 20 timed steps, its launch counts and per-step
    pressure iterations;
@@ -81,6 +83,34 @@ phases:
 7. the DFSPH dam break on the full-grid boundary binning
    (``dense_sparse_boundary=False``) for 5 steps, through the kernels,
    against the phase-6 kernel run on the sparse binning;
+7a. layouts_97k (``phase_layouts_97k``): the remaining dense layouts on the
+   DFSPH main path's dam break, each from the state after LAYOUTS_AT
+   steps beside the kernel twin (that state stepped on the default grid)
+   — the compact active-cell layout, frozen pair coefficients stored in
+   float32 and in bfloat16, dense+spill at cap 12 with the table the auto
+   tier sizes, dense+spill at cap 8 with 8 spill rows (the twin's 16
+   slots a cell, so that cells spill in the held step and its pairs are
+   the twin's), and the auto tier itself (``dense_spill_auto``, which
+   must resolve to 12 + the same table and step bitwise the same): one
+   step held to the twin (LAYOUT_POS_ATOL, iterations where
+   LAYOUT_SAME_ITERS says, exact contact counts), then LAYOUT_STEPS steps
+   (cap 8: SPILL8_STEPS) with the neighbour and spill overflow 0 and
+   finite positions at every step (the cap-12 spill layout on to step
+   30, where the cap-16 main path drops entries, its overflow there
+   logged), a bitwise rerun of the first two, ms/step, device ms/step
+   and busy share, the launches of the hand kernels (LAYOUT_KERNELS: the
+   hoists and ``expand`` under frozen pairs, ``expand`` alone on the
+   compact layout, whose passes are its own plain folds as in the JAX
+   package, and on the spill layouts ``k_pass``, ``t_pass`` and
+   ``hoist_ff`` on the main columns beside the plain folds of the pairs
+   that touch a spill slot), the frozen store's bytes and the spill tables,
+   ``expand`` on each layout's binnings bitwise its plain expansion
+   (the compact tables; the spill columns' extended run table); every
+   kernel wrapper's plain version raises meanwhile. Then
+   ``phase_small_overflow``: bench_torch.py's dfsph_4k_dense world
+   (4,096 particles) SMALL_STEPS steps plain and on the 12 + spill auto
+   tier, each step's neighbour and spill overflow logged (no gate: ROADMAP
+   Queue 3, item 14);
 7b. slab_97k (``phase_slab_path``, ``slab_kernel_checks``): the slab path
    of ``salva_tpu_torch.parallel`` (replicated binning) on the DFSPH dam
    break with the full-grid boundary binning and caps 16 / 16, SLAB_N = 4
@@ -196,7 +226,11 @@ phase-11 numbers at the 64,000-particle harness's state, with the
 harness's launches; ``slab``: its phase-7b numbers on one slab's
 local grid, with the slab run's launches and the twin's device time;
 ``slab_migrate``: its phase-7c numbers on one migrated slab's grid, with
-the migrated run's launches;
+the migrated run's launches; ``launches_by_path`` also holds phase 7a's
+layout paths (``compact_97k``, ``frozen_97k_f32``, ``frozen_97k_bf16``,
+``spill_97k``, ``spill8_97k``, ``spill_auto_97k``) and its two
+``small_4k_*`` runs,
+whose numbers are logged on one ``[layouts_97k] summary`` JSON line;
 ``contacts`` / ``impulses`` for ``rigid_solve``:
 its table's live rows and the impulses its bound counts). The coupled
 phases' numbers are logged on one ``[coupled] summary`` JSON line, and
@@ -205,6 +239,7 @@ phases 13-14's on one ``[host world] summary`` line; ``adaptive`` /
 and the mesh world's state.
 """
 
+import copy
 import json
 import os
 import statistics
@@ -373,6 +408,68 @@ MAIN_PATH_KERNELS = ("k_pass", "t_pass", "hoist_ff", "hoist_fb", "expand")
 # bandwidth and float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# The shared state of phase 7a (layouts_97k): the DFSPH main path's world
+# after LAYOUTS_AT steps (past impact); each layout then steps
+# LAYOUT_STEPS steps from it. LAYOUTS: each layout's configuration
+# ("spill_at_cap": dense_cap 12 with the spill table the auto tier sizes
+# on that state; "spill_full": dense_cap 8 with a table of 8 spill rows a
+# cell, so that the main columns and their spill columns hold the 16
+# slots of the twin's cap and every cell past 8 spills, sized as the auto
+# tier would at cap 8, with K = 3^dim; dense_spill_auto: the auto tier
+# itself).
+LAYOUTS_AT = 10
+LAYOUT_STEPS = 10
+# spill_97k runs on, past its LAYOUT_STEPS gated steps, to step 30,
+# where the main path's cap 16 drops entries: its overflow there is
+# logged, not gated (cells past cap + 8 spill rows are dropped, and the
+# window's border ring collects clamped escapees by then: ROADMAP Queue
+# 3, item 24). The auto tier runs the 2 steps it is held bitwise to
+# spill_97k over. spill8_97k runs the held step and one more (its table
+# is sized for the shared state; an explicit cap does not self-heal).
+LAYOUT_STEPS_SPILL, SPILL_AUTO_STEPS, SPILL8_STEPS = 20, 2, 2
+LAYOUTS = {
+    "compact_97k": dict(dense_compact=True),
+    "frozen_97k_f32": dict(dense_frozen_pairs=True,
+                           dense_pair_dtype="float32"),
+    "frozen_97k_bf16": dict(dense_frozen_pairs=True,
+                            dense_pair_dtype="bfloat16"),
+    "spill_97k": dict(spill_at_cap=True),
+    "spill8_97k": dict(spill_full=True),
+    "spill_auto_97k": dict(dense_spill_auto=True),
+}
+# One step of each layout against the kernel twin from the shared state
+# (positions, metres): the main path's kernel-vs-plain bound (item 5) for
+# the layouts whose pairs and arithmetic are the twin's up to float32
+# summation order; bfloat16 storage rounds each coefficient to 8 bits of
+# mantissa: measured 3.79e-5 on an H100 (700 W), held to 5e-4, ten times
+# under the JAX package's own bound against the recomputed passes
+# (5e-3, tests/test_dense.py:358).
+LAYOUT_POS_ATOL = {"compact_97k": PATH_POS_ATOL["dfsph"],
+                   "frozen_97k_f32": PATH_POS_ATOL["dfsph"],
+                   "frozen_97k_bf16": 5e-4,
+                   "spill_97k": PATH_POS_ATOL["dfsph"],
+                   "spill8_97k": PATH_POS_ATOL["dfsph"],
+                   "spill_auto_97k": PATH_POS_ATOL["dfsph"]}
+# Identical iterations to the twin's where the JAX tests require them
+# (tests/test_dense.py:360: frozen float32); the others are logged.
+LAYOUT_SAME_ITERS = ("frozen_97k_f32",)
+# The hand kernels each layout's step launches (as in the JAX package:
+# the compact layout runs its own plain folds, the spill layout the ff
+# passes on its main columns and its own plain folds for the pairs that
+# touch a spill slot and for the fb hoist, frozen pairs keep the hoists;
+# every sorted binning expands through its run table); every other
+# main-path kernel must launch no time.
+_SPILL_KERNELS = ("k_pass", "t_pass", "hoist_ff", "expand")
+LAYOUT_KERNELS = {"compact_97k": ("expand",),
+                  "frozen_97k_f32": ("hoist_ff", "hoist_fb", "expand"),
+                  "frozen_97k_bf16": ("hoist_ff", "hoist_fb", "expand"),
+                  "spill_97k": _SPILL_KERNELS,
+                  "spill8_97k": _SPILL_KERNELS,
+                  "spill_auto_97k": _SPILL_KERNELS}
+# bench_torch.py's dfsph_4k_dense world (ROADMAP Queue 3, item 14):
+# SMALL_N particles, SMALL_STEPS steps per variant.
+SMALL_N = 4096
+SMALL_STEPS = 30
 # The slab path (phase 7b, slab_97k): SLAB_N slabs of the 97k dam break
 # on the one card (LocalHalos: NCCL refuses two ranks on one GPU), its
 # DFSPH run SLAB_STEPS steps beside its single-device twin, positions held
@@ -772,6 +869,7 @@ def phase_main_path(pair, name):
     visc = name == "dfsph_implicit_visc"
     reset_counts(pair)
     iters, visc_iters, finite, taken = [], [], True, 0
+    overflows = []
     t0 = time.perf_counter()
     for i in range(warm + steps):
         if i == warm:
@@ -782,6 +880,9 @@ def phase_main_path(pair, name):
         before = force_iterations()["dfsph_viscosity"]
         world.step(DT, GRAVITY)
         taken += 1
+        # Every step's overflow (one int; the solver syncs every
+        # iteration anyway): recorded, its largest printed, not gated.
+        overflows.append(int(world.last_diagnostics.neighbor_overflow))
         s_ = world.last_diagnostics.solver
         if i >= warm:
             iters.append((s_.pressure_iters, s_.divergence_iters))
@@ -818,10 +919,13 @@ def phase_main_path(pair, name):
         f"fb table {world._fb_cols_cache}, grid refits "
         f"{world.grid_refit_count} ({world.grid_refit_count - refits0} "
         f"in the timed window)")
-    log(f"{tag} last step ({taken} of {warm + steps}): overflow {overflow}, "
-        f"clamped {int(d.candidate_overflow)}, contacts ff "
+    worst = max(range(taken), key=overflows.__getitem__)
+    log(f"{tag} last step ({taken} of {warm + steps}): overflow {overflow} "
+        f"(the largest of every step's: {overflows[worst]}, at step "
+        f"{worst + 1}), clamped {int(d.candidate_overflow)}, contacts ff "
         f"{int(d.ncontacts_ff)} fb {int(d.ncontacts_fb)}, max density ratio "
         f"{max_rho:.4f}, positions finite {finite}")
+    log(f"{tag} overflow per step: {overflows}")
     log(f"{tag} kernel launches in this run ({taken} steps): {launches}")
     if spec.get("forces"):
         log(f"{tag} non-pressure forces: {world._force_set}")
@@ -838,7 +942,8 @@ def phase_main_path(pair, name):
         for what, ok in gates.items():
             assert ok, f"{tag} gate failed: {what}"
     return world, dict(n=n, ms=ms, launches=launches, iters=iters,
-                       visc_iters=visc_iters, gates=gates, steps=taken)
+                       visc_iters=visc_iters, gates=gates, steps=taken,
+                       overflows=overflows)
 
 
 def phase_implicit_visc(pair, world):
@@ -2035,6 +2140,295 @@ def phase_full_grid(pair, sparse_run):
     assert bool(torch.isfinite(pos).all())
     assert dpos <= PATH_POS_ATOL["dfsph"], f"positions differ by {dpos}"
     return launches
+
+
+def layout_clone(base, name):
+    """A copy of the world ``base`` (its state and host-side layout state)
+    switched to layout ``name`` of LAYOUTS."""
+    w = copy.deepcopy(base)
+    flags = dict(LAYOUTS[name])
+    if flags.pop("spill_at_cap", None):
+        # dense_cap 12 with the spill table the auto tier would size.
+        w._dense_cap_request = 12
+        flags.update(dense_cap=12,
+                     dense_spill_columns=w._sized_spill_columns(12))
+    if flags.pop("spill_full", None):
+        w._dense_cap_request = 8
+        flags.update(dense_cap=8,
+                     dense_spill_columns=w._sized_spill_columns(8),
+                     dense_spill_k=3 ** w.dim)
+    if flags.get("dense_spill_auto"):
+        w._auto_caps = None  # the tier resolves again from this state
+    w.sim = w.sim.replace(**flags)
+    return w
+
+
+def plain_versions_refused(pair):
+    """A context in which every kernel wrapper's plain version (the pair
+    passes', ``expand``'s) raises if called. On CUDA tensors the wrappers
+    launch their kernels, so a call would mean that a layout's fold ran a
+    plain version on the card."""
+    from salva_tpu_torch.ops import binning
+
+    def refuse(name):
+        def fn(*args, **kwargs):
+            raise AssertionError(f"{name} ran during layouts_97k")
+        return fn
+
+    names = [(pair, n + "_plain")
+             for n in ("k_pass", "t_pass", "hoist_ff", "hoist_fb")]
+    names += [(binning, "expand_plain"), (binning, "expand_many_plain")]
+    return substituted({k: refuse(k[1]) for k in names})
+
+
+def layout_details(world):
+    """The frozen store's bytes and the spill tables of the world's next
+    step (a DenseCtx as the step builds it), and ``expand`` on its two
+    binnings (the compact tables, the spill columns' extended run table)
+    against their plain expansion, bitwise, with its device time."""
+    from salva_tpu_torch.geometry.dense_grid import POS_SENTINEL
+    from salva_tpu_torch.ops import binning
+
+    ctx = step_ctx(world)
+    out = dict(cap=ctx.spec_f.cap, cells=ctx.spec_f.num_cells,
+               columns=ctx.maskf.shape[-1])
+    fl, bd = world.fluids_state, world.boundaries_state
+    call = [(ctx.binf, [(fl.positions, POS_SENTINEL), (fl.velocities, 0.0)]),
+            (ctx.binb, [(bd.positions, POS_SENTINEL), (bd.velocities, 0.0)])]
+    got, want = binning.expand_many(call), binning.expand_many_plain(call)
+    out["expand_bitwise"] = all(
+        torch.equal(g, w) for gs, ws in zip(got, want) for g, w in zip(gs, ws))
+    out["expand_ms"] = cuda_ms(lambda: binning.expand_many(call), 20)
+    assert out["expand_bitwise"], "expand differs from its plain expansion"
+    if ctx.frozen:
+        out["frozen_bytes"] = nbytes(ctx.S)
+        out["frozen_blocks"] = len(ctx.S)
+    if ctx.spill_E:
+        C = ctx.spec_f.num_cells
+        out.update(
+            E=ctx.spill_E, AADJ=int(ctx._adj_cols.shape[0]),
+            K=int(ctx._adj_sp_nb.shape[1]),
+            spilled_cells=int((ctx.binf.spill_cells < C).sum()),
+            spilled_particles=int(ctx.maskf[:, C:].sum()),
+            adjacent_columns=int(ctx._adj_got.sum()),
+            spill_overflow=int(ctx.spill_overflow),
+        )
+    if ctx.compact:
+        out.update(active_f=ctx.sf.num_cells - 1,
+                   active_b=ctx.sb.num_cells - 1,
+                   occupied_f=int((ctx.binf.active_cells
+                                   < ctx.spec_f.num_cells).sum()))
+    del ctx
+    torch.cuda.empty_cache()
+    return out
+
+
+def one_step_record(world):
+    d = world.last_diagnostics
+    s = world.last_diagnostics.solver
+    return dict(pos=live_positions(world).clone(),
+                iters=(s.pressure_iters, s.divergence_iters),
+                ff=int(d.ncontacts_ff), fb=int(d.ncontacts_fb),
+                overflow=int(d.neighbor_overflow),
+                spill_overflow=int(d.spill_overflow),
+                clamped=int(d.candidate_overflow))
+
+
+def phase_layouts_97k(pair):
+    """layouts_97k: the three remaining dense layouts on the DFSPH dam
+    break (``path_world("dfsph")``: 97,336 particles, auto caps, the fitted
+    window), each from one shared state after LAYOUTS_AT steps (past
+    impact) beside the kernel twin (the same state stepped on the default
+    grid): one step held to the twin (LAYOUT_POS_ATOL; identical
+    iterations where LAYOUT_SAME_ITERS says so; exact contact counts),
+    then LAYOUT_STEPS steps (the held step the first) with the neighbour
+    and spill overflow 0 at every step (the spill layout runs on to
+    LAYOUT_STEPS_SPILL steps, its overflow past LAYOUT_STEPS logged, not
+    gated) and finite positions, a bitwise rerun of the first two,
+    ms/step, the device time and busy share of one profiled step, and the
+    hand kernels' launches of those steps; the frozen store's bytes, the
+    spill tables and, on the spill layouts, the cells past the cap in the
+    shared state (the held step's spilled cells) and after each step (the
+    host's count); ``expand`` on the layout's binnings against its plain
+    expansion (bitwise). spill8_97k (cap 8 + 8 spill rows, the twin's 16
+    slots a cell) runs SPILL8_STEPS steps and must spill in its held step.
+    The auto tier (``spill_auto_97k``) must resolve to 12 + the same table
+    and step bitwise as spill_97k for SPILL_AUTO_STEPS steps. Every kernel
+    wrapper's plain version is refused meanwhile.
+    Returns ({path: launches}, summary)."""
+    tag = "[layouts_97k]"
+    base = path_world("dfsph")
+    for _ in range(LAYOUTS_AT):
+        base.step(DT, GRAVITY)
+    n = int(base.fluids_state.alive.sum())
+    twin = copy.deepcopy(base)
+    reset_counts(pair)
+    twin.step(DT, GRAVITY)
+    twin_launches = read_counts(pair)
+    ref = one_step_record(twin)
+    del twin
+    log(f"{tag} shared state: {n} particles after {LAYOUTS_AT} steps, caps "
+        f"{base._auto_caps}, window {base._fitted_dims}; the kernel twin's "
+        f"step: iterations {ref['iters']}, contacts ff {ref['ff']} fb "
+        f"{ref['fb']}, overflow {ref['overflow']}, launches {twin_launches}")
+    counts0 = base._cell_counts(base.fluids_state.positions,
+                                base.fluids_state.alive)
+    paths, summary, first_two = {}, {}, {}
+    for name in LAYOUTS:
+        t_phase = time.perf_counter()
+        spill = "spill" in name
+        steps = {"spill_97k": LAYOUT_STEPS_SPILL,
+                 "spill8_97k": SPILL8_STEPS,
+                 "spill_auto_97k": SPILL_AUTO_STEPS}.get(name, LAYOUT_STEPS)
+        w = layout_clone(base, name)
+        cap = w._effective_sim().dense_cap
+        reset_counts(pair)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs, over_cap = [], []
+        with plain_versions_refused(pair):
+            for _ in range(steps):
+                w.step(DT, GRAVITY)
+                recs.append(one_step_record(w))
+                if spill:
+                    counts = w._cell_counts(w.fluids_state.positions,
+                                            w.fluids_state.alive)
+                    over_cap.append(int((counts > cap).sum()))
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        launches = read_counts(pair)
+        paths[name] = launches
+        first = recs[0]
+        first_two[name] = [r["pos"] for r in recs[:2]]
+        sim = w._effective_sim()
+        dpos = float((first["pos"] - ref["pos"]).abs().max())
+        atol = LAYOUT_POS_ATOL[name]
+        log(f"{tag} {name}: dense_cap {sim.dense_cap}, spill columns "
+            f"{sim.dense_spill_columns} (K {sim.dense_spill_k}), "
+            f"compact {sim.dense_compact}, frozen "
+            f"{sim.dense_frozen_pairs} ({sim.dense_pair_dtype})")
+        log(f"{tag} {name}: one step from the shared state: max |dpos| "
+            f"vs the kernel twin {dpos:.3e} m (atol {atol}); iterations "
+            f"{first['iters']} vs {ref['iters']}; contacts ff "
+            f"{first['ff']} / {ref['ff']}, fb {first['fb']} / "
+            f"{ref['fb']}")
+        per_step = [(r["iters"], r["overflow"], r["spill_overflow"],
+                     r["clamped"]) for r in recs]
+        held = {}
+        if spill:
+            # The held step bins the shared state: its cells past the cap
+            # spill, those past cap + min(8, cap) spill rows are dropped.
+            held = dict(held_spilled_cells=int((counts0 > cap).sum()),
+                        held_spilled_particles=int(
+                            np.clip(counts0 - cap, 0, None).sum()),
+                        held_cells_past_rows=int(
+                            (counts0 > cap + min(8, cap)).sum()))
+            log(f"{tag} {name}: the held step's cells past cap {cap}: "
+                f"{held['held_spilled_cells']} "
+                f"({held['held_spilled_particles']} particles spilled), "
+                f"past its spill rows: {held['held_cells_past_rows']}")
+        log(f"{tag} {name}: per step (iterations, overflow, spill "
+            f"overflow, clamped): {per_step}"
+            + (f"; cells past cap {cap} per step: {over_cap}"
+               if spill else ""))
+        assert dpos <= atol, f"{tag} {name}: {dpos} from the twin"
+        if name == "spill8_97k":
+            assert held["held_spilled_cells"] > 0, \
+                f"{tag} {name}: no cell spills in the held step"
+        if name in LAYOUT_SAME_ITERS:
+            assert first["iters"] == ref["iters"], f"{tag} {name} iters"
+        assert (first["ff"], first["fb"]) == (ref["ff"], ref["fb"]), \
+            f"{tag} {name}: contact counts differ from the twin's"
+        for k, r in enumerate(recs[:LAYOUT_STEPS]):
+            assert r["overflow"] == 0 and r["spill_overflow"] == 0, \
+                f"{tag} {name}: overflow at step {k + 1}: {r['overflow']}"
+        assert bool(torch.isfinite(live_positions(w)).all()), \
+            f"{tag} {name}: non-finite positions"
+        for k in LAYOUT_KERNELS[name]:
+            assert launches[k] > 0, f"{tag} {name}: {k} never launched"
+        for k in set(MAIN_PATH_KERNELS) - set(LAYOUT_KERNELS[name]):
+            assert launches[k] == 0, f"{tag} {name}: {k} launched"
+        if name == "spill_auto_97k":
+            same = all(torch.equal(a, b) for a, b in zip(
+                first_two[name], first_two["spill_97k"]))
+            log(f"{tag} {name}: the auto tier resolved to cap "
+                f"{sim.dense_cap} with {sim.dense_spill_columns} spill "
+                f"columns; its {steps} steps bitwise spill_97k's: {same}")
+            assert sim.dense_cap == 12 and same
+            assert sim.dense_spill_columns == summary["spill_97k"]["E"]
+            summary[name] = dict(dense_cap=sim.dense_cap,
+                                 E=sim.dense_spill_columns,
+                                 bitwise_spill_97k=same,
+                                 launches=launches, per_step=per_step)
+            del w
+            continue
+        # The bitwise rerun of the first two steps, and one profiled step.
+        again = layout_clone(base, name)
+        rerun = []
+        with plain_versions_refused(pair):
+            for _ in range(2):
+                again.step(DT, GRAVITY)
+                rerun.append(live_positions(again).clone())
+            busy, dev_ms = busy_share(w, steps=1)
+        del again
+        bitwise = all(torch.equal(a, b)
+                      for a, b in zip(first_two[name], rerun))
+        details = layout_details(w)
+        log(f"{tag} {name}: {ms:.3f} ms/step over {steps} steps; "
+            f"device {dev_ms} ms/step, busy {busy} (one profiled step);"
+            f" launches {launches}; bitwise rerun {bitwise}; {details}; "
+            f"phase {time.perf_counter() - t_phase:.1f} s")
+        assert bitwise, f"{tag} {name}: the rerun differs"
+        summary[name] = dict(
+            dpos_vs_twin=dpos, pos_atol=atol, iters=first["iters"],
+            twin_iters=ref["iters"], steps=steps, ms_per_step=ms,
+            device_ms_per_step=dev_ms, busy=busy, launches=launches,
+            per_step=per_step, **details, **held,
+            **(dict(cells_past_cap=over_cap) if spill else {}))
+        del w
+        torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+    return paths, summary
+
+
+def phase_small_overflow(pair):
+    """Evidence for ROADMAP Queue 3, item 14 (no gate): bench_torch.py's
+    dfsph_4k_dense world (4,096 particles, the grid at the auto caps,
+    16 / 16) for SMALL_STEPS steps, as it is and with the 12 + spill auto
+    tier (``dense_spill_auto``); each step's neighbour and spill overflow.
+    Returns ({path: launches}, {variant: per-step record})."""
+    tag = "[small_4k]"
+    out, paths = {}, {}
+    for name in ("small_4k_plain", "small_4k_spill_auto"):
+        w = dam_break_world("cuda", "dfsph", n_target=SMALL_N,
+                            layout="dense")
+        if name == "small_4k_spill_auto":
+            w.sim = w.sim.replace(dense_spill_auto=True)
+        reset_counts(pair)
+        rows = []
+        t0 = time.perf_counter()
+        for _ in range(SMALL_STEPS):
+            w.step(DT, GRAVITY)
+            d = w.last_diagnostics
+            rows.append((int(d.neighbor_overflow), int(d.spill_overflow)))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / SMALL_STEPS * 1e3
+        sim = w._effective_sim()
+        paths[name] = read_counts(pair)
+        out[name] = dict(dense_cap=sim.dense_cap,
+                         spill_columns=sim.dense_spill_columns,
+                         overflow=[r[0] for r in rows],
+                         spill_overflow=[r[1] for r in rows], ms_per_step=ms,
+                         grid_refits=w.grid_refit_count)
+        worst = max(range(SMALL_STEPS), key=lambda k: rows[k][0])
+        log(f"{tag} {name}: N={int(w.fluids_state.alive.sum())}, caps "
+            f"{w._auto_caps}, spill columns "
+            f"{sim.dense_spill_columns}, {ms:.3f} ms/step; per step "
+            f"(overflow, spill overflow): {rows}; largest overflow "
+            f"{rows[worst][0]} at step {worst + 1}")
+        del w
+    return paths, out
 
 
 def slab_setup(world):
@@ -3792,6 +4186,14 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["dfsph_full_grid"] = phase_full_grid(pair, sparse_run)
     log(f"[full grid] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    layout_paths, layouts = phase_layouts_97k(pair)
+    paths.update(layout_paths)
+    small_paths, small = phase_small_overflow(pair)
+    paths.update(small_paths)
+    log("[layouts_97k] summary " + json.dumps(
+        {"layouts_97k": layouts, "small_4k": small}))
+    log(f"[layouts_97k] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     slab_world = dam_break_world("cuda", "dfsph", sparse_boundary=False,
                                  dense_caps=(16, 16))

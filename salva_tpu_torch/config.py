@@ -129,11 +129,19 @@ class SimConfig:
     # Dense layout capacities: max particles per cell (cell width = h).
     dense_cap: int = 12
     dense_cap_boundary: int = 24
-    # Compact active-cell layout: not ported (raises when True).
+    # Compact active-cell layout: one column per occupied cell plus a
+    # void column, neighbour views through [A + 1, 3^dim] tables; the
+    # table sizes are capacity x ratio (at least 256, at most the cell
+    # count), their overflow counted in the diagnostics. Its passes are
+    # the plain full-stencil folds on every device (the JAX package runs
+    # no Pallas kernel there).
     dense_compact: bool = False
     dense_active_ratio: float = 0.25
     dense_active_ratio_boundary: float = 0.5
-    # Frozen pair coefficients: not ported (raises when True).
+    # Frozen pair coefficients: s_ij = (dW/dr / r) m_j stored once a
+    # substep per neighbour view (27 x cap^2 x C x itemsize bytes), so that
+    # k_pass / t_pass become multiply-reduces over them; the storage dtype
+    # by torch name ("float32", "bfloat16"), accumulated in float32.
     dense_frozen_pairs: bool = False
     dense_pair_dtype: str = "float32"
     # Boundary side binned over occupied boundary cells only (the sparse
@@ -144,7 +152,16 @@ class SimConfig:
     # an occupied boundary cell); set by the world. None = full-grid fb
     # hoist.
     dense_fb_columns: Optional[int] = None
-    # Dense+spill structure: not ported (raises when set).
+    # Dense+spill structure (the grid with sparse boundary binning and the
+    # half stencil, one device): ranks cap..cap+7 of an over-cap cell land
+    # in one of ``dense_spill_columns`` spill columns appended to the column
+    # axis instead of being dropped; ``dense_spill_adj_columns`` sizes the
+    # table of main columns next to a spill cell (None: min(8 E, cells)),
+    # ``dense_spill_k`` the spill neighbours one such column may have. All
+    # their overflows are counted in the diagnostics, and the world grows
+    # them. ``dense_spill_auto`` lets the auto cap tier take 12 + spill
+    # (off by default, as in the JAX package). Its passes are plain folds
+    # on every device, as the JAX package's are plain XLA.
     dense_spill_columns: Optional[int] = None
     dense_spill_adj_columns: Optional[int] = None
     dense_spill_k: int = 8

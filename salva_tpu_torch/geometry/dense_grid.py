@@ -1,4 +1,4 @@
-"""Dense binned cell grid (the main-path subset), on torch tensors.
+"""Dense binned cell grid, on torch tensors.
 
 Port of ``salva_tpu.geometry.dense_grid``. Particles are binned once per
 substep into a dense ``[cap, C]`` slot layout (cell width = h, cells
@@ -14,6 +14,14 @@ last and contiguous, which is the layout the hand kernels of
 JAX scatters with ``mode="drop"`` have no torch counterpart: every such
 scatter goes through :func:`_scatter_drop`, which routes out-of-range
 indices to one extra slot that is cut off afterwards.
+
+Two more layouts of the JAX package bind particles differently: the
+dense+spill structure (:func:`bin_particles` with ``spill_cols``: ranks
+past the cap of an over-cap cell in spill columns appended to the column
+axis) and the compact layout (:func:`bin_particles_active`: one column
+per occupied cell, neighbours through :func:`neighbor_table`). Both keep
+the run table of the sorted binnings, so their layout shuffles expand
+exactly as the grid's do.
 
 The brute all-pairs tier (:func:`brute_spec`, :func:`bin_particles_brute`)
 binds particles to a 1D cyclic "grid" by index alone; its layout
@@ -117,6 +125,24 @@ class Binned(NamedTuple):
     - ``grid_src``: [cap, C] int64 particle index feeding each slot
       (N = empty), the brute tier's binding only: its layout shuffles
       gather through it (None for the sorted binnings).
+
+    With ``spill_cols = E > 0`` (the dense+spill pair structure,
+    ``config.dense_spill_columns``) the column axis is EXTENDED to
+    ``C + E + 1``: columns ``[C, C+E)`` are spill columns, one per cell
+    whose occupancy exceeds ``cap``, holding ranks
+    ``cap..cap+spill_rows-1`` in their rows ``0..spill_rows-1``, and column
+    ``C+E`` is a void column (sentinel positions, zero masks) that
+    absorbs every "no spill neighbor" gather. ``mask``, ``slot_of`` and
+    the run table then cover the extended axis (a spill column's run
+    starts ``cap`` past its cell's, and counts at most ``spill_rows``), so
+    every layout shuffle works unchanged; only the pair passes know the
+    structure (``solver/dense_common.DenseCtx``). Extra fields:
+
+    - ``spill_cells``: [E] int32 cell of each spill column (unused: C), in
+      ascending cell order;
+    - ``cell_to_spill``: [C] int32 inverse map (no spill column: E);
+    - ``spill_col_overflow``: [] int32 over-cap cells beyond E (their
+      over-rank particles are dropped and counted in ``overflow``).
     """
 
     slot_of: torch.Tensor
@@ -128,6 +154,9 @@ class Binned(NamedTuple):
     start: torch.Tensor = None
     count: torch.Tensor = None
     grid_src: torch.Tensor = None
+    spill_cells: torch.Tensor = None
+    cell_to_spill: torch.Tensor = None
+    spill_col_overflow: torch.Tensor = None
 
 
 def _scatter_drop(size: int, fill, idx, values):
@@ -184,15 +213,14 @@ def _sorted_ranks(key):
 
 def bin_particles(spec: DenseGridSpec, positions, alive,
                   drop_clamped: bool = False, origin=None,
-                  spill_cols: int = 0) -> Binned:
+                  spill_cols: int = 0, spill_rows: int = 8) -> Binned:
     """Assign each alive particle a (cell, rank) slot (deterministic).
 
     ``drop_clamped=True`` excludes out-of-box particles from the grid
-    instead of clamping them to the border ring."""
-    if spill_cols:
-        raise NotImplementedError(
-            "dense_spill_columns (the dense+spill structure) is not ported"
-        )
+    instead of clamping them to the border ring. ``spill_cols = E > 0``
+    enables the dense+spill structure (see :class:`Binned`): ranks
+    ``cap..cap+spill_rows-1`` of over-cap cells land in spill columns
+    instead of being dropped."""
     C = spec.num_cells
     cap = spec.cap
     cell, clamped_mask = cell_of(spec, positions, origin=origin)
@@ -203,6 +231,10 @@ def bin_particles(spec: DenseGridSpec, positions, alive,
     order, rank, starts, counts, mask = _run_table(key, C, cap)
     fits = alive & (rank < cap)
     clamped = (alive & clamped_mask).sum(dtype=torch.int32)
+    if spill_cols:
+        return _bin_spill(cell, alive, rank, fits, clamped, order, starts,
+                          counts, mask, C, cap, int(spill_cols),
+                          min(int(spill_rows), cap))
     slot = torch.where(fits, cell * cap + rank, C * cap).to(torch.int32)
     overflow = (alive & (rank >= cap)).sum(dtype=torch.int32)
     return Binned(
@@ -214,6 +246,61 @@ def bin_particles(spec: DenseGridSpec, positions, alive,
         order=order,
         start=starts,
         count=counts,
+    )
+
+
+def _bin_spill(cell, alive, rank, fits, clamped, order, starts, counts, mask,
+               C: int, cap: int, E: int, cap2: int) -> Binned:
+    """The spill columns of :func:`bin_particles` (``E`` columns of
+    ``cap2`` rows) and the extended slots and run table."""
+    dev = cell.device
+    # Spill columns in ascending cell order: a cumsum of the over-cap
+    # occupancy mask.
+    over_cell = counts > cap
+    sidx = torch.cumsum(over_cell.to(torch.int32), 0,
+                        dtype=torch.int32) - 1
+    in_table = over_cell & (sidx < E)
+    iota_c = torch.arange(C, dtype=torch.int32, device=dev)
+    spill_cells = _scatter_drop(E, C, torch.where(in_table, sidx, E), iota_c)
+    cell_to_spill = torch.where(in_table, sidx, E).to(torch.int32)
+    spill_col_overflow = (over_cell & (sidx >= E)).sum(dtype=torch.int32)
+
+    # The spill columns' runs: cap past their cells' runs, at most cap2
+    # rows; the void column is empty.
+    used = spill_cells < C
+    sc_g = torch.clamp(spill_cells, max=C - 1).long()
+    s_counts = torch.where(used, torch.clamp(counts[sc_g] - cap, max=cap2), 0)
+    s_starts = torch.where(used, starts[sc_g] + cap, 0)
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    start_ext = torch.cat([starts, s_starts.to(torch.int32), zero])
+    count_ext = torch.cat([counts, s_counts.to(torch.int32), zero])
+    r = torch.arange(cap, dtype=torch.int32, device=dev)
+    mask_s = (r[:, None] < s_counts[None, :]).to(torch.float32)  # [cap, E]
+    mask = torch.cat([mask, mask_s,
+                      torch.zeros((cap, 1), dtype=torch.float32,
+                                  device=dev)], dim=1)
+
+    # Extended slot ids (column * cap + row over C + E + 1 columns).
+    sidx_p = cell_to_spill[torch.clamp(cell, max=C - 1).long()]
+    in_spill = alive & (rank >= cap) & (rank < cap + cap2) & (sidx_p < E)
+    oob = (C + E + 1) * cap
+    slot = torch.where(
+        fits, cell * cap + rank,
+        torch.where(in_spill, (C + sidx_p) * cap + (rank - cap), oob),
+    ).to(torch.int32)
+    fits = fits | in_spill
+    return Binned(
+        slot_of=slot,
+        in_grid=fits,
+        mask=mask,
+        overflow=(alive & torch.logical_not(fits)).sum(dtype=torch.int32),
+        clamped=clamped,
+        order=order,
+        start=start_ext,
+        count=count_ext,
+        spill_cells=spill_cells,
+        cell_to_spill=cell_to_spill,
+        spill_col_overflow=spill_col_overflow,
     )
 
 

@@ -19,10 +19,10 @@ configs) round-trips through one file:
   ``solver_state`` (float32);
 - ``host_state``: what the JAX format leaves out and this package reads
   back (JSON, uint8 bytes): the adaptive-timestep and check settings and
-  the host-side layout state (resolved cap tier, fitted grid window, step
-  count, pending deletions), so that a resumed run takes the uninterrupted
-  run's steps bit for bit. The JAX package ignores it; a file without it
-  loads as the JAX package loads it.
+  the host-side layout state (resolved cap tier and spill tables, fitted
+  grid window, step count, pending deletions), so that a resumed run takes
+  the uninterrupted run's steps bit for bit. The JAX package ignores it;
+  a file without it loads as the JAX package loads it.
 """
 
 from __future__ import annotations
@@ -74,6 +74,8 @@ def _host_state(world) -> dict:
         "last_dt": float(world._last_dt),
         "auto_caps": ints(world._auto_caps),
         "auto_caps_capacity": ints(world._auto_caps_capacity),
+        "auto_spill": world._auto_spill,
+        "auto_spill_k": world._auto_spill_k,
         "fitted_dims": ints(world._fitted_dims),
         "fit_floor_dims": ints(world._fit_floor_dims),
         "initial_fit_done": bool(world._initial_fit_done),
@@ -100,6 +102,9 @@ def _restore_host_state(world, hs: dict):
     world._last_dt = hs["last_dt"]
     world._auto_caps = tup(hs["auto_caps"])
     world._auto_caps_capacity = tup(hs["auto_caps_capacity"])
+    # Files written before the spill tier was ported carry neither.
+    world._auto_spill = hs.get("auto_spill")
+    world._auto_spill_k = hs.get("auto_spill_k")
     world._fitted_dims = tup(hs["fitted_dims"])
     world._fit_floor_dims = (None if hs["fit_floor_dims"] is None
                              else np.asarray(hs["fit_floor_dims"]))

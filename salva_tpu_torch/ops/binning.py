@@ -1,9 +1,11 @@
 """The binning's sorted-to-slot expansion: per-particle channels into the
 dense ``[cap, C]`` slot layout.
 
-One binning (a ``Binned`` of the fluid grid or an ``ActiveBinned`` of the
-compact boundary table) and a list of float32 per-particle channels, each
-with its fill value, go in; for every slot (r, c) and channel k
+One binning (a ``Binned`` of the fluid grid, its spill columns included
+on the dense+spill layout, or an ``ActiveBinned`` of a compact table: the
+sparse boundary binning, and both binnings of the compact layout) and a
+list of float32 per-particle channels, each with its fill value, go in;
+for every slot (r, c) and channel k
 
     out_k[r, c] = vals_k[order[start[c] + r]]  if r < min(count[c], cap)
                 = fill_k                        otherwise,

@@ -2,44 +2,61 @@
 
 Port of ``salva_tpu.solver.dense_common``: binning, the per-substep
 hoisted sums (density, gradient sums, gradient norms, boundary terms,
-contact counts) and the per-iteration pair passes of the dense solvers,
-on the full-grid layout (one column per window cell, ``[cap, C]``;
-neighbor views are flat rolls of the cell axis), with either boundary
-binning: sparse (``dense_sparse_boundary=True``, the default:
-boundary-owner passes over occupied boundary cells only, and the sparse
-fluid-boundary hoist over boundary-adjacent fluid columns) or full-grid
-(``False``: the boundaries bin into the fluid grid's cells).
+contact counts) and the per-iteration pair passes of the dense solvers.
+Three cell indexings share all physics code, as in the JAX package:
+
+- **grid** (the default): one column per window cell (``[cap, C]``;
+  neighbor views are flat rolls of the cell axis), with either boundary
+  binning: sparse (``dense_sparse_boundary=True``, the default:
+  boundary-owner passes over occupied boundary cells only, and the
+  sparse fluid-boundary hoist over boundary-adjacent fluid columns) or
+  full-grid (``False``: the boundaries bin into the fluid grid's cells);
+- **dense+spill** (``dense_spill_columns = E``; the grid with sparse
+  boundary binning and the half stencil, one device): ranks past the cap
+  of an over-cap cell land in E spill columns appended to the column
+  axis (``[cap, C + E + 1]``, see ``dense_grid.Binned``); the main columns
+  run the grid's pair passes, the spill interactions small gathered pair
+  blocks (see the dense+spill section below);
+- **compact** (``dense_compact=True``): one column per occupied cell plus
+  a void column (``[cap, A + 1]``, ``dense_grid.bin_particles_active``);
+  neighbor views gather columns through ``[A + 1, 3^dim]`` neighbor tables
+  (``dense_grid.neighbor_table``).
 
 The brute all-pairs tier (a ``brute_spec`` fluid spec) binds both
 particle sets to a 1D cyclic grid by index and walks its cyclic offsets
 0..C-1 instead of a cell stencil; every view is a roll and every layout
 shuffle a gather through the binding's ``grid_src``.
 
-The four hot passes (``k_pass``, ``t_pass``, the ff hoist and the fb
-hoist) go through ``ops.pair`` (hand kernels for CUDA tensors, the plain
-half-stencil versions for CPU tensors), except where the reference runs
-its full-stencil plain folds (``solver/full_folds.py``): on the brute
-tier, on every device (the reference runs no Pallas kernel there, and
-no hand kernel runs here), and on a grid with
-``dense_half_stencil=False`` for CPU tensors (for CUDA tensors the
-kernels, which walk the full stencil). The sorted binnings' layout
-shuffles (``to_grid`` / ``to_grid_multi``) go through ``ops.binning``.
+On the grid, the four hot passes (``k_pass``, ``t_pass``, the ff hoist
+and the fb hoist) go through ``ops.pair`` (hand kernels for CUDA tensors,
+the plain half-stencil versions for CPU tensors), except where the
+reference runs its full-stencil plain folds (``solver/full_folds.py``):
+on the brute tier and on the compact layout, on every device (the
+reference runs no Pallas kernel there, and no hand kernel runs here),
+and on a grid with ``dense_half_stencil=False`` for CPU tensors (for
+CUDA tensors the kernels, which walk the full stencil). The dense+spill
+layout runs the ff passes through ``ops.pair`` on its main columns and
+its own plain folds for the pairs that touch a spill slot, on every
+device (the reference runs its half-stencil folds and those plain folds
+there).
+With frozen pair coefficients (``dense_frozen_pairs``) the hoists stay
+as above, and ``k_pass`` / ``t_pass`` become multiply-reduces over the
+coefficients s_ij = (dW/dr / r) m_j stored once a substep
+(``sp_multi``; in ``dense_pair_dtype``, accumulated in float32). The
+sorted binnings' layout shuffles (``to_grid`` / ``to_grid_multi``) go
+through ``ops.binning`` on every layout but the brute tier's.
 Everything else, the non-pressure forces included, is plain torch.
 
 With a ``halo`` (``parallel/domain.py``, the slab path) the context
 covers one x-slab of the grid and its two ghost layers
 (``dense_grid.bin_particles_slab``), with the full-grid boundary binning
-and neither the half stencil, the fitted window nor the sparse fb
-table, as in the JAX package. Unlike the JAX package's slab path, the
-hand kernels stay on for CUDA tensors: they treat the cells beyond the
-local grid as empty where the plain folds roll cyclically, which gives
-different values on the ghost columns only, and every ghost column a
-solver or force reads is first overwritten by a ``halo.exchange``.
-
-Not ported (each raises ``NotImplementedError`` naming its flag): the
-dense+spill structure (``dense_spill_columns``), the compact layout
-(``dense_compact``) and frozen pair coefficients
-(``dense_frozen_pairs``).
+and neither the half stencil, the fitted window, the sparse fb table,
+the compact layout nor the spill structure, as in the JAX package.
+Unlike the JAX package's slab path, the hand kernels stay on for CUDA
+tensors: they treat the cells beyond the local grid as empty where the
+plain folds roll cyclically, which gives different values on the ghost
+columns only, and every ghost column a solver or force reads is first
+overwritten by a ``halo.exchange``.
 """
 
 from __future__ import annotations
@@ -80,15 +97,6 @@ def per_fluid_mean_max_grid(values, fid, mask, num_fluids: int, halo=None,
     return err
 
 
-def _unsupported(sim: SimConfig):
-    """The config flag of the first non-ported branch this configuration
-    would take, or None."""
-    for flag in ("dense_compact", "dense_frozen_pairs", "dense_spill_columns"):
-        if getattr(sim, flag, None):
-            return flag
-    return None
-
-
 class DenseCtx:
     """Per-substep binned state + hoisted sums (positions frozen).
 
@@ -104,11 +112,6 @@ class DenseCtx:
 
     def __init__(self, sim: SimConfig, spec_f, spec_b, fluids, boundaries,
                  halo=None, need_s2: bool = True):
-        flag = _unsupported(sim)
-        if flag is not None:
-            raise NotImplementedError(
-                f"{flag} is not ported to salva_tpu_torch"
-            )
         # ``need_s2``: accumulate the IISPH-only sums (s2_ff / s2_m).
         self.need_s2 = need_s2
         self.sim = sim
@@ -125,11 +128,15 @@ class DenseCtx:
         self.brute = spec_f.brute
         self.offsets = dg.stencil_offsets(spec_f)
         self.halo = halo
+        # The compact active-cell layout (off on the brute tier and on the
+        # slab path, as in the JAX package).
+        self.compact = (bool(sim.dense_compact) and not self.brute
+                        and halo is None)
         # The full-stencil plain folds run the hot passes on the brute
-        # tier (every device) and, for CPU tensors, on a grid without the
-        # half stencil (a slab has none); ``ops.pair`` runs them
-        # everywhere else.
-        self.use_full_folds = self.brute or (
+        # tier and the compact layout (every device) and, for CPU tensors,
+        # on a grid without the half stencil (a slab has none); ``ops.pair``
+        # runs them on the other grids.
+        self.use_full_folds = self.brute or self.compact or (
             dev.type == "cpu"
             and (halo is not None or not sim.dense_half_stencil)
         )
@@ -170,6 +177,9 @@ class DenseCtx:
 
         self.sf = spec_f
         self.interior = None
+        # Dense+spill pair structure (config.dense_spill_columns): the
+        # single-device grid only; the other layouts keep their own caps.
+        self.spill_E = 0
         if halo is not None:
             # The slab path: this slab's extended x-range of the grid;
             # every view rolls the LOCAL cell axis, and the slab binning
@@ -189,22 +199,33 @@ class DenseCtx:
         offs = self.offsets
         self.jff = lambda arr, o: dg.shift_j(spec_f, arr, offs[o])
         # Fluid-owner / boundary-j view of the non-pressure forces: a roll
-        # on both boundary binnings (under the sparse one the forces read
-        # the boundary arrays rematerialized onto the full grid, see
-        # ``force_field_views``).
+        # on both grid boundary binnings (under the sparse one the forces
+        # read the boundary arrays rematerialized onto the full grid, see
+        # ``force_field_views``); a table gather on the compact layout.
         self.jfb = self.jff
         self.sparse_b = (bool(sim.dense_sparse_boundary) and not self.brute
-                         and halo is None)
+                         and not self.compact and halo is None)
         if self.brute:
             # Identity bindings on the same cyclic columns: every view is
             # a roll (the fitted window and the sparse tables stay off).
             self.binf = dg.bin_particles_brute(spec_f, fluids.alive)
             self.binb = dg.bin_particles_brute(spec_b, boundaries.alive)
+        elif self.compact:
+            self._bin_compact(sim, spec_f, spec_b, fluids, boundaries)
         elif halo is None:
+            self.spill_E = int(sim.dense_spill_columns or 0)
+            self._Cmain = spec_f.num_cells
             self.binf = dg.bin_particles(
                 spec_f, fluids.positions, fluids.alive,
-                origin=self.origin_dyn,
+                origin=self.origin_dyn, spill_cols=self.spill_E,
             )
+            if self.spill_E:
+                # The extended column axis [cap, C + E + 1] (spill columns
+                # and the void column): every layout shuffle works through
+                # the extended run table and slots; only the pair passes
+                # decompose.
+                self.sf = dg.ActiveSpec(
+                    spec_f.num_cells + self.spill_E + 1, spec_f.cap)
             if not self.sparse_b:
                 # Full-grid boundary binning: the boundary grid is the
                 # fluid grid's [cap_b, C].
@@ -214,17 +235,25 @@ class DenseCtx:
                 )
         if self.sparse_b:
             self._bin_boundaries_sparse(sim, spec_f, spec_b, boundaries)
-        else:
+        elif not self.compact:
             # The boundary grid has the fluid grid's columns, so every
             # fluid/boundary view is a roll.
             self.sb = spec_b
             self.jbf = self.jbb = self.jff
+        if self.spill_E and not (self.sparse_b and sim.dense_half_stencil):
+            raise ValueError(
+                "dense_spill_columns requires the single-device full-grid "
+                "half-stencil layout with sparse boundary binning (the "
+                "world only enables it there)"
+            )
         self.maskf = self.binf.mask
         self.live = self.maskf > 0
-        # Per-cell live counts [C] (ranks fill from 0 on the sorted
-        # binnings): what the hand kernels loop over instead of the cap
-        # padding.
-        self.counts = self.live.sum(dim=0, dtype=torch.int32)
+        # Per-cell live counts of the main columns [C] (ranks fill from 0
+        # on the sorted binnings): what the hand kernels loop over instead
+        # of the cap padding.
+        self.counts = self._mslice(self.live).sum(dim=0, dtype=torch.int32)
+        if self.spill_E:
+            self._build_spill_tables()
         self.uniform = getattr(sim, "uniform_particles", None)
         f_items = [
             (fluids.positions, dg.POS_SENTINEL),
@@ -265,9 +294,52 @@ class DenseCtx:
         self.counts_b = (self.maskb > 0).sum(dim=0, dtype=torch.int32)
 
         self._fb_adj_overflow = 0
-        self._full_b = None  # force_field_views' full-grid boundary arrays
+        self._full_b = None  # the boundary arrays on the full grid
+        if self.spill_E:
+            # The main slice as the pair kernels take it (contiguous).
+            self._Pm = self._mslice(self.P).contiguous()
+            self._Mm = self._mslice(self.M).contiguous()
         self._compute_boundary_volumes()
         self._hoist()
+        self.frozen = bool(sim.dense_frozen_pairs)
+        if self.frozen:
+            if self.spill_E:
+                raise NotImplementedError(
+                    "dense_frozen_pairs is incompatible with "
+                    "dense_spill_columns"
+                )
+            self._freeze_pairs()
+
+    def _bin_compact(self, sim, spec_f, spec_b, fluids, boundaries):
+        """The compact layout: both particle sets bound to tables of their
+        occupied cells (``A + 1`` columns, sized from the capacities by
+        ``dense_active_ratio(_boundary)``, at least 256, at most the cell
+        count), and the four neighbor-table views."""
+        a_f = max(256, min(spec_f.num_cells,
+                           int(fluids.capacity * sim.dense_active_ratio)))
+        a_b = max(256, min(spec_b.num_cells,
+                           int(boundaries.capacity
+                               * sim.dense_active_ratio_boundary)))
+        self.binf = dg.bin_particles_active(
+            spec_f, a_f, fluids.positions, fluids.alive, cap=spec_f.cap,
+            origin=self.origin_dyn,
+        )
+        self.binb = dg.bin_particles_active(
+            spec_b, a_b, boundaries.positions, boundaries.alive,
+            cap=spec_b.cap, drop_clamped=self.drop_b, origin=self.origin_dyn,
+        )
+        self.sf = dg.ActiveSpec(a_f + 1, spec_f.cap)
+        self.sb = dg.ActiveSpec(a_b + 1, spec_b.cap)
+
+        def view(owner, target):
+            table = dg.neighbor_table(spec_f, owner.active_cells,
+                                      target.cell_to_active).long()
+            return lambda arr, o: arr[..., table[:, o]]
+
+        self.jff = view(self.binf, self.binf)
+        self.jfb = view(self.binf, self.binb)
+        self.jbf = view(self.binb, self.binf)
+        self.jbb = view(self.binb, self.binb)
 
     def _bin_boundaries_sparse(self, sim, spec_f, spec_b, boundaries):
         """Boundary side compact (walls/floors occupy few cells):
@@ -310,9 +382,31 @@ class DenseCtx:
 
     @property
     def bin_overflow(self):
-        extra = self.binb.active_overflow if self.sparse_b else 0
+        extra = 0
+        if self.compact:
+            extra = self.binf.active_overflow + self.binb.active_overflow
+        elif self.sparse_b:
+            extra = self.binb.active_overflow
         return (self.binf.overflow + self.binb.overflow + extra
-                + self._fb_adj_overflow)
+                + self._fb_adj_overflow + self.spill_overflow)
+
+    @property
+    def spill_overflow(self):
+        """Spill-structure table overflows (cells beyond the spill table,
+        adjacency columns beyond its table, condensed spill-neighbor
+        entries beyond K): each one means dropped contacts, so the world
+        grows the tables when this fires."""
+        if not self.spill_E:
+            return 0
+        return (self.binf.spill_col_overflow + self._spill_adj_overflow
+                + self._spill_k_overflow)
+
+    @property
+    def spill_k_overflow(self):
+        """The condensed K table's part of ``spill_overflow``: a larger
+        spill table E cannot heal it, so the world widens
+        ``dense_spill_k`` (or leaves the spill tier) instead."""
+        return self._spill_k_overflow if self.spill_E else 0
 
     # -- per-substep passes -------------------------------------------------
 
@@ -347,21 +441,27 @@ class DenseCtx:
     def _hoist(self):
         dim, h = self.dim, self.h
         kd, kg = self.sim.kernel_density, self.sim.kernel_gradient
-        if self.use_full_folds:
-            rho_ff, Gf, sq_ff, s2_ff, cnt_ff = full_folds.hoist_ff(
+        if self.spill_E:
+            ff = self._hoist_ff_spill()
+        elif self.use_full_folds:
+            ff = full_folds.hoist_ff(
                 self.spec_f, h, dim, kd, kg, self.P, self.M, self.maskf,
-                need_s2=self.need_s2,
+                need_s2=self.need_s2, jview=self.jff,
             )
         else:
-            rho_ff, Gf, sq_ff, s2_ff, cnt_ff = pair.hoist_ff(
+            ff = pair.hoist_ff(
                 self.spec_f, h, dim, kd, kg, self.P, self.M, self.counts,
                 need_s2=self.need_s2,
             )
-        if self.brute:
+        rho_ff, Gf, sq_ff, s2_ff, cnt_ff = ff
+        if self.brute or self.compact:
             fb = full_folds.hoist_fb(
                 self.spec_f, h, dim, kd, kg, self.P, self.maskf, self.Pb,
                 self.maskb, self.Volb, self.Vbvel, need_s2=self.need_s2,
+                jview=self.jfb,
             )
+        elif self.spill_E:
+            fb = self._hoist_fb_spill()
         else:
             # The fb hoist, one pass for the three grid branches of the
             # reference (its fb hoist is a full fold with or without the
@@ -398,20 +498,25 @@ class DenseCtx:
 
     def contact_diagnostics(self):
         """The binning's and the hoist's ``StepDiagnostics`` fields: contact
-        counts over the owned live slots, bin overflow, clamps and the peak
-        density ratio; on the slab path summed (the ratio: maxed) over the
-        slabs."""
+        counts over the owned live slots, bin and spill overflow, clamps
+        and the peak density ratio; on the slab path summed (the ratio:
+        maxed) over the slabs."""
         own = self.live if self.interior is None else self.live & self.interior
+
+        def i32(v):
+            return torch.as_tensor(v, dtype=torch.int32, device=self.device)
+
         d = dict(
             ncontacts_ff=torch.where(own, self.cnt_ff, 0).sum(
                 dtype=torch.int32),
             ncontacts_fb=torch.where(own, self.cnt_fb, 0).sum(
                 dtype=torch.int32),
-            neighbor_overflow=torch.as_tensor(self.bin_overflow,
-                                              dtype=torch.int32),
+            neighbor_overflow=i32(self.bin_overflow),
             candidate_overflow=self.binf.clamped + self.binb.clamped,
             max_density_ratio=torch.clamp(
                 torch.where(own, self.rho / self.R0, 0.0).amax(), min=0.0),
+            spill_overflow=i32(self.spill_overflow),
+            spill_k_overflow=i32(self.spill_k_overflow),
         )
         if self.halo is not None:
             d = {k: (self.halo.pmax(v) if k == "max_density_ratio"
@@ -433,51 +538,398 @@ class DenseCtx:
             return 0
         return cols
 
-    def _fb_table(self):
-        """The fluid columns of the sparse fb hoist, [AFB] int32 (unused
-        entries = C):
-
-        1. the boundary occupancy mask [C] is dilated by the 3^dim flat
-           shifts;
-        2. the adjacent cell ids compact into a static [AFB] table via
-           ``topk`` (keys ``C - cell`` are unique, so the table order is
-           ascending cell id, as ``lax.top_k`` gives it); overflow is
-           counted in ``bin_overflow``, and the columns past the table
-           are dropped exactly as the reference drops them.
-        """
+    def _fb_adjacency(self):
+        """The boundary occupancy mask [C] dilated by the 3^dim flat
+        shifts: the fluid columns within one cell of a boundary cell."""
         C = self.spec_f.num_cells
-        dev = self.device
-        AFB = self._fb_cols()
-        occ = torch.zeros((C + 1,), dtype=torch.bool, device=dev)
+        occ = torch.zeros((C + 1,), dtype=torch.bool, device=self.device)
         occ[torch.where(self._b_is_void, C, self._b_active)] = True
         occ = occ[:C]
         adj = occ
         for s in dg.flat_shifts(self.spec_f):
             if s != 0:
                 adj = adj | torch.roll(occ, s)
+        return adj
+
+    def _fb_topk(self, adj):
+        """The adjacent columns of the mask ``adj`` compacted into the
+        static [AFB] table via ``topk`` (keys ``n - column`` are unique, so
+        the table order is ascending column, as ``lax.top_k`` gives it):
+        (whether each entry is used, its column); overflow is counted in
+        ``bin_overflow``, and the columns past the table are dropped
+        exactly as the reference drops them."""
+        n = adj.shape[0]
+        AFB = self._fb_cols()
+        iota = torch.arange(n, dtype=torch.int32, device=self.device)
+        vals, af = torch.topk(torch.where(adj, n - iota, 0), AFB)
+        self._fb_adj_overflow = torch.clamp(
+            adj.sum(dtype=torch.int32) - AFB, min=0)
+        return vals > 0, af
+
+    def _fb_table(self):
+        """The fluid columns of the sparse fb hoist, [AFB] int32 (unused
+        entries = C; see :meth:`_fb_topk`)."""
+        got, af = self._fb_topk(self._fb_adjacency())
+        return torch.where(got, af, self.spec_f.num_cells).to(torch.int32)
+
+    # -- dense+spill machinery (config.dense_spill_columns) ------------------
+    #
+    # The pair universe splits by (i-class, j-class) over main-grid and
+    # spill slots; each combination is covered exactly once:
+    #   main  <- main : the pair passes (``ops/pair.py``: the hand kernels
+    #                   on the card) on the [..., :C] main slice, whose
+    #                   columns are the grid's and whose live counts are
+    #                   ``counts``;
+    #   spill <- main : gathered blocks over the spill columns' 3^dim
+    #                   main-neighbor columns;
+    #   spill <- spill: gathered blocks over the spill columns' 3^dim
+    #                   spill-neighbor columns (full stencil, so both
+    #                   directions are covered);
+    #   main  <- spill: gathered blocks over the main columns adjacent to
+    #                   any spill cell (a compact table), each with a
+    #                   condensed [K] table of its neighboring spill
+    #                   columns (K = dense_spill_k).
+    # Outputs assemble back onto the extended column axis with one
+    # unique-column scatter. The three folds that read spill slots are
+    # plain torch on every device, as the JAX package's are plain XLA.
+
+    def _build_spill_tables(self):
+        sim, spec = self.sim, self.spec_f
+        dev = self.device
+        E = self.spill_E
+        C = spec.num_cells
+        self.cap2 = min(8, spec.cap)
+        self.CE = C + E + 1
+        shifts_py = dg.flat_shifts(spec)
+        shifts = torch.tensor(shifts_py, dtype=torch.int64, device=dev)
+        sc = self.binf.spill_cells.long()  # [E], C = unused
+        used = sc < C
+        self._c2s_ext = torch.cat([
+            self.binf.cell_to_spill.long(),
+            torch.full((1,), E, dtype=torch.int64, device=dev)])  # [C + 1]
+
+        # j-tables of each spill column's 3^dim neighborhood; out-of-range
+        # cells (a border-ring cell can spill under an escape pile-up) and
+        # unused entries route to the void column.
+        nb = sc[:, None] + shifts[None, :]
+        valid = used[:, None] & (nb >= 0) & (nb < C)
+        self._sp_nb_main = torch.where(valid, nb, self.CE - 1)
+        nb_cell = torch.clamp(torch.where(valid, nb, C), 0, C)
+        self._sp_nb_spill = C + self._c2s_ext[nb_cell]  # [E, 3^dim]
+        # The same neighborhoods as cell ids, for gathers into [_, C]-shaped
+        # boundary grids (the i-side sentinel masks the unused ones).
+        self._sp_nb_cell = torch.where(valid, nb, 0)
+
+        # The adjacency table (main-i <- spill-j): occupied main columns
+        # with a spill cell in their 3^dim neighborhood, compacted by topk.
+        AADJ = int(min(sim.dense_spill_adj_columns or 8 * E, C))
+        K = min(int(sim.dense_spill_k), len(shifts_py))
+        occ = self.binf.cell_to_spill < E  # [C]
+        adj = occ
+        for s in shifts_py:
+            if s != 0:
+                adj = adj | torch.roll(occ, s)
+        adj = adj & torch.any(self.maskf[:, :C] > 0, dim=0)
         iota = torch.arange(C, dtype=torch.int32, device=dev)
-        key = torch.where(adj, C - iota, 0)
-        vals, af = torch.topk(key, AFB)
-        n_adj = adj.sum(dtype=torch.int32)
-        self._fb_adj_overflow = torch.clamp(n_adj - AFB, min=0)
-        return torch.where(vals > 0, af, C).to(torch.int32)
+        vals, ac = torch.topk(torch.where(adj, C - iota, 0), AADJ)
+        got = vals > 0
+        self._spill_adj_overflow = torch.clamp(
+            adj.sum(dtype=torch.int32) - AADJ, min=0)
+        self._adj_cols = torch.where(got, ac, 0)
+        self._adj_got = got
+        self._adj_sc = torch.where(got, ac, self.CE)  # scatter target
+
+        # The condensed spill-j table [AADJ, K]: the spill columns of each
+        # adjacent column's neighborhood (entries beyond K are dropped and
+        # counted).
+        s_nb = self._c2s_ext[torch.clamp(
+            self._adj_cols[:, None] + shifts[None, :], 0, C)]
+        is_sp = (s_nb < E) & got[:, None]
+        n_off = len(shifts_py)
+        rank = n_off - torch.arange(n_off, dtype=torch.int64, device=dev)
+        kv, ko = torch.topk(torch.where(is_sp, rank[None, :], 0), K, dim=1)
+        picked = torch.gather(s_nb, 1, ko)
+        self._adj_sp_nb = torch.where(kv > 0, C + picked, self.CE - 1)
+        self._spill_k_overflow = torch.clamp(
+            is_sp.sum(dim=1, dtype=torch.int32) - K, min=0).sum(
+                dtype=torch.int32)
+
+    def _mslice(self, arr):
+        """The main-column slice of an extended array (identity without
+        spill)."""
+        return arr[..., :self._Cmain] if self.spill_E else arr
+
+    def _sp_i(self, arr):
+        """The spill-i slice: the live rows of the spill columns."""
+        return arr[..., :self.cap2, self._Cmain:self._Cmain + self.spill_E]
+
+    def _jv_sp_main(self, arr, o):
+        return arr[..., self._sp_nb_main[:, o]]
+
+    def _jv_sp_spill(self, arr, o):
+        return arr[..., :self.cap2, :][..., self._sp_nb_spill[:, o]]
+
+    def _jv_adj_spill(self, arr, k):
+        return arr[..., :self.cap2, :][..., self._adj_sp_nb[:, k]]
+
+    def _ff_spill_fold(self, j_arrays, body, init):
+        """The spill-i fold of a fluid-fluid pass: main-j, then spill-j
+        gathered blocks over the spill columns' neighborhoods."""
+        acc = fold_pairs(
+            self.offsets, self.h, self.dim, self._sp_i(self.P),
+            self._sp_i(self.maskf), self.P, self.maskf, self._jv_sp_main,
+            j_arrays, body, init,
+        )
+        return fold_pairs(
+            self.offsets, self.h, self.dim, self._sp_i(self.P),
+            self._sp_i(self.maskf), self.P, self.maskf, self._jv_sp_spill,
+            j_arrays, body, acc,
+        )
+
+    def _ff_adj_fold(self, j_arrays, body, init):
+        """The adjacent-main-i <- spill-j fold (condensed K-wide
+        j-table)."""
+        Pad = self.P[..., self._adj_cols]
+        mad = torch.where(self._adj_got, self.maskf[..., self._adj_cols], 0.0)
+        K = self._adj_sp_nb.shape[1]
+        return fold_pairs(
+            range(K), self.h, self.dim, Pad, mad, self.P, self.maskf,
+            self._jv_adj_spill, j_arrays, body, init,
+        )
+
+    def _zeros_sp(self, lead=(), dtype=torch.float32):
+        """Zeros of a spill-i block's shape, ``lead + (cap2, E)``."""
+        return torch.zeros(lead + (self.cap2, self.spill_E), dtype=dtype,
+                           device=self.device)
+
+    def _zeros_adj(self, lead=(), dtype=torch.float32):
+        """Zeros of an adjacent-main-i block's shape,
+        ``lead + (cap, AADJ)``."""
+        return torch.zeros(lead + (self.spec_f.cap, self._adj_cols.shape[0]),
+                           dtype=dtype, device=self.device)
+
+    def _assemble(self, main, spill, adj=None):
+        """main [..., cap, C] + spill [..., cap2, E] + optional
+        adj [..., cap, AADJ] -> extended [..., cap, CE]."""
+        cap = self.spec_f.cap
+        if self.cap2 < cap:
+            spill = torch.cat([spill, torch.zeros(
+                spill.shape[:-2] + (cap - self.cap2,) + spill.shape[-1:],
+                dtype=spill.dtype, device=spill.device)], dim=-2)
+        void = torch.zeros(main.shape[:-1] + (1,), dtype=main.dtype,
+                           device=main.device)
+        out = torch.cat([main, spill, void], dim=-1)
+        if adj is not None:
+            # Unused entries target the spare column CE, cut off.
+            scat = torch.zeros(main.shape[:-1] + (self.CE + 1,),
+                               dtype=main.dtype, device=main.device)
+            scat[..., self._adj_sc] = adj
+            out = out + scat[..., :self.CE]
+        return out
+
+    def _hoist_ff_spill(self):
+        """The ff hoist on the spill layout: ``pair.hoist_ff`` on the main
+        slice, the spill-i and the adjacent-main-i folds."""
+        dim, h = self.dim, self.h
+        kd, kg = self.sim.kernel_density, self.sim.kernel_gradient
+        main = pair.hoist_ff(
+            self.spec_f, h, dim, kd, kg, self._Pm, self._Mm, self.counts,
+            need_s2=self.need_s2,
+        )
+        body = full_folds.ff_body(h, dim, kd, kg, self.need_s2)
+        j_arr = {"m": self.M}
+        init = [(z(), z((dim,)), z(), z(), z((), torch.int32))
+                for z in (self._zeros_sp, self._zeros_adj)]
+        sp = self._ff_spill_fold(j_arr, body, init[0])
+        adj = self._ff_adj_fold(j_arr, body, init[1])
+        return tuple(self._assemble(m, s_, a)
+                     for m, s_, a in zip(main, sp, adj))
+
+    def _hoist_fb_spill(self):
+        """The fb hoist on the spill layout: the sparse table extended over
+        the spill columns, or (no table) the full-roll fold on the main
+        slice plus a gathered spill-i block over each spill column's
+        3^dim boundary neighborhood."""
+        dim, h = self.dim, self.h
+        fb_body = pair._fb_body(h, dim, self.sim.kernel_density,
+                                self.sim.kernel_gradient, self.need_s2)
+        if self._fb_cols():
+            return self._hoist_fb_sparse_spill(fb_body)
+        pb, vbvel, volb, maskb = self._full_boundary()
+        j_arr = {"vol": volb, "vb": vbvel}
+        zm = torch.zeros_like(self._mslice(self.maskf))
+        main = fold_pairs(
+            self.offsets, h, dim, self._mslice(self.P),
+            self._mslice(self.maskf), pb, maskb, self.jfb, j_arr, fb_body,
+            (zm, torch.zeros_like(self._mslice(self.P)), zm, zm, zm,
+             torch.zeros_like(zm, dtype=torch.int32)),
+        )
+        zs = self._zeros_sp()
+        sp = fold_pairs(
+            self.offsets, h, dim, self._sp_i(self.P), self._sp_i(self.maskf),
+            pb, maskb, lambda arr, o: arr[..., self._sp_nb_cell[:, o]],
+            j_arr, fb_body,
+            (zs, self._zeros_sp((dim,)), zs, zs, zs,
+             self._zeros_sp((), torch.int32)),
+        )
+        return tuple(self._assemble(m, s_) for m, s_ in zip(main, sp))
+
+    def _hoist_fb_sparse_spill(self, fb_body):
+        """``_hoist_fb_sparse`` of the reference under the spill structure:
+        the adjacency extends over the spill columns (a spill column whose
+        cell is boundary-adjacent enters the table with its extended
+        column id, and reads its cell's boundary neighborhood), so spill
+        particles keep their wall contacts."""
+        C, E = self._Cmain, self.spill_E
+        adj = self._fb_adjacency()
+        sc = self.binf.spill_cells.long()
+        adj_sp = torch.where(sc < C, adj[torch.clamp(sc, max=C - 1)], False)
+        got, af = self._fb_topk(torch.cat([adj, adj_sp]))
+        af_g = torch.where(got, af, 0)
+        # The i side: gathered fluid columns (mask zeroed on unused slots).
+        Pi = self.P[..., af_g]
+        maski = torch.where(got[None, :], self.maskf[..., af_g], 0.0)
+        # The j side: the boundary table columns of each entry's cell's
+        # 3^dim neighbors (the void column for inactive cells).
+        af_cell = torch.where(af_g < C, af_g,
+                              sc[torch.clamp(af_g - C, 0, E - 1)])
+        sh = torch.tensor(dg.flat_shifts(self.spec_f), dtype=torch.int64,
+                          device=self.device)
+        nfb = self.binb.cell_to_active.long()[
+            torch.clamp(af_cell[:, None] + sh[None, :], 0, C)]
+        z = torch.zeros_like(maski)
+        rho, gb, sq, s2, sb, cnt = fold_pairs(
+            self.offsets, self.h, self.dim, Pi, maski, self.Pb, self.maskb,
+            lambda arr, o: arr[..., nfb[:, o]],
+            {"vol": self.Volb, "vb": self.Vbvel}, fb_body,
+            (z, torch.zeros_like(Pi), z, z, z,
+             torch.zeros_like(maski, dtype=torch.int32)),
+        )
+        # Back onto the extended grid (unused entries target the spare
+        # column CE, cut off).
+        af_sc = torch.where(got, af, self.CE)
+        packed = torch.cat([rho[None], gb, sq[None], s2[None], sb[None]])
+        fullf = torch.zeros(packed.shape[:-1] + (self.CE + 1,),
+                            dtype=packed.dtype, device=self.device)
+        fullf[..., af_sc] = packed
+        fulli = torch.zeros(cnt.shape[:-1] + (self.CE + 1,),
+                            dtype=cnt.dtype, device=self.device)
+        fulli[..., af_sc] = cnt
+        fullf, fulli = fullf[..., :self.CE], fulli[..., :self.CE]
+        dim = self.dim
+        return (fullf[0], fullf[1:1 + dim], fullf[1 + dim], fullf[2 + dim],
+                fullf[3 + dim], fulli)
+
+    def _t_body(self):
+        """The spill folds' ``t_pass`` body (mask-free: dead slots carry
+        zero mass and far positions)."""
+        kg_w, kg_dw = self.kg
+        dim, h = self.dim, self.h
+
+        def body(acc, dpos, r2, within, j):
+            _, dwr = w_dwr(r2, h, dim, kg_w, kg_dw)
+            t = j["q"][0][None, :, :] * dpos[0]
+            for d in range(1, dim):
+                t = t + j["q"][d][None, :, :] * dpos[d]
+            return acc + torch.sum(t * dwr * j["m"][None, :, :], dim=1)
+
+        return body
+
+    def _k_body(self):
+        """The spill folds' ``k_pass`` body."""
+        kg_w, kg_dw = self.kg
+        dim, h = self.dim, self.h
+
+        def body(acc, dpos, r2, within, j):
+            _, dwr = w_dwr(r2, h, dim, kg_w, kg_dw)
+            coeff = j["mk"][None, :, :] * dwr
+            return torch.stack([acc[d] + torch.sum(dpos[d] * coeff, dim=1)
+                                for d in range(dim)])
+
+        return body
+
+    def _t_pass_spill(self, Q):
+        main = pair.t_pass(
+            self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
+            self._Pm, self._Mm, self._mslice(Q).contiguous(), self.counts)
+        j_arr = {"m": self.M, "q": Q}
+        body = self._t_body()
+        sp = self._ff_spill_fold(j_arr, body, self._zeros_sp())
+        adj = self._ff_adj_fold(j_arr, body, self._zeros_adj())
+        return self._assemble(main, sp, adj)
+
+    def _k_pass_spill(self, K):
+        main = pair.k_pass(
+            self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
+            self._Pm, self._Mm, self._mslice(K).contiguous(), self.counts)
+        j_arr = {"mk": self.M * K}
+        body = self._k_body()
+        sp = self._ff_spill_fold(j_arr, body, self._zeros_sp((self.dim,)))
+        adj = self._ff_adj_fold(j_arr, body, self._zeros_adj((self.dim,)))
+        return self._assemble(main, sp, adj)
+
+    # -- frozen pair coefficients (config.dense_frozen_pairs) ----------------
+
+    def _freeze_pairs(self):
+        """Materialize the iteration-invariant pair coefficient
+        ``s_ij = (dW/dr / r) * m_j`` per neighbor view ([cap, cap, C]
+        each, in ``dense_pair_dtype``). Contact gradients are frozen during
+        a substep (`helper.rs:9-44`), so every per-iteration pair sum is
+        linear in per-slot vectors through these coefficients, and the
+        solver loops never evaluate the kernel polynomial again."""
+        dtype = getattr(torch, self.sim.dense_pair_dtype, None)
+        if not isinstance(dtype, torch.dtype):
+            raise ValueError(f"dense_pair_dtype {self.sim.dense_pair_dtype!r}"
+                             " names no torch dtype")
+        self.S = [
+            (dwr * view(self.M)[None, :, :]).to(dtype)
+            for _dpos, dwr, view in full_folds._hot_blocks(
+                self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
+                self.P, self.jff)
+        ]
+
+    def sp_multi(self, X):
+        """[m, cap, C] channels -> [m, cap, C]: X_out[m, i] =
+        sum_j s_ij X[m, j] over the frozen coefficients (float32
+        accumulation)."""
+        acc = torch.zeros((X.shape[0],) + tuple(self.maskf.shape),
+                          dtype=torch.float32, device=self.device)
+        for o, S_o in enumerate(self.S):
+            xj = self.jff(X, o)
+            acc = acc + torch.sum(S_o[None].float() * xj[:, None].float(),
+                                  dim=2)
+        return acc
 
     # -- per-iteration passes -----------------------------------------------
 
     def t_pass(self, Q):
         """T_i = sum_ff m_j (Q_j . grad_ij) for a per-slot vector Q."""
+        if self.frozen:
+            # grad_ij = s_ij (p_i - p_j):
+            # T_i = sum_d p_i,d SP(Q_d)_i - SP(sum_d Q_d p_d)_i.
+            ch = torch.cat([Q, torch.sum(Q * self.P, dim=0, keepdim=True)])
+            out = self.sp_multi(ch)
+            return torch.sum(self.P * out[:self.dim], dim=0) - out[self.dim]
+        if self.spill_E:
+            return self._t_pass_spill(Q)
         args = (self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
                 self.P, self.M, Q)
         if self.use_full_folds:
-            return full_folds.t_pass(*args)
+            return full_folds.t_pass(*args, jview=self.jff)
         return pair.t_pass(*args, self.counts)
 
     def k_pass(self, K):
         """K_i = sum_ff k_j m_j grad_ij for a per-slot scalar k."""
+        if self.frozen:
+            # K_i,d = p_i,d SP(K)_i - SP(K p_d)_i.
+            out = self.sp_multi(torch.cat([K[None], K[None] * self.P]))
+            return self.P * out[0][None] - out[1:]
+        if self.spill_E:
+            return self._k_pass_spill(K)
         args = (self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
                 self.P, self.M, K)
         if self.use_full_folds:
-            return full_folds.k_pass(*args)
+            return full_folds.k_pass(*args, jview=self.jff)
         return pair.k_pass(*args, self.counts)
 
     def delta_density(self, Vp):
@@ -488,7 +940,10 @@ class DenseCtx:
 
     def boundary_forces(self, coef):
         """One boundary-owner pass: F_b = Volb_b sum_i grad_ij coef_i
-        (grad w.r.t. the fluid point; dpos in the fold is p_b - p_i)."""
+        (grad w.r.t. the fluid point; dpos in the fold is p_b - p_i).
+        Under the spill structure a second fold adds the spill fluid
+        slots' contributions (j = the spill columns of each boundary
+        cell's 3^dim neighborhood)."""
         kg_w, kg_dw = self.kg
         dim, h = self.dim, self.h
 
@@ -506,21 +961,27 @@ class DenseCtx:
             self.offsets, h, dim, self.Pb, self.maskb, self.P, self.maskf,
             self.jbf, {"coef": coef}, body, torch.zeros_like(self.Pb),
         )
+        if self.spill_E:
+            C = self._Cmain
+            sh = torch.tensor(dg.flat_shifts(self.spec_f), dtype=torch.int64,
+                              device=self.device)
+            b_cell = torch.clamp(self._b_active, max=C)  # void -> C
+            nbs = C + self._c2s_ext[torch.clamp(
+                b_cell[:, None] + sh[None, :], 0, C)]  # [Ab+1, 3^dim]
+            Fb = fold_pairs(
+                self.offsets, h, dim, self.Pb, self.maskb, self.P,
+                self.maskf,
+                lambda arr, o: arr[..., :self.cap2, :][..., nbs[:, o]],
+                {"coef": coef}, body, Fb,
+            )
         return self.Volb[None] * Fb
 
     # -- force-facing views ---------------------------------------------------
 
-    def force_field_views(self):
-        """(jfb, jbf, Pb, Vbvel, Volb, maskb) as the non-pressure force
-        passes (``forces_dense``) consume them.
-
-        Under the sparse boundary binning the compact boundary arrays are
-        rematerialized onto the full grid here, at the first call of a
-        substep (only a pair force asks for them), so that the force
-        passes run as plain roll-view blocks, as in the JAX package."""
-        if not self.sparse_b:
-            return (self.jfb, self.jbf, self.Pb, self.Vbvel, self.Volb,
-                    self.maskb)
+    def _full_boundary(self):
+        """(Pb, Vbvel, Volb, maskb) of the sparse boundary binning
+        rematerialized onto the full fluid grid, built at the first call of
+        a substep."""
         if self._full_b is None:
             C = self.spec_f.num_cells
             cols = torch.where(self._b_is_void, C, self._b_active)
@@ -534,7 +995,30 @@ class DenseCtx:
             self._full_b = (to_full(self.Pb, dg.POS_SENTINEL),
                             to_full(self.Vbvel), to_full(self.Volb),
                             to_full(self.maskb))
-        return (self.jff, self.jff) + self._full_b
+        return self._full_b
+
+    def force_field_views(self):
+        """(jfb, jbf, Pb, Vbvel, Volb, maskb) as the non-pressure force
+        passes (``forces_dense``) consume them.
+
+        Under the sparse boundary binning the compact boundary arrays are
+        rematerialized onto the full grid (only a pair force asks for
+        them), so that the force passes run as plain roll-view blocks, as
+        in the JAX package; the compact layout gives its table views."""
+        if self.spill_E:
+            # The generic force pair passes do not know the spill
+            # decomposition; the world keeps the spill structure off for
+            # worlds with dense pair forces (particle-wise forces, like the
+            # elasticity, never come here).
+            raise NotImplementedError(
+                "dense pair forces are not supported with "
+                "dense_spill_columns; the world falls back to the plain "
+                "cap tier for such scenes"
+            )
+        if not self.sparse_b:
+            return (self.jfb, self.jbf, self.Pb, self.Vbvel, self.Volb,
+                    self.maskb)
+        return (self.jff, self.jff) + self._full_boundary()
 
     def np_fb_to_native(self, fb_full):
         """Bring a force boundary-feedback grid back to the native

@@ -51,6 +51,13 @@ class StepDiagnostics:
     fluid_min: Optional[torch.Tensor] = None
     fluid_max: Optional[torch.Tensor] = None
     max_speed: Optional[torch.Tensor] = None
+    # Dense+spill table overflows (a subset of neighbor_overflow; 0 on the
+    # other dense layouts, None on the gather layout): the world grows the
+    # spill tables on them. ``spill_k_overflow`` is the condensed K
+    # table's part, which a larger spill table cannot heal (the world
+    # widens ``dense_spill_k`` instead).
+    spill_overflow: Optional[torch.Tensor] = None
+    spill_k_overflow: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "StepDiagnostics":
         return dataclasses.replace(self, **kw)

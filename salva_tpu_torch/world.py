@@ -13,9 +13,9 @@ queries (``particles_intersecting_aabb`` / ``_shape``), adaptive CFL
 substepping (``adaptive_timestep``) and the failure checks
 (``debug_checks``). The host side
 manages slots, capacity growth and the auto-tuned dense layout (cap tier
-with overflow self-heal, fluid-tracking grid window, sparse
-fluid-boundary table); every per-step array operation runs on ``device``
-as torch tensors.
+with overflow self-heal, the opt-in 12 + spill tier with its tables'
+self-heal, fluid-tracking grid window, sparse fluid-boundary table);
+every per-step array operation runs on ``device`` as torch tensors.
 
 ``device`` defaults to ``"cuda"``; without a GPU the world raises unless
 the caller asks for the CPU with ``device="cpu"``. On CUDA the four hot
@@ -23,7 +23,9 @@ pair passes run as the hand kernels of ``ops/pair.py``; on the CPU as
 their plain versions.
 
 Solvers: DFSPH and IISPH on three layouts: the dense layout over a
-static ``domain``, the brute all-pairs tier (``layout="brute"``, and
+static ``domain`` (the grid, or by its ``SimConfig`` flag the compact
+active-cell layout, frozen pair coefficients or the dense+spill
+structure), the brute all-pairs tier (``layout="brute"``, and
 ``"auto"`` on a GPU for small worlds), and the gather layout (Morton grid
 and [N, K] neighbour tables; ``layout="gather"``, and what ``"auto"``
 resolves to without a domain, for a mostly empty grid, or when a fluid
@@ -249,6 +251,12 @@ class LiquidWorld:
         self._dense_cap_boundary_request = dense_cap_boundary
         self._auto_caps: Optional[tuple] = None
         self._auto_caps_capacity = None
+        # Auto-sized spill table (config.dense_spill_columns): set when the
+        # auto cap tier picks 12 + spill (``dense_spill_auto``); grown by
+        # the overflow path. The auto-widened condensed K table
+        # (config.dense_spill_k): grown on a K overflow.
+        self._auto_spill: Optional[int] = None
+        self._auto_spill_k: Optional[int] = None
         # Fluid-tracking grid window (config.fitted_dims): dims chosen
         # here with quantization + hysteresis, origin tracked per substep.
         self._fit_grid = bool(fit_grid)
@@ -967,11 +975,31 @@ class LiquidWorld:
             uniform = self._uniform_particles()
             if sim.uniform_particles != uniform:
                 sim = sim.replace(uniform_particles=uniform)
+            auto_f = self._dense_cap_request is None
+            if (auto_f and self._auto_spill is not None
+                    and not self._spill_supported()):
+                # A configuration changed after the tier resolved (the
+                # half stencil turned off, say) must not reach DenseCtx
+                # with a stale spill table, and a tier resolved for spill
+                # (cap 12) must not run without its table (it would shed
+                # more contacts than the 16 tier), so the whole tier
+                # resolves again.
+                self._auto_caps = None
+                self._auto_spill = None
             caps = self._resolved_dense_caps()
             if (sim.dense_cap, sim.dense_cap_boundary) != caps:
                 sim = sim.replace(
                     dense_cap=caps[0], dense_cap_boundary=caps[1]
                 )
+            if auto_f:
+                # The spill table goes with the auto cap tier (an explicit
+                # cap request leaves dense_spill_columns to the caller).
+                spill = self._auto_spill
+                if sim.dense_spill_columns != spill:
+                    sim = sim.replace(dense_spill_columns=spill)
+                k = self._auto_spill_k
+                if spill is not None and k and sim.dense_spill_k != k:
+                    sim = sim.replace(dense_spill_k=k)
             if self._fit_grid and not self._initial_fit_done:
                 self._initial_fit()
             if sim.fitted_dims != self._fitted_dims:
@@ -1170,11 +1198,13 @@ class LiquidWorld:
     def _resolved_dense_caps(self):
         """(dense_cap, dense_cap_boundary) with ``None`` requests sized
         from measured occupancy: fluid tier 8 when occupancy leaves
-        headroom (<= 5), else 16 (impact fronts compress cells past the
-        resting 8); boundary cap the next multiple of 8 above occupancy +
-        2. Cached until a capacity changes or an overflow bump. These are
-        the JAX package's TPU-derived tiers, kept for parity until the
-        GPU benchmark measures its own."""
+        headroom (<= 5), else 12 with an auto-sized spill table when the
+        spill structure is opted in and supported (``_spill_supported``),
+        else 16 (impact fronts compress cells past the resting 8);
+        boundary cap the next multiple of 8 above occupancy + 2. Cached
+        until a capacity changes or an overflow bump. These are the JAX
+        package's TPU-derived tiers, kept for parity until the GPU
+        benchmark measures its own."""
         req_f = self._dense_cap_request
         req_b = self._dense_cap_boundary_request
         if req_f is not None and req_b is not None:
@@ -1187,8 +1217,15 @@ class LiquidWorld:
             occ_b = self._max_cell_occupancy(
                 self.boundaries_state.positions, self.boundaries_state.alive
             )
-            self._spill_supported()
-            cap_f = 8 if occ_f <= 5 else 16
+            if occ_f <= 5:
+                cap_f = 8
+                self._auto_spill = None
+            elif self._spill_supported():
+                cap_f = 12
+                self._auto_spill = self._sized_spill_columns(cap_f)
+            else:
+                cap_f = 16
+                self._auto_spill = None
             cap_b = max(8, -(-(occ_b + 2) // 8) * 8)
             self._auto_caps = (cap_f, cap_b)
             self._auto_caps_capacity = cap_key
@@ -1224,14 +1261,43 @@ class LiquidWorld:
         return to_dense_forces(self._force_set) is not None
 
     def _spill_supported(self) -> bool:
-        """The dense+spill structure is not ported: its auto tier must
-        stay off."""
-        if self.sim.dense_spill_auto:
-            raise NotImplementedError(
-                "dense_spill_auto (the dense+spill structure) is not ported "
-                "to salva_tpu_torch"
-            )
-        return False
+        """Whether the auto tier may take 12 + spill: only when opted in
+        (``dense_spill_auto``; off by default, as in the JAX package, where
+        it ran 2.29x slower than the plain 16 tier on the TPU), on the
+        single-device grid with the half stencil and the sparse boundary
+        binning, without frozen pairs, and with particle-wise forces only
+        (the dense pair forces do not know the extended layout). The
+        reference also excludes its Pallas kernels, which this package
+        does not have."""
+        sim = self.sim
+        if not sim.dense_spill_auto:
+            return False
+        if sim.dense_compact or not sim.dense_sparse_boundary:
+            return False
+        if not sim.dense_half_stencil or sim.dense_frozen_pairs:
+            return False
+        from .solver.forces_dense import ParticleWiseForce, to_dense_forces
+
+        if self._force_set is None:
+            self._force_set = self._build_force_set()
+        dense = to_dense_forces(self._force_set)
+        if dense is None:
+            return False  # the gather layout anyway
+        return all(isinstance(f, ParticleWiseForce) for f in dense)
+
+    def _sized_spill_columns(self, cap_f: int) -> int:
+        """The spill table's size: 4x the over-cap cells of the current
+        state, at least max(512, the occupied cells / 64 rounded up to
+        512) (a fresh lattice has none; impact compression scales with
+        the front's area), quantized to 512 so occupancy drift does not
+        resize it; the overflow path doubles it when it fills."""
+        counts = self._cell_counts(
+            self.fluids_state.positions, self.fluids_state.alive
+        )
+        measured = int((counts > cap_f).sum()) if counts is not None else 0
+        occupied = 0 if counts is None else len(counts)
+        floor = max(512, -(-occupied // 64 // 512) * 512)
+        return max(floor, -(-4 * measured // 512) * 512)
 
     def _resolved_fb_columns(self, sim: SimConfig) -> Optional[int]:
         """Static boundary-adjacency table size for the sparse fb hoist
@@ -1459,18 +1525,52 @@ class LiquidWorld:
             )
 
     def _bump_auto_dense_cap(self) -> bool:
-        """Self-healing for the auto cap tier: rank overflow raises the
-        fluid tier to 16, then in steps of 8 up to 48 (beyond that the
-        pile-up is pathological, not a fluid state). Returns True when a
-        change was applied."""
+        """Self-healing for the auto cap and spill sizing, in order:
+
+        - a condensed-K overflow on a spill tier: widen ``dense_spill_k``
+          toward 3^dim (where it holds a column's whole neighborhood), or,
+          saturated, leave for the plain 16 tier;
+        - a spill table overflow (cells or adjacency columns beyond the
+          tables): double the spill table, up to 2^20;
+        - rank overflow: the fluid tier to 12 + spill (when supported and
+          below 12), else to 16, then in steps of 8 up to 48 (beyond that
+          the pile-up is pathological, not a fluid state).
+
+        Returns True when a change was applied."""
         if self._dense_cap_request is not None:
             return False
         if self.sim.domain is None or self._auto_caps is None:
             return False
         cap_f, cap_b = self._auto_caps
+        d = self.last_diagnostics
+        sp_over = sp_k_over = 0
+        if d is not None and d.spill_overflow is not None:
+            sp_over = int(d.spill_overflow)
+        if d is not None and d.spill_k_overflow is not None:
+            sp_k_over = int(d.spill_k_overflow)
+        if self._auto_spill and sp_k_over > 0:
+            n_off = 3 ** self.dim
+            cur_k = self._auto_spill_k or self.sim.dense_spill_k
+            if cur_k < n_off:
+                self._auto_spill_k = min(2 * cur_k, n_off)
+            else:
+                self._auto_caps = (16, cap_b)
+                self._auto_spill = None
+            self.grid_refit_count += 1
+            return True
+        if self._auto_spill and sp_over > 0:
+            grown = min(2 * self._auto_spill, 1 << 20)
+            if grown == self._auto_spill:
+                return False  # saturated: report it unhealed
+            self._auto_spill = grown
+            self.grid_refit_count += 1
+            return True
         if cap_f >= 48:
             return False
-        if cap_f < 16:
+        if cap_f < 12 and self._spill_supported():
+            self._auto_caps = (12, cap_b)
+            self._auto_spill = self._sized_spill_columns(12)
+        elif cap_f < 16:
             self._auto_caps = (16, cap_b)
         else:
             self._auto_caps = (cap_f + 8, cap_b)

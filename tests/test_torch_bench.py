@@ -25,8 +25,8 @@ TOY = dict(BENCH_N="125", BENCH_STEPS="2", BENCH_WARMUP="1",
            BENCH_LAYOUT="brute")
 TOP_FIELDS = ("metric", "value", "unit", "ms_per_step", "pressure_iters",
               "divergence_iters", "grid_refits_in_window", "iters_per_step",
-              "rows")
-ROW_FIELDS = ("name", "metric", "n", "layout", "dense_cap",
+              "dense_layout", "rows")
+ROW_FIELDS = ("name", "metric", "n", "layout", "dense_layout", "dense_cap",
               "dense_cap_boundary", "fitted_dims", "value", "value_spread",
               "ms_per_step", "ms_per_step_spread", "device_ms_per_step",
               "pressure_iters", "divergence_iters", "iters_per_step",
@@ -37,7 +37,7 @@ ROW_FIELDS = ("name", "metric", "n", "layout", "dense_cap",
 
 def _run(monkeypatch, capsys, env):
     for k in list(TOY) + ["BENCH_PALLAS", "BENCH_FROZEN", "BENCH_SPILL",
-                          "BENCH_CAP", "BENCH_WARM"]:
+                          "BENCH_PAIR_DTYPE", "BENCH_CAP", "BENCH_WARM"]:
         monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -89,12 +89,30 @@ def test_bench_reports_a_failed_gate(monkeypatch, capsys):
         assert any("density ratio" in f for f in r["gate_failures"])
 
 
-def test_bench_refuses_unported_knobs_and_a_missing_card(monkeypatch):
-    for knob in ("BENCH_PALLAS", "BENCH_FROZEN", "BENCH_SPILL"):
-        monkeypatch.setenv(knob, "1")
-        with pytest.raises(NotImplementedError, match=knob):
-            bench_torch.main(["--device", "cpu"])
-        monkeypatch.delenv(knob)
+def test_bench_refuses_unported_knobs_and_a_missing_card(monkeypatch,
+                                                         capsys):
+    """``BENCH_PALLAS`` stays refused (the port has no Pallas switch);
+    ``BENCH_FROZEN`` (with ``BENCH_PAIR_DTYPE``) and ``BENCH_SPILL`` run,
+    and every row names the layout it ran: the 64-particle lattice (8 a
+    cell) resolves the grid row to 12 + spill under ``BENCH_SPILL``."""
+    monkeypatch.setenv("BENCH_PALLAS", "1")
+    with pytest.raises(NotImplementedError, match="BENCH_PALLAS"):
+        bench_torch.main(["--device", "cpu"])
+    monkeypatch.delenv("BENCH_PALLAS")
+    toy = dict(TOY, BENCH_N="64")
+    for knobs, grid, brute in (
+            (dict(BENCH_FROZEN="1", BENCH_PAIR_DTYPE="bfloat16"),
+             "grid+frozen_bfloat16", "brute+frozen_bfloat16"),
+            (dict(BENCH_SPILL="1"), "grid+spill512", "brute")):
+        rc, out = _run(monkeypatch, capsys, dict(toy, **knobs))
+        assert rc == 0, out.get("failed_rows")
+        rows = {r["name"]: r for r in out["rows"]}
+        assert rows["dfsph_4k_dense"]["dense_layout"] == grid
+        assert rows["dfsph_4k_dense"]["dense_cap"] == (
+            12 if "BENCH_SPILL" in knobs else 16)
+        assert out["dense_layout"] == rows["dfsph_97k"]["dense_layout"]
+        assert out["dense_layout"] == brute
+        monkeypatch.delenv("BENCH_PAIR_DTYPE", raising=False)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench_torch.main([])

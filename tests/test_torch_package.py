@@ -2,8 +2,8 @@
 flax nor the JAX package, the default device is the card (no silent CPU fallback), CPU runs
 never launch a kernel, the kernel wrappers validate their operands,
 unported paths raise (and the gather layout, the elasticity and custom
-forces and coupling, ported since, run), and the state converters
-round-trip."""
+forces, coupling and the last dense layouts, ported since, run), and the
+state converters round-trip."""
 
 import os
 import subprocess
@@ -45,10 +45,10 @@ def test_import_leaves_jax_and_flax_out():
     assert out.stdout.startswith("ok")
 
 
-def _tiny_world(dim=2, solver=None):
+def _tiny_world(dim=2, solver=None, dense_cap=None):
     w = st.LiquidWorld(solver=solver, particle_radius=0.05, dim=dim,
                        domain=((-1.0, -0.4), (1.0, 1.5)), layout="dense",
-                       device="cpu")
+                       dense_cap=dense_cap, device="cpu")
     xs = (np.arange(6) * 0.1).astype(np.float32)
     pos = np.stack(np.meshgrid(xs, xs + 0.1, indexing="ij"),
                    -1).reshape(-1, 2)
@@ -228,12 +228,29 @@ def test_unported_paths_raise():
     pip._device_request = True
     with pytest.raises(NotImplementedError, match="TriMesh"):
         pip.step((0.0, -9.81, 0.0), 0.01)
-    for flag in (dict(dense_spill_columns=512), dict(dense_compact=True),
-                 dict(dense_frozen_pairs=True)):
-        w = _tiny_world()
+    # Ported since: the compact layout, frozen pair coefficients (both
+    # storage dtypes) and the dense+spill structure (explicit and auto)
+    # step on the CPU, with their diagnostics; frozen pairs with spill
+    # stay refused, as in the JAX package.
+    # (The spill world's cap of 3 sits under its 4 particles a cell, so
+    # every occupied cell spills: K = 9 holds a column's whole stencil.)
+    for flag in (dict(dense_spill_columns=512, dense_spill_k=9),
+                 dict(dense_spill_auto=True),
+                 dict(dense_compact=True), dict(dense_frozen_pairs=True),
+                 dict(dense_frozen_pairs=True, dense_pair_dtype="bfloat16")):
+        w = _tiny_world(dense_cap=3 if "dense_spill_columns" in flag
+                        else None)
         w.sim = w.sim.replace(**flag)
-        with pytest.raises(NotImplementedError):
+        for _ in range(2):
             w.step(0.01, (0.0, -9.81))
+        d = w.last_diagnostics
+        assert np.isfinite(w.fluid_positions(0)).all(), flag
+        assert int(d.ncontacts_ff) > 0, flag
+        assert int(d.neighbor_overflow) == int(d.spill_overflow) == 0, flag
+    w = _tiny_world(dense_cap=3)
+    w.sim = w.sim.replace(dense_spill_columns=512, dense_frozen_pairs=True)
+    with pytest.raises(NotImplementedError, match="dense_spill_columns"):
+        w.step(0.01, (0.0, -9.81))
     # Ported since the first slice: IISPH and the full-grid boundary
     # binning step on the CPU, and so do the full-stencil plain folds
     # (dense_half_stencil=False) and the brute tier.
