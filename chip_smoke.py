@@ -1024,9 +1024,8 @@ def stage_split(step, steps=2):
     (binning, the fb table, boundary volumes and forces, the pair kernels,
     the unbinning, the convergence syncs, the coupling's boundary update
     and force transmission) between two ``torch.cuda.synchronize()``
-    calls on the host clock, as ``tools/torch_step_profile.py`` splits a
-    step. Returns ({stage: ms a step}, synchronized ms a step); the rest
-    of the step is the difference."""
+    calls on the host clock. Returns ({stage: ms a step}, synchronized ms
+    a step); the rest of the step is the difference."""
     import functools
 
     from salva_tpu_torch.coupling import device_pipeline

@@ -30,6 +30,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import counters
 from .. import shapes as shp
 from .rigid_body import RigidBodyWorld
 
@@ -168,7 +169,7 @@ class ColliderCouplingSet:
         )
         world.fluids_state = fl.replace(positions=new_pos, velocities=new_vel)
 
-        hits = np.where(emit.cpu().numpy())[0]
+        hits = np.where(counters.fetch("coupling", emit).numpy())[0]
         if len(hits) > entry.sampling.max_samples:
             warnings.warn(
                 f"DynamicContactSampling on boundary {entry.boundary}: "
@@ -178,7 +179,7 @@ class ColliderCouplingSet:
                 "DynamicContactSampling.max_samples."
             )
         idx = hits[: entry.sampling.max_samples]
-        pts = proj.cpu().numpy()[idx]
+        pts = counters.fetch("coupling", proj).numpy()[idx]
         vels = body.velocities_at_points(pts) if len(pts) else np.zeros_like(pts)
         world.set_boundary_particles(entry.boundary, pts, vels)
 
@@ -194,8 +195,9 @@ class ColliderCouplingSet:
         ]
         if not dyn:
             return
-        forces_np = world.boundaries_state.forces.cpu().numpy()
-        pos_np = world.boundaries_state.positions.cpu().numpy()
+        bd = world.boundaries_state
+        forces_np = counters.fetch("coupling", bd.forces).numpy()
+        pos_np = counters.fetch("coupling", bd.positions).numpy()
         for entry in dyn:
             body = self.rigid_world.body_of_collider(entry.collider)
             slots = world.boundary_slots(entry.boundary)

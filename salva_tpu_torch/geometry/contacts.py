@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from .. import counters
 from ..kernels import sph
 from .neighbors import NeighborLists
 
@@ -65,7 +66,8 @@ class Contacts:
             order = torch.argsort(js, stable=True)
             js_sorted = js[order]
             counts = torch.bincount(js, minlength=n_src)
-            kmax = int(counts.max()) if js.numel() else 0
+            kmax = (int(counters.fetch("scatter_table", counts.max()))
+                    if js.numel() else 0)
             starts = torch.cumsum(counts, 0) - counts
             rank = (torch.arange(js.numel(), device=js.device)
                     - starts[js_sorted])

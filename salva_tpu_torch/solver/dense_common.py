@@ -64,6 +64,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import counters
 from ..config import SimConfig
 from ..geometry import dense_grid as dg
 from ..kernels import get_kernel, w_dwr
@@ -113,6 +114,25 @@ class DenseCtx:
     def __init__(self, sim: SimConfig, spec_f, spec_b, fluids, boundaries,
                  halo=None, need_s2: bool = True):
         # ``need_s2``: accumulate the IISPH-only sums (s2_ff / s2_m).
+        with counters.span("solver.bin"):
+            self._bin(sim, spec_f, spec_b, fluids, boundaries, halo, need_s2)
+        with counters.span("solver.boundary_volumes"):
+            self._compute_boundary_volumes()
+        with counters.span("solver.hoist"):
+            self._hoist()
+            self.frozen = bool(sim.dense_frozen_pairs)
+            if self.frozen:
+                if self.spill_E:
+                    raise NotImplementedError(
+                        "dense_frozen_pairs is incompatible with "
+                        "dense_spill_columns"
+                    )
+                self._freeze_pairs()
+
+    def _bin(self, sim, spec_f, spec_b, fluids, boundaries, halo, need_s2):
+        """Both particle sets bound to the grid (or the brute tier's
+        cyclic columns, the compact tables, the slab), the spill tables,
+        and their fields shuffled into the grid layout."""
         self.need_s2 = need_s2
         self.sim = sim
         self.spec_f = spec_f
@@ -299,16 +319,6 @@ class DenseCtx:
             # The main slice as the pair kernels take it (contiguous).
             self._Pm = self._mslice(self.P).contiguous()
             self._Mm = self._mslice(self.M).contiguous()
-        self._compute_boundary_volumes()
-        self._hoist()
-        self.frozen = bool(sim.dense_frozen_pairs)
-        if self.frozen:
-            if self.spill_E:
-                raise NotImplementedError(
-                    "dense_frozen_pairs is incompatible with "
-                    "dense_spill_columns"
-                )
-            self._freeze_pairs()
 
     def _bin_compact(self, sim, spec_f, spec_b, fluids, boundaries):
         """The compact layout: both particle sets bound to tables of their
@@ -569,8 +579,10 @@ class DenseCtx:
     def _fb_table(self):
         """The fluid columns of the sparse fb hoist, [AFB] int32 (unused
         entries = C; see :meth:`_fb_topk`)."""
-        got, af = self._fb_topk(self._fb_adjacency())
-        return torch.where(got, af, self.spec_f.num_cells).to(torch.int32)
+        with counters.span("solver.fb_table"):
+            got, af = self._fb_topk(self._fb_adjacency())
+            return torch.where(got, af,
+                               self.spec_f.num_cells).to(torch.int32)
 
     # -- dense+spill machinery (config.dense_spill_columns) ------------------
     #

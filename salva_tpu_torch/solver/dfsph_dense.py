@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import counters
 from ..config import DFSPHConfig, SimConfig
 from ..geometry import dense_grid as dg
 from ..object.state import BoundariesState, FluidsState
@@ -30,8 +31,9 @@ from .dense_common import DenseCtx, per_fluid_mean_max_grid
 
 
 def _converged(err, tol, i: int, min_iter: int) -> bool:
-    """The loop's one host sync: ``err <= tol`` once ``i >= min_iter``."""
-    return i >= min_iter and bool(err <= tol)
+    """The loop's one host sync: ``err <= tol`` once ``i >= min_iter``
+    (counted in ``counters.HOST_SYNCS["converged"]``)."""
+    return i >= min_iter and bool(counters.fetch("converged", err <= tol))
 
 
 def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
@@ -87,66 +89,73 @@ def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
                             1.0 / torch.where(denom == 0, 1.0, denom))
 
         # --- divergence solve (`dfsph_solver.rs:466-503`)
-        max_div_err = cfg.max_divergence_error * inv_dt * 0.01
-        ksum_d = torch.zeros_like(maskf)
-        if warm > 0.0:
-            k0 = exchange(torch.clamp(kd_prev * warm, min=0.0) * maskf)
-            DV = exchange(DV - (k0[None] * ctx.Gsum + ctx.k_pass(k0)))
-            ksum_d = k0
-        enough = (ctx.count >= min_nb) & live
-        div_iters = 0
-        div_err = torch.zeros((), dtype=torch.float32, device=dev)
-        while div_iters < cfg.max_divergence_iter:
-            delta = ctx.delta_density(ctx.V + DV)
-            div = torch.where(enough, torch.clamp(delta, min=0.0), 0.0)
-            div_err = mean_max(div / R0)
-            done = _converged(div_err, max_div_err, div_iters,
-                              cfg.min_divergence_iter)
-            div_iters += 1
-            if done:
-                break
-            # On a slab ki is valid on owned cells only (delta at a ghost
-            # cell sees half its neighbourhood); k_pass reads ki at j.
-            ki = exchange(div * alpha)
-            DV = exchange(DV - (ki[None] * ctx.Gsum + ctx.k_pass(ki)))
-            ksum_d = ksum_d + ki
+        with counters.span("solver.divergence"):
+            max_div_err = cfg.max_divergence_error * inv_dt * 0.01
+            ksum_d = torch.zeros_like(maskf)
+            if warm > 0.0:
+                k0 = exchange(torch.clamp(kd_prev * warm, min=0.0) * maskf)
+                DV = exchange(DV - (k0[None] * ctx.Gsum + ctx.k_pass(k0)))
+                ksum_d = k0
+            enough = (ctx.count >= min_nb) & live
+            div_iters = 0
+            div_err = torch.zeros((), dtype=torch.float32, device=dev)
+            while div_iters < cfg.max_divergence_iter:
+                delta = ctx.delta_density(ctx.V + DV)
+                div = torch.where(enough, torch.clamp(delta, min=0.0), 0.0)
+                div_err = mean_max(div / R0)
+                done = _converged(div_err, max_div_err, div_iters,
+                                  cfg.min_divergence_iter)
+                div_iters += 1
+                if done:
+                    break
+                # On a slab ki is valid on owned cells only (delta at a
+                # ghost cell sees half its neighbourhood); k_pass reads ki
+                # at j.
+                ki = exchange(div * alpha)
+                DV = exchange(DV - (ki[None] * ctx.Gsum + ctx.k_pass(ki)))
+                ksum_d = ksum_d + ki
 
         # Commit velocities; reset velocity changes (`:688-691`).
         V2 = ctx.V + DV * maskf[None]
 
         # predict_advection: gravity + non-pressure forces (`:565-604`).
-        A = gravity.reshape(dim, 1, 1) * maskf[None]
-        np_Fb = None
-        if dense_forces:
-            A, np_Fb = ctx.apply_forces(dense_forces, fluids, V2, dt, inv_dt,
-                                        A, es, particle_wise=a_pw is None)
-        if a_pw is not None:
-            A = A + ctx.to_f(a_pw) * maskf[None]
-        # The force passes are valid on owned cells only.
-        DV = exchange(A * dt)
+        with counters.span("solver.forces"):
+            A = gravity.reshape(dim, 1, 1) * maskf[None]
+            np_Fb = None
+            if dense_forces:
+                A, np_Fb = ctx.apply_forces(dense_forces, fluids, V2, dt,
+                                            inv_dt, A, es,
+                                            particle_wise=a_pw is None)
+            if a_pw is not None:
+                A = A + ctx.to_f(a_pw) * maskf[None]
+            # The force passes are valid on owned cells only.
+            DV = exchange(A * dt)
 
         # --- pressure solve (`dfsph_solver.rs:432-464`)
-        ksum_p = torch.zeros_like(maskf)
-        if warm > 0.0:
-            kp0 = exchange(torch.clamp(kp_prev * warm, min=0.0) * maskf)
-            DV = exchange(
-                DV - (kp0[None] * ctx.Gsum + ctx.k_pass(kp0)) * inv_dt)
-            ksum_p = kp0
-        p_iters = 0
-        p_err = torch.zeros((), dtype=torch.float32, device=dev)
-        while p_iters < cfg.max_pressure_iter:
-            predicted = ctx.rho + ctx.delta_density(V2 + DV) * dt
-            err_i = torch.where(predicted < R0, 0.0, predicted / R0 - 1.0)
-            p_err = mean_max(err_i)
-            done = _converged(p_err, cfg.max_density_error, p_iters,
-                              cfg.min_pressure_iter)
-            p_iters += 1
-            if done:
-                break
-            ki_p = exchange(torch.clamp((predicted - R0) * alpha, min=0.0))
-            DV = exchange(
-                DV - (ki_p[None] * ctx.Gsum + ctx.k_pass(ki_p)) * inv_dt)
-            ksum_p = ksum_p + ki_p
+        with counters.span("solver.pressure"):
+            ksum_p = torch.zeros_like(maskf)
+            if warm > 0.0:
+                kp0 = exchange(torch.clamp(kp_prev * warm, min=0.0) * maskf)
+                DV = exchange(
+                    DV - (kp0[None] * ctx.Gsum + ctx.k_pass(kp0)) * inv_dt)
+                ksum_p = kp0
+            p_iters = 0
+            p_err = torch.zeros((), dtype=torch.float32, device=dev)
+            while p_iters < cfg.max_pressure_iter:
+                predicted = ctx.rho + ctx.delta_density(V2 + DV) * dt
+                err_i = torch.where(predicted < R0, 0.0,
+                                    predicted / R0 - 1.0)
+                p_err = mean_max(err_i)
+                done = _converged(p_err, cfg.max_density_error, p_iters,
+                                  cfg.min_pressure_iter)
+                p_iters += 1
+                if done:
+                    break
+                ki_p = exchange(torch.clamp((predicted - R0) * alpha,
+                                            min=0.0))
+                DV = exchange(
+                    DV - (ki_p[None] * ctx.Gsum + ctx.k_pass(ki_p)) * inv_dt)
+                ksum_p = ksum_p + ki_p
 
         # --- positions (`:411-420`)
         P2 = ctx.P + (V2 + DV) * (dt * maskf[None])
@@ -154,28 +163,33 @@ def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
         # --- boundary force feedback: one boundary-owner pair pass.
         # Per-contact force = grad_ij * Volb_j * rho0_i * m_i * inv_dt *
         # (ksum_div + inv_dt * ksum_p).
-        coef = R0 * ctx.M * inv_dt * (ksum_d + inv_dt * ksum_p)
-        Fb = ctx.boundary_forces(coef)
-        if np_Fb is not None:
-            Fb = Fb + np_Fb
+        with counters.span("solver.boundary_forces"):
+            coef = R0 * ctx.M * inv_dt * (ksum_d + inv_dt * ksum_p)
+            Fb = ctx.boundary_forces(coef)
+            if np_Fb is not None:
+                Fb = Fb + np_Fb
 
-        # --- unbin back to particle arrays (one packed row gather)
-        new_pos, new_vel, new_dv, new_kd, new_kp = ctx.unbin_f_multi([
-            (P2, fluids.positions),
-            (V2, fluids.velocities),
-            (DV, solver_state[:, :dim]),
-            (ksum_d, solver_state[:, dim]),
-            (ksum_p, solver_state[:, dim + 1]),
-        ])
-        new_state = torch.cat(
-            [new_dv, new_kd[:, None], new_kp[:, None]], dim=1
-        )
-        fluids = fluids.replace(positions=new_pos, velocities=new_vel)
-        b_forces, b_volumes = ctx.unbin_b_multi([
-            (Fb, boundaries.forces * 0.0),
-            (ctx.Volb, boundaries.volumes),
-        ])
-        boundaries = boundaries.replace(forces=b_forces, volumes=b_volumes)
+        # --- unbin back to particle arrays (one packed row gather), and
+        # the binning's and hoist's diagnostics
+        with counters.span("solver.unbin"):
+            new_pos, new_vel, new_dv, new_kd, new_kp = ctx.unbin_f_multi([
+                (P2, fluids.positions),
+                (V2, fluids.velocities),
+                (DV, solver_state[:, :dim]),
+                (ksum_d, solver_state[:, dim]),
+                (ksum_p, solver_state[:, dim + 1]),
+            ])
+            new_state = torch.cat(
+                [new_dv, new_kd[:, None], new_kp[:, None]], dim=1
+            )
+            fluids = fluids.replace(positions=new_pos, velocities=new_vel)
+            b_forces, b_volumes = ctx.unbin_b_multi([
+                (Fb, boundaries.forces * 0.0),
+                (ctx.Volb, boundaries.volumes),
+            ])
+            boundaries = boundaries.replace(forces=b_forces,
+                                            volumes=b_volumes)
+            contacts = ctx.contact_diagnostics()
 
         from ..step import StepDiagnostics  # local import avoids a cycle
 
@@ -186,7 +200,7 @@ def build_dense_substep(sim: SimConfig, cfg: DFSPHConfig, num_fluids: int,
                 divergence_iters=div_iters,
                 divergence_error=div_err,
             ),
-            **ctx.contact_diagnostics(),
+            **contacts,
         )
         return fluids, boundaries, new_state, diag
 

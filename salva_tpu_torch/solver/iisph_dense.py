@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import counters
 from ..config import IISPHConfig, SimConfig
 from ..geometry import dense_grid as dg
 from ..object.state import BoundariesState, FluidsState
@@ -74,98 +75,106 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
         P_grid = ctx.to_f(pressures)
 
         # predict_advection: gravity + non-pressure forces.
-        A = gravity.reshape(dim, 1, 1) * maskf[None]
-        np_Fb = None
-        if dense_forces:
-            A, np_Fb = ctx.apply_forces(dense_forces, fluids, ctx.V, dt,
-                                        inv_dt, A, es,
-                                        particle_wise=a_pw is None)
-        if a_pw is not None:
-            A = A + ctx.to_f(a_pw) * maskf[None]
-        # The force passes are valid on owned cells only; the predicted
-        # densities read (V + DV) at j.
-        DV = exchange(A * dt)
+        with counters.span("solver.forces"):
+            A = gravity.reshape(dim, 1, 1) * maskf[None]
+            np_Fb = None
+            if dense_forces:
+                A, np_Fb = ctx.apply_forces(dense_forces, fluids, ctx.V, dt,
+                                            inv_dt, A, es,
+                                            particle_wise=a_pw is None)
+            if a_pw is not None:
+                A = A + ctx.to_f(a_pw) * maskf[None]
+            # The force passes are valid on owned cells only; the predicted
+            # densities read (V + DV) at j.
+            DV = exchange(A * dt)
 
-        rho_safe = torch.clamp(ctx.rho, min=1e-12)
-        inv_rho2 = 1.0 / (rho_safe * rho_safe)
+        with counters.span("solver.pressure"):
+            rho_safe = torch.clamp(ctx.rho, min=1e-12)
+            inv_rho2 = 1.0 / (rho_safe * rho_safe)
 
-        # d_ii and a_ii (`iisph_solver.rs:144-233`).
-        dii = -(dt2 * inv_rho2)[None] * ctx.Gsum
-        factor_i = dt2 * ctx.M * inv_rho2
-        aii = torch.sum(dii * ctx.Gsum, dim=0) - factor_i * ctx.s2_m
+            # d_ii and a_ii (`iisph_solver.rs:144-233`).
+            dii = -(dt2 * inv_rho2)[None] * ctx.Gsum
+            factor_i = dt2 * ctx.M * inv_rho2
+            aii = torch.sum(dii * ctx.Gsum, dim=0) - factor_i * ctx.s2_m
 
-        # Warm start (`:673-677`) and predicted densities (`:92-142`).
-        P_grid = P_grid * 0.5
-        predicted = ctx.rho + ctx.delta_density(ctx.V + DV) * dt
+            # Warm start (`:673-677`) and predicted densities (`:92-142`).
+            P_grid = P_grid * 0.5
+            predicted = ctx.rho + ctx.delta_density(ctx.V + DV) * dt
 
-        derr = R0 - predicted
-        usable = torch.abs(aii) > 1.0e-9
-        safe_aii = torch.where(usable, aii, 1.0)
+            derr = R0 - predicted
+            usable = torch.abs(aii) > 1.0e-9
+            safe_aii = torch.where(usable, aii, 1.0)
 
-        iters = 0
-        err = torch.zeros((), dtype=torch.float32, device=dev)
-        while iters < cfg.max_pressure_iter:
-            # On a slab the ghost pressures are one iteration stale (the
-            # update is valid on owned cells only); pass 1 reads p at j.
+            iters = 0
+            err = torch.zeros((), dtype=torch.float32, device=dev)
+            while iters < cfg.max_pressure_iter:
+                # On a slab the ghost pressures are one iteration stale (the
+                # update is valid on owned cells only); pass 1 reads p at j.
+                P_grid = exchange(P_grid)
+                # Pass 1: D = dij_pjl (`:235-268`).
+                D = -dt2 * ctx.k_pass(P_grid * inv_rho2)
+                # Pass 2: q_j = d_jj p_j + D_j reduction (`:270-353`); dii
+                # and D are ghost-incomplete on a slab, and t_pass reads q
+                # at j.
+                q = exchange(dii * P_grid[None] + D)
+                t_q = ctx.t_pass(q)
+                sum_all = (
+                    torch.sum(D * ctx.Gsum, dim=0)  # D_i . (Gf + Gb)
+                    - t_q
+                    + P_grid * factor_i * ctx.s2_ff
+                )
+                candidate = ((1.0 - cfg.omega) * P_grid
+                             + cfg.omega * (derr - sum_all) / safe_aii)
+                positive = candidate > 0.0
+                next_p = torch.where(usable & positive & live,
+                                     torch.clamp(candidate, min=0.0), 0.0)
+                err_i = torch.where(
+                    usable & positive, (-sum_all - aii * next_p) / R0, 0.0
+                )
+                err = per_fluid_mean_max_grid(err_i, ctx.FID, maskf,
+                                              num_fluids, halo=halo,
+                                              interior=ctx.interior)
+                done = _converged(err, cfg.max_density_error, iters,
+                                  cfg.min_pressure_iter)
+                iters += 1
+                P_grid = next_p
+                if done:
+                    break
+
+            # Velocity changes from final pressures (`:355-404`); the final
+            # k_pass and the boundary pass read p at j.
             P_grid = exchange(P_grid)
-            # Pass 1: D = dij_pjl (`:235-268`).
-            D = -dt2 * ctx.k_pass(P_grid * inv_rho2)
-            # Pass 2: q_j = d_jj p_j + D_j reduction (`:270-353`); dii and
-            # D are ghost-incomplete on a slab, and t_pass reads q at j.
-            q = exchange(dii * P_grid[None] + D)
-            t_q = ctx.t_pass(q)
-            sum_all = (
-                torch.sum(D * ctx.Gsum, dim=0)  # D_i . (Gf + Gb)
-                - t_q
-                + P_grid * factor_i * ctx.s2_ff
-            )
-            candidate = ((1.0 - cfg.omega) * P_grid
-                         + cfg.omega * (derr - sum_all) / safe_aii)
-            positive = candidate > 0.0
-            next_p = torch.where(usable & positive & live,
-                                 torch.clamp(candidate, min=0.0), 0.0)
-            err_i = torch.where(
-                usable & positive, (-sum_all - aii * next_p) / R0, 0.0
-            )
-            err = per_fluid_mean_max_grid(err_i, ctx.FID, maskf, num_fluids,
-                                          halo=halo, interior=ctx.interior)
-            done = _converged(err, cfg.max_density_error, iters,
-                              cfg.min_pressure_iter)
-            iters += 1
-            P_grid = next_p
-            if done:
-                break
-
-        # Velocity changes from final pressures (`:355-404`); the final
-        # k_pass and the boundary pass read p at j.
-        P_grid = exchange(P_grid)
-        p_over_rho2 = P_grid * inv_rho2
-        K = ctx.k_pass(p_over_rho2)
-        DV = DV - dt * (p_over_rho2[None] * ctx.Gf + K)
-        DV = DV - dt * p_over_rho2[None] * ctx.Gb
+            p_over_rho2 = P_grid * inv_rho2
+            K = ctx.k_pass(p_over_rho2)
+            DV = DV - dt * (p_over_rho2[None] * ctx.Gf + K)
+            DV = DV - dt * p_over_rho2[None] * ctx.Gb
 
         # Boundary feedback: per-contact force = grad * fbm * p/rho_i^2 *
         # m_i (`:393-400`).
-        coef = R0 * ctx.M * p_over_rho2
-        Fb = ctx.boundary_forces(coef)
-        if np_Fb is not None:
-            Fb = Fb + np_Fb
+        with counters.span("solver.boundary_forces"):
+            coef = R0 * ctx.M * p_over_rho2
+            Fb = ctx.boundary_forces(coef)
+            if np_Fb is not None:
+                Fb = Fb + np_Fb
 
         # Semi-implicit integration (`:406-420`).
         V2 = ctx.V + DV * maskf[None]
         P2 = ctx.P + V2 * (dt * maskf[None])
 
-        new_pos, new_vel, new_pressures = ctx.unbin_f_multi([
-            (P2, fluids.positions),
-            (V2, fluids.velocities),
-            (P_grid, pressures),
-        ])
-        fluids = fluids.replace(positions=new_pos, velocities=new_vel)
-        b_forces, b_volumes = ctx.unbin_b_multi([
-            (Fb, boundaries.forces * 0.0),
-            (ctx.Volb, boundaries.volumes),
-        ])
-        boundaries = boundaries.replace(forces=b_forces, volumes=b_volumes)
+        with counters.span("solver.unbin"):
+            new_pos, new_vel, new_pressures = ctx.unbin_f_multi([
+                (P2, fluids.positions),
+                (V2, fluids.velocities),
+                (P_grid, pressures),
+            ])
+            fluids = fluids.replace(positions=new_pos, velocities=new_vel)
+            b_forces, b_volumes = ctx.unbin_b_multi([
+                (Fb, boundaries.forces * 0.0),
+                (ctx.Volb, boundaries.volumes),
+            ])
+            boundaries = boundaries.replace(forces=b_forces,
+                                            volumes=b_volumes)
+            contacts = ctx.contact_diagnostics()
 
         from ..step import StepDiagnostics  # local import avoids a cycle
 
@@ -177,7 +186,7 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
                 divergence_error=torch.zeros((), dtype=torch.float32,
                                              device=dev),
             ),
-            **ctx.contact_diagnostics(),
+            **contacts,
         )
         return fluids, boundaries, new_pressures, diag
 

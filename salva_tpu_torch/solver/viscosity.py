@@ -259,7 +259,8 @@ class DFSPHViscosityForce:
             err = mean_err(err_vec)
             counters.FORCE_ITERATIONS["dfsph_viscosity"] += 1
             done = (i >= self.min_viscosity_iter
-                    and bool(err <= self.max_viscosity_error))
+                    and bool(counters.fetch("viscosity_converged",
+                                            err <= self.max_viscosity_error)))
             i += 1
             if done:
                 break

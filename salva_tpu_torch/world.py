@@ -45,6 +45,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from . import counters
 from . import forces as force_specs
 from .config import DFSPHConfig, NeighborConfig, SimConfig, particle_volume
 from .counters import Counters
@@ -1034,11 +1035,12 @@ class LiquidWorld:
     def _initial_fit(self):
         """First window sizing from the host-visible state (pre-step)."""
         self._initial_fit_done = True
-        alive = self.fluids_state.alive.cpu().numpy()
-        pos = self.fluids_state.positions.cpu().numpy()[alive]
+        fl = self.fluids_state
+        alive = counters.fetch("initial_fit", fl.alive).numpy()
+        pos = counters.fetch("initial_fit", fl.positions).numpy()[alive]
         if len(pos) == 0:
             return
-        vel = self.fluids_state.velocities.cpu().numpy()[alive]
+        vel = counters.fetch("initial_fit", fl.velocities).numpy()[alive]
         vmax = float(np.sqrt((vel * vel).sum(axis=-1).max())) if len(vel) else 0.0
         self._refit_dims(pos.min(axis=0), pos.max(axis=0), vmax)
 
@@ -1052,11 +1054,13 @@ class LiquidWorld:
         d = self.last_diagnostics
         if d is None or d.fluid_min is None:
             return
-        lo = d.fluid_min.cpu().numpy().astype(np.float64)
-        hi = d.fluid_max.cpu().numpy().astype(np.float64)
+        lo = counters.fetch("overflow_check", d.fluid_min).numpy()
+        hi = counters.fetch("overflow_check", d.fluid_max).numpy()
+        lo, hi = lo.astype(np.float64), hi.astype(np.float64)
         if not np.isfinite(lo).all() or (hi < lo).any():
             return  # no live fluid
-        vmax = float(d.max_speed) if d.max_speed is not None else 0.0
+        vmax = (float(counters.fetch("overflow_check", d.max_speed))
+                if d.max_speed is not None else 0.0)
         self._refit_dims(lo, hi, vmax)
 
     def _refit_dims(self, lo, hi, vmax):
@@ -1130,15 +1134,17 @@ class LiquidWorld:
         the whole domain, sized from their measured occupancy."""
         bd = self.boundaries_state
         alive = bd.alive
-        if not bool(alive.any()):
+        if not bool(counters.fetch("full_boundary_volumes", alive.any())):
             return
         h, dim = self.h, self.dim
         spec = dg.spec_for_aabb(self.sim.domain[0], self.sim.domain[1], h,
                                 cap=1)
         cell, _ = dg.cell_of(spec, bd.positions)
         occ = torch.bincount(cell[alive].long(), minlength=spec.num_cells)
-        spec = spec.replace(cap=int(occ.max()))
-        n_active = int((occ > 0).sum())
+        spec = spec.replace(cap=int(counters.fetch("full_boundary_volumes",
+                                                   occ.max())))
+        n_active = int(counters.fetch("full_boundary_volumes",
+                                      (occ > 0).sum()))
         binb = dg.bin_particles_active(spec, n_active, bd.positions, alive)
         sb = dg.ActiveSpec(n_active + 1, spec.cap)
         P = dg.to_grid(sb, binb, bd.positions, fill=dg.POS_SENTINEL)
@@ -1175,7 +1181,8 @@ class LiquidWorld:
         """Per-occupied-cell particle counts at the current state
         (host-side; only when the auto cap sizing is (re)computed). None
         when no live particles."""
-        pos = positions.cpu().numpy()[alive.cpu().numpy()]
+        pos = counters.fetch("cell_counts", positions).numpy()
+        pos = pos[counters.fetch("cell_counts", alive).numpy()]
         if len(pos) == 0:
             return None
         h = self.sim.h
@@ -1312,11 +1319,11 @@ class LiquidWorld:
             self._fb_cols_cache[0] == cap_key
         ):
             return self._fb_cols_cache[1]
-        alive = bd.alive.cpu().numpy()
+        alive = counters.fetch("fb_columns", bd.alive).numpy()
         if not alive.any():
             self._fb_cols_cache = (cap_key, None)
             return None
-        pos = bd.positions.cpu().numpy()[alive]
+        pos = counters.fetch("fb_columns", bd.positions).numpy()[alive]
         h = sim.h
         origin = np.asarray(sim.domain[0], np.float64) - 2 * h
         c = np.floor((pos - origin) / h).astype(np.int64)
@@ -1358,32 +1365,42 @@ class LiquidWorld:
         ``update_boundaries`` runs before each substep and its
         ``transmit_forces`` after, timed into
         ``counters.cd.boundary_update_time`` and
-        ``counters.coupling_transmit_time``."""
-        self.counters.reset()
-        self.counters.step_time.start()
-        self._last_dt = float(dt)
-        if (
-            self._fit_grid
-            and self._initial_fit_done
-            and self._steps_taken == 0
-            and self._fitted_dims is not None
-        ):
-            # A pre-step fit sized the window's velocity slack with the
-            # default dt; with the real dt now known, redo the fit.
-            self._fitted_dims = None
-            self._initial_fit()
-        self._apply_particles_removal()
-        self._prepare()
-        gravity = torch.as_tensor(gravity, dtype=torch.float32,
-                                  device=self.device)
-        num_fluids = max(self.num_fluids, 1)
-        sim_eff = self._boundary_volume_mode(self._effective_sim(), coupling)
-        if sim_eff.fitted_dims is not None and self._full_bvol_stale:
-            self._refresh_full_boundary_volumes()
-            self._full_bvol_stale = False
-        # Building the step is cheap (closures over the static config).
-        step_fn = build_step_fn(sim_eff, self.solver_config, self._force_set,
-                                num_fluids)
+        ``counters.coupling_transmit_time``. The step is the ``world.step``
+        span; its stages are spans too (``counters.py``)."""
+        c = self.counters
+        c.reset()
+        with counters.span("world.step", c.step_time,
+                           step=self._steps_taken):
+            self._advance(dt, gravity, coupling)
+        c.finish_step(self.device, self.last_diagnostics)
+
+    def _advance(self, dt: float, gravity, coupling):
+        c = self.counters
+        with counters.span("world.prepare"):
+            self._last_dt = float(dt)
+            if (
+                self._fit_grid
+                and self._initial_fit_done
+                and self._steps_taken == 0
+                and self._fitted_dims is not None
+            ):
+                # A pre-step fit sized the window's velocity slack with the
+                # default dt; with the real dt now known, redo the fit.
+                self._fitted_dims = None
+                self._initial_fit()
+            self._apply_particles_removal()
+            self._prepare()
+            gravity = torch.as_tensor(gravity, dtype=torch.float32,
+                                      device=self.device)
+            num_fluids = max(self.num_fluids, 1)
+            sim_eff = self._boundary_volume_mode(self._effective_sim(),
+                                                 coupling)
+            if sim_eff.fitted_dims is not None and self._full_bvol_stale:
+                self._refresh_full_boundary_volumes()
+                self._full_bvol_stale = False
+            # Building the step is cheap (closures over the static config).
+            step_fn = build_step_fn(sim_eff, self.solver_config,
+                                    self._force_set, num_fluids)
 
         tm = self.timestep_manager
         tm.reset(dt)
@@ -1399,74 +1416,69 @@ class LiquidWorld:
             vmax = 0.0
             if tm.adaptive:
                 fl = self.fluids_state
-                vmax = float(_cfl_vmax(fl.velocities, prev_vel, fl.alive,
-                                       gravity, inv_prev_dt,
-                                       tm.remaining_time))
+                vmax = float(counters.fetch("cfl", _cfl_vmax(
+                    fl.velocities, prev_vel, fl.alive, gravity, inv_prev_dt,
+                    tm.remaining_time)))
                 prev_vel = fl.velocities
             sub_dt = tm.advance(vmax)
             inv_prev_dt = 1.0 / sub_dt if sub_dt > 0.0 else 0.0
             if coupling is not None:
-                self.counters.cd.boundary_update_time.resume()
-                coupling.update_boundaries(self, sub_dt)
-                self.counters.cd.boundary_update_time.pause()
-            self.counters.dispatch_time.resume()
-            (
-                self.fluids_state,
-                self.boundaries_state,
-                self._solver_state,
-                self.last_diagnostics,
-            ) = step_fn(
-                self.fluids_state,
-                self.boundaries_state,
-                self._solver_state,
-                self._elasticity_state,
-                sub_dt,
-                gravity,
-            )
-            self.counters.dispatch_time.pause()
-            if coupling is not None:
-                self.counters.coupling_transmit_time.resume()
-                coupling.transmit_forces(self, sub_dt)
-                self.counters.coupling_transmit_time.pause()
-            self.counters.nsubsteps += 1
-
-        if self.counters.enabled:
-            self.counters.fetch_time.resume()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.counters.fetch_time.pause()
-            if self.last_diagnostics is not None:
-                self.counters.cd.ncontacts = int(
-                    self.last_diagnostics.ncontacts_ff
-                    + self.last_diagnostics.ncontacts_fb
+                with counters.span("coupling.update_boundaries",
+                                   c.cd.boundary_update_time,
+                                   substep=c.nsubsteps):
+                    coupling.update_boundaries(self, sub_dt)
+            with counters.span("world.substep", c.dispatch_time,
+                               substep=c.nsubsteps):
+                (
+                    self.fluids_state,
+                    self.boundaries_state,
+                    self._solver_state,
+                    self.last_diagnostics,
+                ) = step_fn(
+                    self.fluids_state,
+                    self.boundaries_state,
+                    self._solver_state,
+                    self._elasticity_state,
+                    sub_dt,
+                    gravity,
                 )
-        self.counters.step_time.pause()
+            if coupling is not None:
+                with counters.span("coupling.transmit_forces",
+                                   c.coupling_transmit_time,
+                                   substep=c.nsubsteps):
+                    coupling.transmit_forces(self, sub_dt)
+            c.nsubsteps += 1
+
         # Coupled boundaries move every substep: their volumes stay due.
         if coupling is None:
             self._boundary_dirty = False
         self._steps_taken += 1
         if self.debug_checks:
-            self._run_debug_checks()
-            self._maybe_refit_grid()
+            with counters.span("world.overflow_check"):
+                self._run_debug_checks()
+                self._maybe_refit_grid()
         elif self.warn_overflow and (
             self._steps_taken == 1
             or self._steps_taken % max(self.overflow_check_interval, 1) == 0
             or self._overflow_alert > 0
         ):
-            self._overflow_alert = max(self._overflow_alert - 1, 0)
-            refits_before = self.grid_refit_count
-            self._warn_on_overflow()
-            self._maybe_refit_grid()
-            # Window-escape latency: when a check sees clamped particles
-            # AND the refit just resized, keep checking every step until
-            # the window stops moving.
-            d = self.last_diagnostics
-            if (
-                self.grid_refit_count != refits_before
-                and d is not None
-                and int(d.candidate_overflow) > 0
-            ):
-                self._overflow_alert = max(self.overflow_check_interval, 1)
+            with counters.span("world.overflow_check"):
+                self._overflow_alert = max(self._overflow_alert - 1, 0)
+                refits_before = self.grid_refit_count
+                self._warn_on_overflow()
+                self._maybe_refit_grid()
+                # Window-escape latency: when a check sees clamped
+                # particles AND the refit just resized, keep checking every
+                # step until the window stops moving.
+                d = self.last_diagnostics
+                if (
+                    self.grid_refit_count != refits_before
+                    and d is not None
+                    and int(counters.fetch("overflow_check",
+                                           d.candidate_overflow)) > 0
+                ):
+                    self._overflow_alert = max(self.overflow_check_interval,
+                                               1)
 
     def _warn_on_overflow(self):
         """Capacity overflow silently drops contacts, so it must be loud
@@ -1474,8 +1486,8 @@ class LiquidWorld:
         d = self.last_diagnostics
         if d is None:
             return
-        n_over = int(d.neighbor_overflow)
-        c_over = int(d.candidate_overflow)
+        n_over = int(counters.fetch("overflow_check", d.neighbor_overflow))
+        c_over = int(counters.fetch("overflow_check", d.candidate_overflow))
         if n_over > 0 and self._bump_auto_dense_cap():
             warnings.warn(
                 f"neighbor capacity overflow: {n_over} entries dropped — "
@@ -1500,7 +1512,8 @@ class LiquidWorld:
         and clamps (`dfsph_solver.rs:92,662`)."""
         d = self.last_diagnostics
         if d is not None:
-            n_over = int(d.neighbor_overflow)
+            n_over = int(counters.fetch("overflow_check",
+                                        d.neighbor_overflow))
             if n_over > 0:
                 bumped = self._bump_auto_dense_cap()
                 warnings.warn(
@@ -1510,7 +1523,8 @@ class LiquidWorld:
                        "subsequent steps" if bumped else
                        "physics degraded; raise max_neighbors / dense_cap")
                 )
-            c_over = int(d.candidate_overflow)
+            c_over = int(counters.fetch("overflow_check",
+                                        d.candidate_overflow))
             if c_over > 0:
                 warnings.warn(
                     "candidate window / domain overflow: "
@@ -1518,7 +1532,7 @@ class LiquidWorld:
                 )
         fl = self.fluids_state
         bad = ~torch.isfinite(fl.positions).all(dim=-1) & fl.alive
-        if bool(bad.any()):
+        if bool(counters.fetch("overflow_check", bad.any())):
             raise FloatingPointError(
                 "non-finite fluid positions after step (instability: reduce "
                 "dt or check force coefficients)"
@@ -1545,9 +1559,10 @@ class LiquidWorld:
         d = self.last_diagnostics
         sp_over = sp_k_over = 0
         if d is not None and d.spill_overflow is not None:
-            sp_over = int(d.spill_overflow)
+            sp_over = int(counters.fetch("overflow_check", d.spill_overflow))
         if d is not None and d.spill_k_overflow is not None:
-            sp_k_over = int(d.spill_k_overflow)
+            sp_k_over = int(counters.fetch("overflow_check",
+                                           d.spill_k_overflow))
         if self._auto_spill and sp_k_over > 0:
             n_off = 3 ** self.dim
             cur_k = self._auto_spill_k or self.sim.dense_spill_k
