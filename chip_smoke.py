@@ -72,7 +72,14 @@ phases:
    SPH kernel name (``KERNEL_NAMES``) in each role: ``k_pass``,
    ``t_pass`` and ``k_pass_v2`` under each non-cubic gradient kernel,
    both hoists under the non-cubic ``HOIST_PAIRS``, each held, timed and
-   bounded (the planted faults on the poly6 / spiky instantiations);
+   bounded (the planted faults on the poly6 / spiky instantiations); and
+   the artificial viscosity's fluid-fluid pass (``artificial_visc_ff``,
+   a hand kernel with no TPU counterpart) against its plain fold at the
+   state of the DFSPH forces path's world after its 30 steps, held with
+   its planted faults, timed and bounded, one device launch a call
+   (``visc_ff_check``; phases 9, 11 and 13 hold it at their worlds'
+   states, where a fluid carries the force); every dense path launches
+   it exactly where a fluid carries ``ArtificialViscosity``;
 6. each main path (DFSPH and IISPH, without and with the viscosity
    forces; DFSPH under poly6 / spiky and with faucet3's tension)
    stepped 5 times through the kernels and 5 times through the plain
@@ -274,6 +281,7 @@ HOIST_TOL = dict(rtol=1e-3, atol=1e-3)
 # exactly.
 OUTPUTS = {
     "k_pass": ("K",),
+    "artificial_visc_ff": ("F",),
     "t_pass": ("T",),
     "hoist_ff": ("rho", "Gf", "sq", "s2"),
     "hoist_fb": ("rho", "Gb", "sq", "s2", "Sb"),
@@ -397,13 +405,23 @@ REPLACES = {
     "hoist_fb": "salva_tpu/ops/pallas_pair.py:562",
     "k_pass_v2": "salva_tpu/ops/pallas_pair2.py:191",
     "expand": "tools/exp_pallas_expand.py:37",
+    # The artificial viscosity's fluid-fluid term, plain jnp in the JAX
+    # package (no Pallas kernel).
+    "artificial_visc_ff": "salva_tpu/solver/forces_dense.py:203",
 }
 SOURCES = {name: "salva_tpu_torch/csrc/pair_passes.cu" for name in REPLACES}
 SOURCES["expand"] = "salva_tpu_torch/csrc/expand.cu"
 SOURCES["rigid_solve"] = "salva_tpu_torch/csrc/rigid_solve.cu"
 # The kernels every main path launches; k_pass_v2 runs on none (as in
-# the JAX package, no solver calls it): phase 5 holds and times it.
+# the JAX package, no solver calls it): phase 5 holds and times it. The
+# artificial viscosity's fluid-fluid pass runs on the dense paths whose
+# fluid carries that force (``visc_launch_gate``).
 MAIN_PATH_KERNELS = ("k_pass", "t_pass", "hoist_ff", "hoist_fb", "expand")
+# The ``ops.pair`` wrappers a main path calls, each with its ``*_plain``
+# twin (the artificial viscosity's fluid-fluid pass only where a fluid
+# carries that force).
+PAIR_WRAPPERS = ("k_pass", "t_pass", "hoist_ff", "hoist_fb",
+                 "artificial_visc_ff")
 # The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): HBM3
 # bandwidth and float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -491,14 +509,16 @@ ELASTIC_POS_ATOL, ELASTIC_VEL_ATOL = 1e-5, 1e-4
 # needs (dim subtractions, dim products, dim - 1 sums), and the rest of
 # the pair's arithmetic, needed only for pairs within h: dW/dr / r of the
 # gradient kernel, W of the density kernel (the hoists), then each
-# pass's accumulations. Cubic: dW/dr / r 14 (one sqrt, one rsqrt), W 10
-# more from the same q; each other kernel takes its own sqrt of r^2,
-# shared by W and dW/dr / r when both roles name it.
+# pass's accumulations (the artificial viscosity's fluid-fluid pass, 3D:
+# v.r 8, mu 3, visc 4, the mean density 2, the scale 5, the sums 9).
+# Cubic: dW/dr / r 14 (one sqrt, one rsqrt), W 10 more from the same q;
+# each other kernel takes its own sqrt of r^2, shared by W and dW/dr / r
+# when both roles name it.
 OPS_CANDIDATE = {2: 5, 3: 8}
 OPS_DWR = {"cubic": 14, "poly6": 8, "spiky": 6, "viscosity": 12}
 OPS_W = {"cubic": 11, "poly6": 6, "spiky": 5, "viscosity": 11}
 OPS_ACC = {"k_pass": 8, "t_pass": 8, "hoist_ff": 24, "hoist_fb": 33,
-           "k_pass_v2": 8}
+           "k_pass_v2": 8, "artificial_visc_ff": 31}
 # Float32 operations of one impulse of the rigid solve, counted from
 # csrc/rigid_solve.cu: {dim: {(part, bodies): ops}}, the normal impulse
 # (relative velocity, effective mass, the clamped accumulation, the
@@ -932,6 +952,7 @@ def phase_main_path(pair, name):
         assert len(world._force_set.forces) == len(spec["forces"])
     for k in MAIN_PATH_KERNELS:
         assert launches[k] > 0, f"{k} was never launched on {tag}"
+    visc_launch_gate(world, launches, tag)
     gates = {
         f"overflow {overflow} < {max(1, n // 1000)}":
             overflow < max(1, n // 1000),
@@ -1389,12 +1410,14 @@ def phase_gather_short(pair, name):
     return dict(n=n, ms=ms, iters=iters, launches=launches)
 
 
-def drop_last(counts, cells):
+def drop_last(counts, cells, score=None):
     """A planted fluid-side fault: ``counts`` with one particle fewer in
-    the fullest of ``cells`` (a 1-D index tensor). Returns (the short
-    counts, ``copy_back(wrong, ref)`` restoring the dropped slot, which
-    the fault legitimately changes, the cell)."""
-    cell = int(cells[torch.argmax(counts[cells])])
+    the fullest of ``cells`` (a 1-D index tensor), or in the one of the
+    highest ``score`` ([C]) where given. Returns (the short counts,
+    ``copy_back(wrong, ref)`` restoring the dropped slot, which the fault
+    legitimately changes, the cell)."""
+    key = counts if score is None else score
+    cell = int(cells[torch.argmax(key[cells])])
     rank = int(counts[cell]) - 1
     short = counts.clone()
     short[cell] -= 1
@@ -1523,12 +1546,14 @@ def k_pass_v2_check(pair, results, spec, h, dim, P, M, K, counts, n_live,
     return short_v2, copy_v2
 
 
-def phase_kernels(pair, world, full=True):
+def phase_kernels(pair, world, full=True, visc_world=None):
     """Phase 5: each kernel vs its plain version at the state of the
     DFSPH main path's world after its 30 steps (the shapes the main path
-    gives it). ``full=False`` (the 2D twin's state): the cubic checks of
-    k_pass, t_pass, both hoists and expand only (no k_pass_v2, no other
-    SPH kernel names)."""
+    gives it), and the artificial viscosity's fluid-fluid pass at the
+    state of ``visc_world`` (default ``world``) where a fluid there
+    carries that force. ``full=False`` (the 2D twin's state): the cubic
+    checks of k_pass, t_pass, both hoists, that pass (without planted
+    faults) and expand only (no k_pass_v2, no other SPH kernel names)."""
     from salva_tpu_torch.geometry import dense_grid as tdg
 
     ctx = step_ctx(world)
@@ -1665,6 +1690,11 @@ def phase_kernels(pair, world, full=True):
             f"{ops:.4g} float32 operations over {n_eval} candidate / "
             f"{ff_within} within-h pairs); kernel / bound "
             f"{r['ms'] / r['bound_ms']:.1f}")
+    # Right after hoist_ff's profiled calls: the later the profile in a
+    # process, the likelier it comes back without device events.
+    visc_world = world if visc_world is None else visc_world
+    visc = (visc_ff_check(pair, visc_world, full)
+            if carries_visc(visc_world) else None)
 
     # Every SPH kernel name (KERNEL_NAMES): k_pass, t_pass and k_pass_v2
     # under each non-cubic gradient kernel, hoist_ff (with and without s2)
@@ -1913,8 +1943,123 @@ def phase_kernels(pair, world, full=True):
         if name != "hoist_fb":
             results[name]["max_abs_err"] = max(
                 r["max_abs_err"] for r in rec.values())
+    if visc is not None:
+        results["artificial_visc_ff"] = visc
     results["expand"] = phase_expand(world, ctx)
     return results
+
+
+def carries_visc(world):
+    """Whether a fluid of ``world`` carries ``ArtificialViscosity``: the
+    dense paths then launch ``artificial_visc_ff`` once a substep."""
+    from salva_tpu_torch.solver.forces_dense import (
+        ArtificialViscosityDense,
+        to_dense_forces,
+    )
+
+    if world._force_set is None:
+        world._force_set = world._build_force_set()
+    return any(isinstance(f, ArtificialViscosityDense)
+               for f in to_dense_forces(world._force_set) or ())
+
+
+def visc_launch_gate(world, launches, tag):
+    """A dense path launches the artificial viscosity's fluid-fluid pass
+    exactly where a fluid of its world carries that force."""
+    n = launches["artificial_visc_ff"]
+    assert (n > 0) == carries_visc(world), \
+        f"{tag}: artificial_visc_ff launched {n} times"
+
+
+def visc_ff_check(pair, world, full):
+    """The artificial viscosity's fluid-fluid pass at the state of
+    ``world`` (a fluid carries the force): ``artificial_visc_ff`` against
+    ``artificial_visc_ff_plain`` (the force's fold over the grid's rolls)
+    on the next step's fields and the force's per-fluid tables, with a
+    bitwise rerun; with ``full`` the planted faults (one particle fewer in
+    the tile-edge cell whose last particle carries the largest term, so
+    that its approaching pairs reach its neighbours' sums; the output x
+    FAULT_SCALE) and one device launch a call. Device time behind the
+    spin kernel, a call with its launch, the plain fold's time and the
+    bound (live slots of the six input planes read, the output written,
+    ``OPS_ACC`` + dW/dr / r for every pair within h). Returns the
+    record."""
+    from salva_tpu_torch.geometry import dense_grid as tdg
+    from salva_tpu_torch.solver.forces_dense import (
+        ArtificialViscosityDense,
+        to_dense_forces,
+    )
+
+    tag = "[kernels] artificial_visc_ff"
+    (force,) = [f for f in to_dense_forces(world._force_set)
+                if isinstance(f, ArtificialViscosityDense)]
+    ctx = step_ctx(world)
+    spec, h, dim, counts = ctx.spec_f, ctx.h, ctx.dim, ctx.counts
+    kg = world.sim.kernel_gradient
+    C = spec.num_cells
+    planes = [ctx.P, ctx.V.contiguous(),
+              ctx.vol_grid(world.fluids_state).contiguous(),
+              ctx.rho.contiguous(), ctx.R0.contiguous(),
+              ctx.FID.contiguous()]
+    tables = (force.fluid_coefficients, force.alphas, force.betas,
+              force.speeds_of_sound)
+
+    def run(c):
+        return pair.artificial_visc_ff(spec, h, dim, kg, *planes, c, *tables)
+
+    def plain():
+        return pair.artificial_visc_ff_plain(spec, h, dim, kg, *planes,
+                                             counts, *tables)
+
+    t = pair.tiling("artificial_visc_ff", dim, spec.cap, C,
+                    kernel_gradient=kg)
+    log(f"{tag}: {dim}D, {C} cells, cap {spec.cap}, {int(counts.sum())} "
+        f"live slots, gradient kernel {kg}, tables {tables}; tiles of "
+        f"{t['tile']} cells, {t['smem']} B of shared memory a block, "
+        f"{t['blocks']} blocks a launch, {t['per_sm']} blocks resident per "
+        f"SM")
+    if full:
+        cidx = torch.arange(C, device="cuda")
+        edge = torch.nonzero((cidx % t["tile"] == 0)
+                             | (cidx % t["tile"] == t["tile"] - 1))[:, 0]
+        last = torch.clamp(counts.long() - 1, min=0)
+        score = plain().abs().sum(0).gather(0, last[None])[0]
+        short, copy, cell = drop_last(counts, edge,
+                                      torch.where(counts > 0, score, -1.0))
+        log(f"{tag}: planted fault drops the last particle of cell {cell} "
+            f"({int(counts[cell])} particles, |F| of that particle "
+            f"{float(score[cell]):.4e})")
+        out, err = hold_kernel("artificial_visc_ff", "artificial_visc_ff",
+                               lambda f: run(short if f else counts), plain,
+                               KT_TOL, copy)
+    else:
+        out, err = hold_outputs("artificial_visc_ff", "artificial_visc_ff",
+                                lambda: run(counts), plain, KT_TOL)
+    ms = cuda_ms(lambda: run(counts), 50)
+    one = call_ms(lambda: run(counts), 20)
+    plain_ms = cuda_ms(plain, 5)
+    # A profile without device events reads None, never 0 (ROADMAP
+    # Queue 3, item 12).
+    n_dev = (device_launches(lambda: run(counts)) or None) if full else None
+    assert n_dev in (None, 1), f"{tag}: {n_dev} launches a call"
+    c64 = counts.long()
+    n_eval = sum(int((c64 * shift_flat(c64, s)).sum())
+                 for s in tdg.flat_shifts(spec))
+    within = int(ctx.cnt_ff.sum())
+    read = live_bytes(planes, int(counts.sum())) + 4 * C
+    written = nbytes(out)
+    b_ms, b_by, ops = bound("artificial_visc_ff", dim, read, written, n_eval,
+                            within, (kg, kg))
+    log(f"{tag}: kernel {ms:.4f} ms device time ({one:.4f} ms a call with "
+        f"its launch; {n_dev} device launch(es) a call, None: not profiled "
+        f"or no device events),"
+        f" plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}; {read} B "
+        f"read, {written} B written; {ops:.4g} float32 operations over "
+        f"{n_eval} candidate / {within} within-h pairs); kernel / bound "
+        f"{ms / b_ms:.1f}")
+    return dict(max_abs_err=err, ms=ms, call_ms=one, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, launches_per_call=n_dev,
+                kernel_names=[kg])
 
 
 def slot_sources(binned):
@@ -2079,7 +2224,7 @@ def phase_path_parity(pair, name):
 
     tag = f"[parity {name}]"
     solver = PATHS[name]["solver"]
-    names = ("k_pass", "t_pass", "hoist_ff", "hoist_fb")
+    names = PAIR_WRAPPERS
     t0 = time.perf_counter()
     kernel_run = run_steps(name)
     it_k, pos_k, _ = kernel_run
@@ -2174,8 +2319,7 @@ def plain_versions_refused(pair):
             raise AssertionError(f"{name} ran during layouts_97k")
         return fn
 
-    names = [(pair, n + "_plain")
-             for n in ("k_pass", "t_pass", "hoist_ff", "hoist_fb")]
+    names = [(pair, n + "_plain") for n in PAIR_WRAPPERS]
     names += [(binning, "expand_plain"), (binning, "expand_many_plain")]
     return substituted({k: refuse(k[1]) for k in names})
 
@@ -2521,6 +2665,7 @@ def phase_slab_path(pair, name, world, steps, hold_at, pos_atol):
     assert gaps[hold_at] <= pos_atol, f"{tag} positions differ by {gaps}"
     for k in MAIN_PATH_KERNELS:
         assert launches[k] > 0, f"{k} was never launched on {tag}"
+    visc_launch_gate(world, launches, tag)
     return dict(n=n, ms=ms, twin_ms=twin, launches=launches,
                 gap_hold=gaps[hold_at], gap_last=gaps[steps],
                 iters=[r[:2] for r in slab_rows], state=state, sim=sim,
@@ -3131,8 +3276,7 @@ def plain_subs(pair):
     coupled paths (the pair passes, ``expand``, the rigid solve)."""
     from salva_tpu_torch.ops import binning, rigid
 
-    subs = {(pair, n): getattr(pair, n + "_plain")
-            for n in ("k_pass", "t_pass", "hoist_ff", "hoist_fb")}
+    subs = {(pair, n): getattr(pair, n + "_plain") for n in PAIR_WRAPPERS}
     subs[(binning, "expand_many")] = binning.expand_many_plain
     subs[(rigid, "solve_contacts")] = rigid.solve_contacts_plain
     return subs
@@ -3221,6 +3365,7 @@ def phase_coupled_harness(pair):
     assert layout == "dense", f"{tag} resolved {layout}"
     for k in MAIN_PATH_KERNELS:
         assert launches[k] > 0, f"{k} was never launched on {tag}"
+    visc_launch_gate(world, launches, tag)
     assert overflow < max(1, n // 1000), f"{tag} overflow {overflow}"
     assert finite, f"{tag} non-finite positions"
     assert reach <= WALL_INNER and lowest >= 0.0, f"{tag} fluid left the box"
@@ -4160,6 +4305,9 @@ def main() -> int:
         other, run = phase_main_path(pair, name)
         if spec.get("forces") == ELASTIC:
             elastic_share(other, run["ms"], f"[main {name}]")
+        if name == "dfsph_forces":
+            # Phase 5 holds the artificial viscosity's pass at its state.
+            visc_world = other
         del other
         torch.cuda.empty_cache()
         paths[name] = run["launches"]
@@ -4171,8 +4319,8 @@ def main() -> int:
     log(f"[main dfsph_implicit_visc] phase took "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    kernels = phase_kernels(pair, world)
-    del world
+    kernels = phase_kernels(pair, world, visc_world=visc_world)
+    del world, visc_world
     torch.cuda.empty_cache()
     log(f"[kernels] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()

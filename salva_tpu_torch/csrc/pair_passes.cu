@@ -22,6 +22,10 @@
 //   k_pass_v2 <- pallas_pair2.py k_pass_pallas2 / _build_k2_kernel (the
 //               slot-group-predicated formulation); the k_pass body, see
 //               salva_k_pass_v2
+// and, replacing no TPU kernel (the JAX package runs it as plain jnp):
+//   visc_ff  <- the fluid-fluid term of the dense artificial viscosity
+//               (solver/forces_dense.py); tile_pass_kernel<ViscFF>, see
+//               ViscFF
 // The TPU kernels split each pass into an ungated 8-row slice plus a
 // gated complement over 8-row slot groups, because the TPU computes in
 // (8, 128) tiles. Here every kernel walks the true occupancy of each
@@ -418,6 +422,15 @@ __device__ __forceinline__ float r2_rounded(const float (&dp)[DIM]) {
   return r2;
 }
 
+// What a pass reads beyond P, M and X (Extra, a kernel parameter) and
+// keeps of its own slot i for the pair terms (Own, loaded once an item):
+// nothing, for k_pass, t_pass and hoist_ff.
+struct PlainPass {
+  struct Extra {};
+  struct Own {};
+  __device__ static void own(Own&, const float4*, size_t, const Extra&) {}
+};
+
 // What k_pass stages per neighbour slot, and adds per pair: one float4
 // (p_j, (m k)_j), (m k)_j = M[js] * K[js] premultiplied as the pair term
 // takes it. A block: 8 warps and at most 56 KB of shared memory, 4 blocks
@@ -425,7 +438,7 @@ __device__ __forceinline__ float r2_rounded(const float (&dp)[DIM]) {
 // fastest of the sizes measured at the 97k dam break (PERF.md). Kg: the
 // gradient kernel.
 template <int DIM, int Kg>
-struct KPass {
+struct KPass : PlainPass {
   static constexpr int kWords = 1;  // float4 words of a staged slot
   static constexpr int kOut = DIM;  // float output channels
   static constexpr bool kCount = false;  // an int pair-count channel after them
@@ -434,7 +447,7 @@ struct KPass {
   static constexpr int kRaw = DIM + 2;  // words read per slot: p_j, m_j, k_j
   __device__ static void fetch(float (&v)[kRaw], const float* P,
                                const float* M, const float* X, size_t plane,
-                               size_t js) {
+                               size_t js, const Extra&) {
 #pragma unroll
     for (int d = 0; d < DIM; ++d) v[d] = P[d * plane + js];
     v[DIM] = M[js];
@@ -451,7 +464,8 @@ struct KPass {
     return Sph<Kg>::queue(r2, k);
   }
   __device__ static void add(float (&acc)[kOut], const float (&dp)[DIM],
-                             float r2, const float4* s, const Params& k) {
+                             float r2, const float4* s, const Params& k,
+                             const Own&) {
     const float coeff = word(s[0], DIM) * Sph<Kg>::dwr(r2, k);
 #pragma unroll
     for (int d = 0; d < DIM; ++d) acc[d] += dp[d] * coeff;
@@ -462,7 +476,7 @@ struct KPass {
 // k_pass's, so a block takes 16 warps and up to 100 KB (2 per SM) to reach
 // tiles as long.
 template <int DIM, int Kg>
-struct TPass {
+struct TPass : PlainPass {
   static constexpr int kWords = 2;
   static constexpr int kOut = 1;
   static constexpr bool kCount = false;
@@ -471,7 +485,7 @@ struct TPass {
   static constexpr int kRaw = 2 * DIM + 1;  // p_j, m_j, Q_j
   __device__ static void fetch(float (&v)[kRaw], const float* P,
                                const float* M, const float* X, size_t plane,
-                               size_t js) {
+                               size_t js, const Extra&) {
 #pragma unroll
     for (int d = 0; d < DIM; ++d) {
       v[d] = P[d * plane + js];
@@ -495,7 +509,8 @@ struct TPass {
     return Sph<Kg>::queue(r2, k);
   }
   __device__ static void add(float (&acc)[kOut], const float (&dp)[DIM],
-                             float r2, const float4* s, const Params& k) {
+                             float r2, const float4* s, const Params& k,
+                             const Own&) {
     float t = word(s[1], 0) * dp[0];
 #pragma unroll
     for (int d = 1; d < DIM; ++d) t = t + word(s[1], d) * dp[d];
@@ -511,7 +526,7 @@ struct TPass {
 // of 15 cells, 4 a SM) and than 8 warps with 48 or 72 KB (PERF.md). Kd,
 // Kg: the density and gradient kernels.
 template <int DIM, bool kS2, int Kd, int Kg>
-struct HoistFF {
+struct HoistFF : PlainPass {
   static constexpr int kWords = 1;
   static constexpr int kOut = DIM + 3;
   static constexpr bool kCount = true;
@@ -520,7 +535,7 @@ struct HoistFF {
   static constexpr int kRaw = DIM + 1;  // p_j, m_j
   __device__ static void fetch(float (&v)[kRaw], const float* P,
                                const float* M, const float* X, size_t plane,
-                               size_t js) {
+                               size_t js, const Extra&) {
 #pragma unroll
     for (int d = 0; d < DIM; ++d) v[d] = P[d * plane + js];
     v[DIM] = M[js];
@@ -535,7 +550,8 @@ struct HoistFF {
     return queue_either<Kd, Kg>(r2, k);
   }
   __device__ static void add(float (&acc)[kOut], const float (&dp)[DIM],
-                             float r2, const float4* s, const Params& k) {
+                             float r2, const float4* s, const Params& k,
+                             const Own&) {
     const float mj = word(s[0], DIM);
     float w, dwr;
     pair_w_dwr<Kd, Kg>(r2, k, w, dwr);
@@ -549,6 +565,142 @@ struct HoistFF {
     }
     acc[DIM + 1] += gsq * mj * mj;
     if (kS2) acc[DIM + 2] += gsq * mj;
+  }
+};
+
+// The fluid-fluid term of the dense Monaghan artificial viscosity
+// (solver/forces_dense.py ArtificialViscosityDense; artificial_viscosity.rs
+// :40-125): per live slot i, over the slots j of the same fluid within h
+// that approach it (v_ij . r_ij < 0),
+//   a_i += coeff visc vol_j rho0_i / max((rho_i + rho_j) / 2, eps)
+//          (p_i - p_j) dW/dr / r,
+//   visc = c_s alpha mu - beta mu^2,  mu = h v.r / (r^2 + 0.01 h^2),
+// with (coeff, alpha, beta, c_s) of fluid i's row of the per-fluid table.
+// It replaces no TPU kernel: the JAX package runs these forces as plain
+// jnp, a fold over the 27 shifted [cap, cap, C] pair blocks, which is
+// what the port ran before this pass (about 90 eager operations an offset,
+// ~2,400 launches a substep). What bounds it: per live slot 10 words
+// read (p, v, vol, rho and the fluid id of j; rho0 of i) and DIM
+// written, and ~45 float operations a pair within h; at 64,000 particles
+// (~29 pairs within h each) the two take about the same time at the
+// card's peaks (~1 us each), and as built the pass, like the other tiled
+// passes, is held by its pair loops (every candidate a shared load and a
+// distance), not by either peak (PERF.md). The design is the tiled
+// passes' (file note): each neighbour cell's slots cross L2 once per
+// tile into shared memory, a warp works on live (cell, 8-slot group)
+// items only, and only pairs the gradient kernel queues run the pair
+// term. Staged per slot, in float4 words: 3D (p, fid) (v, vol)
+// (rho), 2D (p, fid, vol) (v, rho); the fluid id as its int bits. A
+// slot's own v, rho and fid come from its staged slot, rho0 and the
+// table row once an item (Own). Every product and sum of a pair term is
+// rounded as the plain fold rounds it (no contraction into fused
+// multiply-adds, an IEEE division), so a pair's term is the plain one's
+// given the same dW/dr / r and only the order of the sums differs; the
+// mask follows the plain one: r^2 <= h^2, the same fluid, v.r < 0.
+// Skipping a pair the queue rule leaves out is exact: its dW/dr / r is
+// +-0 (file note), so its term is too. 16 warps and up to 100 KB a block,
+// as t_pass (two float4 words a slot in 2D, three in 3D).
+template <int DIM, int Kg>
+struct ViscFF {
+  // The per-slot fields beyond P (positions), M (volumes) and X
+  // (velocities), and the per-fluid table.
+  struct Extra {
+    const float* rho;    // [cap, C] densities
+    const float* r0;     // [cap, C] rest densities
+    const int* fid;      // [cap, C] fluid ids
+    const float* table;  // [n_fluids, 4]: coeff, alpha, beta, c_s
+    int n_fluids;
+    float eta2;          // 0.01 h^2, as float32
+  };
+  // Slot i's terms: v_i, rho_i, fid_i, rho0_i, coeff, c_s alpha, beta
+  // (and eta2, for add).
+  struct Own {
+    float v[DIM];
+    float rho, r0, coeff, csa, beta, eta2;
+    int fid;
+  };
+  static constexpr int kWords = DIM == 3 ? 3 : 2;
+  static constexpr int kOut = DIM;
+  static constexpr bool kCount = false;
+  static constexpr int kThreads = 512;
+  static constexpr int kSmemBudget = 100 * 1024;
+  static constexpr int kRaw = 2 * DIM + 3;  // p, v, vol, rho, fid bits
+  __device__ static void fetch(float (&v)[kRaw], const float* P,
+                               const float* M, const float* X, size_t plane,
+                               size_t js, const Extra& ex) {
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      v[d] = P[d * plane + js];
+      v[DIM + d] = X[d * plane + js];
+    }
+    v[2 * DIM] = M[js];
+    v[2 * DIM + 1] = __ldg(ex.rho + js);
+    v[2 * DIM + 2] = __int_as_float(__ldg(ex.fid + js));
+  }
+  __device__ static void pack(float4* s, const float (&v)[kRaw]) {
+    if (DIM == 3) {
+      s[0] = make_float4(v[0], v[1], v[2], v[2 * DIM + 2]);
+      s[1] = make_float4(v[DIM], v[DIM + 1], v[DIM + 2], v[2 * DIM]);
+      s[2] = make_float4(v[2 * DIM + 1], 0.0f, 0.0f, 0.0f);
+    } else {
+      s[0] = make_float4(v[0], v[1], v[2 * DIM + 2], v[2 * DIM]);
+      s[1] = make_float4(v[DIM], v[DIM + 1], v[2 * DIM + 1], 0.0f);
+    }
+  }
+  // The staged fields of slot s (pack's layout).
+  __device__ static int fid_of(const float4* s) {
+    return __float_as_int(word(s[0], DIM));
+  }
+  __device__ static float vol_of(const float4* s) {
+    return DIM == 3 ? s[1].w : s[0].w;
+  }
+  __device__ static float rho_of(const float4* s) {
+    return DIM == 3 ? s[2].x : s[1].z;
+  }
+  __device__ static void own(Own& me, const float4* s, size_t gi,
+                             const Extra& ex) {
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) me.v[d] = word(s[1], d);
+    me.rho = rho_of(s);
+    me.fid = fid_of(s);
+    me.r0 = __ldg(ex.r0 + gi);
+    me.eta2 = ex.eta2;
+    // A fluid outside the table has no coefficient (the plain per-slot
+    // grids hold 0 there): its terms are all +-0.
+    me.coeff = me.csa = me.beta = 0.0f;
+    if (me.fid >= 0 && me.fid < ex.n_fluids) {
+      const float* row = ex.table + 4 * me.fid;
+      me.coeff = __ldg(row);
+      me.csa = __fmul_rn(__ldg(row + 3), __ldg(row + 1));
+      me.beta = __ldg(row + 2);
+    }
+  }
+  __device__ static bool queue(float r2, const Params& k) {
+    return Sph<Kg>::queue(r2, k);
+  }
+  // The pair term, each operation rounded in the plain fold's order.
+  __device__ static void add(float (&acc)[kOut], const float (&dp)[DIM],
+                             float r2, const float4* s, const Params& k,
+                             const Own& me) {
+    if (!(r2 <= k.h2) || fid_of(s) != me.fid) return;
+    float vr = __fmul_rn(dp[0], __fsub_rn(me.v[0], word(s[1], 0)));
+#pragma unroll
+    for (int d = 1; d < DIM; ++d) {
+      vr = __fadd_rn(vr, __fmul_rn(dp[d], __fsub_rn(me.v[d], word(s[1], d))));
+    }
+    if (!(vr < 0.0f)) return;
+    const float mu = __fdiv_rn(__fmul_rn(k.h, vr), __fadd_rn(r2, me.eta2));
+    const float visc =
+        __fsub_rn(__fmul_rn(me.csa, mu), __fmul_rn(__fmul_rn(me.beta, mu), mu));
+    const float rho_avg = __fmul_rn(__fadd_rn(me.rho, rho_of(s)), 0.5f);
+    const float scale = __fdiv_rn(
+        __fmul_rn(__fmul_rn(__fmul_rn(me.coeff, visc), vol_of(s)), me.r0),
+        fmaxf(rho_avg, kEpsilon));
+    const float dwr = Sph<Kg>::dwr(r2, k);
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      acc[d] = __fadd_rn(acc[d], __fmul_rn(__fmul_rn(dp[d], dwr), scale));
+    }
   }
 };
 
@@ -606,17 +758,19 @@ TileShape tile_shape(int cap, int C) {
           (C + tile - 1) / tile};
 }
 
-// k_pass (Pass = KPass), t_pass (TPass) and hoist_ff (HoistFF) over tiles
-// of `tile` consecutive cells; see the file note. Every output slot of the
-// block's cells is written (zero for dead slots and air cells). `out` is
+// k_pass (Pass = KPass), t_pass (TPass), hoist_ff (HoistFF) and the
+// artificial viscosity's fluid-fluid term (ViscFF) over tiles of `tile`
+// consecutive cells; see the file note. Every output slot of the block's
+// cells is written (zero for dead slots and air cells). `out` is
 // [kOut + kCount, cap, C]: the float channels, then the pair count's
-// int32 plane.
+// int32 plane. `ex`: the pass's operands beyond P, M and X.
 template <int DIM, class Pass>
 __global__ void __launch_bounds__(Pass::kThreads)
     tile_pass_kernel(const float* __restrict__ P, const float* __restrict__ M,
                      const float* __restrict__ X,
                      const int* __restrict__ count, float* __restrict__ out,
-                     int cap, int C, int ny, int nz, int tile, Params k) {
+                     int cap, int C, int ny, int nz, int tile, Params k,
+                     typename Pass::Extra ex) {
   using R = Rows<DIM>;
   constexpr int kW = Pass::kWords;
   constexpr int kWarps = Pass::kThreads / 32;
@@ -733,7 +887,8 @@ __global__ void __launch_bounds__(Pass::kThreads)
         if (rank < cnt[row * width + m]) {
           dst[b] = row * row_slots + off[row * (width + 1) + m] + rank;
           Pass::fetch(raw[b], P, M, X, plane,
-                      (size_t)rank * C + c0 + R::shift(row, ny, nz) - 1 + m);
+                      (size_t)rank * C + c0 + R::shift(row, ny, nz) - 1 + m,
+                      ex);
         }
         x += Pass::kThreads;
         settle();
@@ -756,6 +911,7 @@ __global__ void __launch_bounds__(Pass::kThreads)
     const int r = 8 * g + il;
     const bool live_i = r < cnt[R::kOwn * width + lc + 1];
     float pi[DIM];
+    typename Pass::Own me{};
     {
       const int own = R::kOwn * row_slots +
                       off[R::kOwn * (width + 1) + lc + 1] + r;
@@ -763,6 +919,9 @@ __global__ void __launch_bounds__(Pass::kThreads)
                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
       for (int d = 0; d < DIM; ++d) pi[d] = word(a, d);
+      if (live_i) {
+        Pass::own(me, slots + (size_t)own * kW, (size_t)r * C + c0 + lc, ex);
+      }
     }
     float acc[Pass::kOut];
 #pragma unroll
@@ -794,14 +953,14 @@ __global__ void __launch_bounds__(Pass::kThreads)
         const int i0 = q[e * 32], i1 = q[(e + 1) * 32];
         float dp0[DIM], dp1[DIM];
         const float r20 = dist2(i0, dp0, w0), r21 = dist2(i1, dp1, w1);
-        Pass::add(acc, dp0, r20, slots + (size_t)i0 * kW, k);
-        Pass::add(acc, dp1, r21, slots + (size_t)i1 * kW, k);
+        Pass::add(acc, dp0, r20, slots + (size_t)i0 * kW, k, me);
+        Pass::add(acc, dp1, r21, slots + (size_t)i1 * kW, k, me);
       }
       if (e < len) {
         const int i0 = q[e * 32];
         float dp0[DIM];
         const float r20 = dist2(i0, dp0, w0);
-        Pass::add(acc, dp0, r20, slots + (size_t)i0 * kW, k);
+        Pass::add(acc, dp0, r20, slots + (size_t)i0 * kW, k, me);
       }
       len = 0;
     };
@@ -888,12 +1047,13 @@ cudaError_t tile_setup(int cap, int C, TileShape* t) {
 template <int DIM, class Pass>
 int launch_tile_pass(const float* P, const float* M, const float* X,
                      const int* count, float* out, int cap, int C, int ny,
-                     int nz, const Params& k, cudaStream_t s) {
+                     int nz, const Params& k, cudaStream_t s,
+                     const typename Pass::Extra& ex = {}) {
   TileShape t;
   const cudaError_t err = tile_setup<DIM, Pass>(cap, C, &t);
   if (err != cudaSuccess) return (int)err;
   tile_pass_kernel<DIM, Pass><<<t.blocks, Pass::kThreads, t.smem, s>>>(
-      P, M, X, count, out, cap, C, ny, nz, t.tile, k);
+      P, M, X, count, out, cap, C, ny, nz, t.tile, k, ex);
   return (int)cudaGetLastError();
 }
 
@@ -1063,7 +1223,9 @@ __global__ void __launch_bounds__(kFbThreads)
 }
 
 // The passes of tile_pass_kernel, as salva_pass_tiling names them.
-enum TiledPass { kTileK = 0, kTileT = 1, kTileHoist = 2, kTileHoistS2 = 3 };
+enum TiledPass {
+  kTileK = 0, kTileT = 1, kTileHoist = 2, kTileHoistS2 = 3, kTileVisc = 4
+};
 
 template <int DIM, int Kd, int Kg>
 int query_tiling(int pass, int cap, int C, int* shape) {
@@ -1074,6 +1236,8 @@ int query_tiling(int pass, int cap, int C, int* shape) {
       return query_tile_pass<DIM, HoistFF<DIM, false, Kd, Kg>>(cap, C, shape);
     case kTileHoistS2:
       return query_tile_pass<DIM, HoistFF<DIM, true, Kd, Kg>>(cap, C, shape);
+    case kTileVisc:
+      return query_tile_pass<DIM, ViscFF<DIM, Kg>>(cap, C, shape);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1134,8 +1298,9 @@ int salva_t_pass(const float* P, const float* M, const float* Q,
   });
 }
 
-// How salva_k_pass (pass 0), salva_t_pass (1) or salva_hoist_ff (2: without
-// s2, 3: with it) tiles a [cap, C] grid under kernels kd / kg: shape[0..3]
+// How salva_k_pass (pass 0), salva_t_pass (1), salva_hoist_ff (2: without
+// s2, 3: with it) or salva_visc_ff (4) tiles a [cap, C] grid under kernels
+// kd / kg: shape[0..3]
 // = cells a block owns, bytes of shared memory a block takes, blocks
 // launched, blocks resident on one SM of the current device. Returns a
 // CUDA error code (0 = success).
@@ -1178,6 +1343,34 @@ int salva_hoist_ff(const float* P, const float* M, const int* count,
       }
       return (int)cudaErrorInvalidValue;
     });
+  });
+}
+
+// The artificial viscosity's fluid-fluid term (ViscFF). P, V [dim, cap,
+// C], VOL, RHO, R0 [cap, C] float32 and FID [cap, C] int32 on the grid;
+// `table` [n_fluids, 4] (coeff, alpha, beta, c_s per fluid); eta2 =
+// 0.01 h^2 as float32. `out` is [dim, cap, C]; every slot is written.
+int salva_visc_ff(const float* P, const float* V, const float* VOL,
+                  const float* RHO, const float* R0, const int* FID,
+                  const float* table, int n_fluids, const int* count,
+                  float* out, int dim, int cap, int C, int ny, int nz, int kg,
+                  float eta2, const float* params, void* stream) {
+  if (cap <= 0 || C <= 0) return kNotLaunched;
+  const Params k = load_params(params);
+  cudaStream_t s = (cudaStream_t)stream;
+  return with_kernel(kg, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    if (dim == 3) {
+      const typename ViscFF<3, G>::Extra ex{RHO, R0, FID, table, n_fluids, eta2};
+      return launch_tile_pass<3, ViscFF<3, G>>(P, VOL, V, count, out, cap,
+                                               C, ny, nz, k, s, ex);
+    }
+    if (dim == 2) {
+      const typename ViscFF<2, G>::Extra ex{RHO, R0, FID, table, n_fluids, eta2};
+      return launch_tile_pass<2, ViscFF<2, G>>(P, VOL, V, count, out, cap,
+                                               C, ny, nz, k, s, ex);
+    }
+    return (int)cudaErrorInvalidValue;
   });
 }
 

@@ -1,17 +1,19 @@
-"""The four dense pair passes of the DFSPH and IISPH solvers.
+"""The four dense pair passes of the DFSPH and IISPH solvers, and the
+fluid-fluid term of the dense artificial viscosity.
 
 Each pass has a hand-written CUDA kernel (``csrc/pair_passes.cu``) and a
 plain PyTorch version beside it:
 
-=============  ==========================================  ===============
-wrapper        computes, per live slot i of the [cap, C] grid  plain version
-=============  ==========================================  ===============
-``k_pass``     K_i = sum_j (m k)_j grad_ij       [dim,cap,C]  ``k_pass_plain``
-``t_pass``     T_i = sum_j m_j (Q_j . grad_ij)   [cap, C]     ``t_pass_plain``
-``hoist_ff``   rho, Gf, sq, s2, pair count (j fluid)          ``hoist_ff_plain``
-``hoist_fb``   rho, Gb, sq, s2, Sb, pair count (j boundary)   ``hoist_fb_plain``
-``k_pass_v2``  ``k_pass`` in 8-slot groups (see below)        ``k_pass_plain``
-=============  ==========================================  ===============
+======================  ======================================  =============================
+wrapper                 computes, per live slot i of the grid   plain version
+======================  ======================================  =============================
+``k_pass``              K_i = sum_j (m k)_j grad_ij [dim,cap,C]  ``k_pass_plain``
+``t_pass``              T_i = sum_j m_j (Q_j . grad_ij) [cap,C]  ``t_pass_plain``
+``hoist_ff``            rho, Gf, sq, s2, pair count (j fluid)    ``hoist_ff_plain``
+``hoist_fb``            rho, Gb, sq, s2, Sb, count (j boundary)  ``hoist_fb_plain``
+``k_pass_v2``           ``k_pass`` in 8-slot groups (below)      ``k_pass_plain``
+``artificial_visc_ff``  Monaghan viscosity, same fluid [dim,...] ``artificial_visc_ff_plain``
+======================  ======================================  =============================
 
 (grad_ij = (p_i - p_j) dW/dr / r, summed over the 3^dim cell stencil.)
 
@@ -57,6 +59,7 @@ import torch
 
 from ..geometry import dense_grid as dg
 from ..kernels.sph import (
+    EPSILON,
     _cubic_normalizer,
     _poly6_normalizer,
     _spiky_normalizer,
@@ -66,7 +69,7 @@ from ..kernels.sph import (
 )
 
 LAUNCHES = {"k_pass": 0, "t_pass": 0, "hoist_ff": 0, "hoist_fb": 0,
-            "k_pass_v2": 0}
+            "k_pass_v2": 0, "artificial_visc_ff": 0}
 
 
 def reset_launches():
@@ -309,6 +312,73 @@ def hoist_fb_plain(spec, h, dim, kernel_density, kernel_gradient, P, counts,
             fullf[3 + dim], fulli)
 
 
+def per_slot(values, FID):
+    """Per-fluid coefficient tuple -> per-slot grid (static unrolled)."""
+    out = torch.zeros(FID.shape, dtype=torch.float32, device=FID.device)
+    for fid, v in enumerate(values):
+        if v != 0.0:
+            out = torch.where(
+                FID == fid,
+                torch.tensor(v, dtype=torch.float32, device=FID.device),
+                out,
+            )
+    return out
+
+
+def artificial_visc_ff_fold(n_offsets, jview, mask, h, dim, kernel_gradient,
+                            P, V, VOL, RHO, R0, FID, coefficients, alphas,
+                            betas, speeds_of_sound):
+    """The fluid-fluid term of the dense Monaghan artificial viscosity
+    (``artificial_viscosity.rs:40-125``: same fluid, v.r < 0) as a fold
+    over ``n_offsets`` neighbour views ``jview(arr, o)`` (rolls of a grid,
+    the brute tier's cyclic offsets, the compact layout's tables), live
+    slots where ``mask`` > 0 -> [dim, cap, C]. The per-fluid tuples are
+    ``ArtificialViscosityForce``'s."""
+    kg_w, kg_dw = get_kernel(kernel_gradient)
+    coeff = per_slot(coefficients, FID)
+    alpha = per_slot(alphas, FID)
+    beta = per_slot(betas, FID)
+    sos = per_slot(speeds_of_sound, FID)
+    eta2 = h * h * 0.01
+
+    def body(accel, dpos, r2, within, j):
+        dwr = w_dwr(r2, h, dim, kg_w, kg_dw)[1]
+        vr = torch.zeros_like(r2)
+        for d in range(dim):
+            vr = vr + dpos[d] * (V[d][:, None, :] - j["v"][d][None, :, :])
+        rho_avg = (RHO[:, None, :] + j["rho"][None, :, :]) * 0.5
+        mu = h * vr / (r2 + eta2)
+        visc = sos[:, None, :] * alpha[:, None, :] * mu \
+            - beta[:, None, :] * mu * mu
+        ok = within & (vr < 0.0) \
+            & (FID[:, None, :] == j["fid"][None, :, :])
+        scale = torch.where(
+            ok,
+            coeff[:, None, :] * visc * j["vol"][None, :, :]
+            * R0[:, None, :] / torch.clamp(rho_avg, min=EPSILON),
+            0.0,
+        )
+        return accel + torch.stack(
+            [torch.sum(dpos[d] * dwr * scale, dim=1) for d in range(dim)]
+        )
+
+    return fold_pairs(range(n_offsets), h, dim, P, mask, P, mask, jview,
+                      {"v": V, "vol": VOL, "rho": RHO, "fid": FID}, body,
+                      torch.zeros_like(P))
+
+
+def artificial_visc_ff_plain(spec, h, dim, kernel_gradient, P, V, VOL, RHO,
+                             R0, FID, counts, coefficients, alphas, betas,
+                             speeds_of_sound):
+    """:func:`artificial_visc_ff_fold` over the grid's 3^dim rolls, the
+    live slots rebuilt from ``counts``."""
+    offs = dg.stencil_offsets(spec)
+    return artificial_visc_ff_fold(
+        len(offs), lambda arr, o: dg.shift_j(spec, arr, offs[o]),
+        _live_mask(counts, P.shape[-2]), h, dim, kernel_gradient, P, V, VOL,
+        RHO, R0, FID, coefficients, alphas, betas, speeds_of_sound)
+
+
 # -- CUDA kernel wrappers ------------------------------------------------------
 
 
@@ -417,13 +487,15 @@ def _launch(name, fn, *args, device):
 # The tiled kernels, as ``salva_pass_tiling`` numbers them (hoist_ff
 # without and with s2).
 _TILED = {("k_pass", False): 0, ("t_pass", False): 1,
-          ("hoist_ff", False): 2, ("hoist_ff", True): 3}
+          ("hoist_ff", False): 2, ("hoist_ff", True): 3,
+          ("artificial_visc_ff", False): 4}
 
 
 def tiling(name, dim, cap, C, need_s2=False, kernel_density="cubic",
            kernel_gradient="cubic"):
-    """How the ``k_pass``, ``t_pass`` or ``hoist_ff`` (with or without
-    ``need_s2``) kernel of the named SPH kernels tiles a [cap, C] grid on
+    """How the ``k_pass``, ``t_pass``, ``hoist_ff`` (with or without
+    ``need_s2``) or ``artificial_visc_ff`` kernel of the named SPH kernels
+    tiles a [cap, C] grid on
     the current CUDA device: ``tile`` (consecutive cells a block owns),
     ``smem`` (bytes of shared memory a block takes), ``blocks`` (blocks a
     launch runs) and ``per_sm`` (blocks resident on one SM)."""
@@ -433,8 +505,8 @@ def tiling(name, dim, cap, C, need_s2=False, kernel_density="cubic",
 
     key = (name, bool(need_s2) and name == "hoist_ff")
     if key not in _TILED:
-        raise ValueError(f"only k_pass, t_pass and hoist_ff are tiled, not "
-                         f"{name!r}")
+        raise ValueError(f"only k_pass, t_pass, hoist_ff and "
+                         f"artificial_visc_ff are tiled, not {name!r}")
     shape = (ctypes.c_int * 4)()
     err = _build.load().salva_pass_tiling(
         _TILED[key], dim, cap, C, _KERNEL_IDS[kernel_density],
@@ -584,3 +656,47 @@ def hoist_fb(spec, h, dim, kernel_density, kernel_gradient, P, counts, Pb,
             device=P.device)
     return (out[0], out[1:1 + dim], out[1 + dim], out[2 + dim], out[3 + dim],
             out[4 + dim].view(torch.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def _fluid_table(rows, device):
+    """[n_fluids, 4] float32 on ``device``: each fluid's (coeff, alpha,
+    beta, c_s), rounded to float32 as :func:`per_slot` rounds them; one
+    copy to the device per distinct table."""
+    return torch.tensor(rows, dtype=torch.float32, device=device)
+
+
+def artificial_visc_ff(spec, h, dim, kernel_gradient, P, V, VOL, RHO, R0,
+                       FID, counts, coefficients, alphas, betas,
+                       speeds_of_sound):
+    """The artificial viscosity's fluid-fluid acceleration -> [dim, cap,
+    C]: ``P`` / ``V`` [dim, cap, C], ``VOL`` / ``RHO`` / ``R0`` [cap, C]
+    float32, ``FID`` [cap, C] int32, and the per-fluid coefficient, alpha,
+    beta and speed-of-sound tuples (one entry per fluid; see
+    :func:`artificial_visc_ff_fold`). On CUDA tensors one launch of the
+    tiled kernel, which writes every slot: zeros for dead slots and air
+    cells."""
+    tables = (coefficients, alphas, betas, speeds_of_sound)
+    if _check("artificial_visc_ff", spec, dim, (kernel_gradient,),
+              [(P, _vec), (V, _vec), (VOL, _scl), (RHO, _scl), (R0, _scl)],
+              counts):
+        return artificial_visc_ff_plain(spec, h, dim, kernel_gradient, P, V,
+                                        VOL, RHO, R0, FID, counts, *tables)
+    if (FID.dtype != torch.int32 or FID.shape != VOL.shape
+            or FID.device != P.device or not FID.is_contiguous()):
+        raise ValueError("artificial_visc_ff: FID must be contiguous int32 "
+                         f"of shape {tuple(VOL.shape)} on {P.device}")
+    n_fluids = len(coefficients)
+    if n_fluids == 0 or any(len(t) != n_fluids for t in tables):
+        raise ValueError("artificial_visc_ff: one coefficient, alpha, beta "
+                         "and speed of sound per fluid")
+    table = _fluid_table(tuple(zip(*(map(float, t) for t in tables))),
+                         P.device)
+    out = torch.empty_like(P)
+    _launch("artificial_visc_ff", "salva_visc_ff", P.data_ptr(),
+            V.data_ptr(), VOL.data_ptr(), RHO.data_ptr(), R0.data_ptr(),
+            FID.data_ptr(), table.data_ptr(), n_fluids, counts.data_ptr(),
+            out.data_ptr(), *_grid_args(spec, dim, P),
+            _KERNEL_IDS[kernel_gradient], h * h * 0.01,
+            _pair_params(h, dim), device=P.device)
+    return out

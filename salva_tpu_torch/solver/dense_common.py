@@ -1083,6 +1083,8 @@ class DenseCtx:
                     inv_dt=inv_dt, kernel_density=self.sim.kernel_density,
                     kernel_gradient=self.sim.kernel_gradient,
                     halo=self.halo, interior=self.interior,
+                    spec=self.spec_f,
+                    counts=None if self.use_full_folds else self.counts,
                 )
             a_d, fb_d = force.apply(fields)
             A = A + a_d * self.maskf[None]

@@ -5,8 +5,14 @@ Port of ``salva_tpu.solver.forces_dense``: XSPH
 (`artificial_viscosity.rs:40-125`), Akinci 2013, WCSPH and He 2014
 surface tension and the DFSPH implicit viscosity, each computed as dense
 pair passes over the shifted cell views, once per substep inside the
-dense solvers' predict-advection stage. They run as plain PyTorch on
-every device: the JAX package has no Pallas kernel for them.
+dense solvers' predict-advection stage. They run as plain PyTorch (the
+JAX package has no Pallas kernel for them), but for one term: the
+artificial viscosity's fluid-fluid term goes through
+``ops.pair.artificial_visc_ff`` wherever the dense context sends its
+fluid-fluid passes to ``ops.pair`` (``DenseFields.counts`` set: the
+grids, sparse or full boundary binning, fitted window, frozen pairs and
+slab path), a hand CUDA pass on CUDA tensors and the plain fold on CPU
+ones; the brute tier and the compact layout keep the plain fold.
 
 Interface: ``apply(f: DenseFields) -> (accel [D, capf, C],
 boundary_forces [D, capb, C] | None)``.
@@ -31,8 +37,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..kernels import get_kernel, sph, w_dwr
-
-EPSILON = float(torch.finfo(torch.float32).eps)
+from ..kernels.sph import EPSILON
+from ..ops import pair
+from ..ops.pair import per_slot
 
 
 class DenseFields(NamedTuple):
@@ -76,24 +83,17 @@ class DenseFields(NamedTuple):
     # Slot ownership on the slab path ([1, C] bool, owned layers True), for
     # the global mean-error rule of the iterative forces.
     interior: object = None
+    # The grid's spec, and its per-cell live counts ([C] int32) where the
+    # dense context runs its fluid-fluid passes through ``ops.pair`` (not
+    # ``DenseCtx.use_full_folds``; None elsewhere): the terms that have a
+    # pass there take it.
+    spec: object = None
+    counts: object = None
 
 
 def _exchange(f: "DenseFields", arr):
     """``arr`` with its ghost layers refreshed on the slab path."""
     return arr if f.halo is None else f.halo.exchange(arr)
-
-
-def per_slot(values: Tuple[float, ...], FID):
-    """Per-fluid coefficient tuple -> per-slot grid (static unrolled)."""
-    out = torch.zeros(FID.shape, dtype=torch.float32, device=FID.device)
-    for fid, v in enumerate(values):
-        if v != 0.0:
-            out = torch.where(
-                FID == fid,
-                torch.tensor(v, dtype=torch.float32, device=FID.device),
-                out,
-            )
-    return out
 
 
 def _pairs(f: DenseFields, which: str, j_arrays):
@@ -213,48 +213,33 @@ class ArtificialViscosityDense:
     speeds_of_sound: Tuple[float, ...]
 
     def apply(self, f: DenseFields):
-        kg_w, kg_dw = get_kernel(f.kernel_gradient)
-        coeff = per_slot(self.fluid_coefficients, f.FID)
-        bcoeff = per_slot(self.boundary_coefficients, f.FID)
-        alpha = per_slot(self.alphas, f.FID)
-        beta = per_slot(self.betas, f.FID)
-        sos = per_slot(self.speeds_of_sound, f.FID)
-        eta2 = f.h * f.h * 0.01
-        accel = torch.zeros_like(f.P)
-
-        def grad_scale(r2):
-            return w_dwr(r2, f.h, f.dim, kg_w, kg_dw)[1]
-
-        # Fluid-fluid (same fluid, v.r < 0).
-        for dpos, r2, within, j in _pairs(
-            f, "ff",
-            {"v": f.V, "vol": f.VOL, "rho": f.RHO, "fid": f.FID},
-        ):
-            dwr = grad_scale(r2)
-            vr = torch.zeros_like(r2)
-            for d in range(f.dim):
-                vr = vr + dpos[d] * (f.V[d][:, None, :]
-                                     - j["v"][d][None, :, :])
-            rho_avg = (f.RHO[:, None, :] + j["rho"][None, :, :]) * 0.5
-            mu = f.h * vr / (r2 + eta2)
-            visc = sos[:, None, :] * alpha[:, None, :] * mu \
-                - beta[:, None, :] * mu * mu
-            ok = within & (vr < 0.0) \
-                & (f.FID[:, None, :] == j["fid"][None, :, :])
-            scale = torch.where(
-                ok,
-                coeff[:, None, :] * visc * j["vol"][None, :, :]
-                * f.R0[:, None, :] / torch.clamp(rho_avg, min=EPSILON),
-                0.0,
-            )
-            accel = accel + torch.stack(
-                [torch.sum(dpos[d] * dwr * scale, dim=1)
-                 for d in range(f.dim)]
-            )
+        # Fluid-fluid (same fluid, v.r < 0): one pass of ``ops.pair`` (the
+        # hand kernel on CUDA tensors) where the context sends its ff
+        # passes there, else the fold over the force views.
+        tables = (self.fluid_coefficients, self.alphas, self.betas,
+                  self.speeds_of_sound)
+        if f.counts is not None:
+            accel = pair.artificial_visc_ff(
+                f.spec, f.h, f.dim, f.kernel_gradient, f.P, f.V, f.VOL,
+                f.RHO, f.R0, f.FID, f.counts, *tables)
+        else:
+            accel = pair.artificial_visc_ff_fold(
+                f.n_offsets, f.jff, f.maskf, f.h, f.dim, f.kernel_gradient,
+                f.P, f.V, f.VOL, f.RHO, f.R0, f.FID, *tables)
 
         any_b = any(v != 0.0 for v in self.boundary_coefficients)
         Fb = None
         if any_b:
+            kg_w, kg_dw = get_kernel(f.kernel_gradient)
+            bcoeff = per_slot(self.boundary_coefficients, f.FID)
+            alpha = per_slot(self.alphas, f.FID)
+            beta = per_slot(self.betas, f.FID)
+            sos = per_slot(self.speeds_of_sound, f.FID)
+            eta2 = f.h * f.h * 0.01
+
+            def grad_scale(r2):
+                return w_dwr(r2, f.h, f.dim, kg_w, kg_dw)[1]
+
             # Fluid-boundary term.
             for dpos, r2, within, j in _pairs(
                 f, "fb", {"vb": f.Vbvel, "vol": f.Volb},

@@ -10,7 +10,9 @@ GPU machine without the JAX package's dependencies:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Fixture: a clustered random fluid binned by the port's dense grid, in 2D
-and 3D, with cells over 8 particles; for ``hoist_fb``, a moving boundary
+and 3D, with cells over 8 particles (for the artificial viscosity's
+fluid-fluid pass, ``tests/test_torch_visc_pass.py``'s two-fluid grid,
+velocities and densities); for ``hoist_fb``, a moving boundary
 layer through it, binned both ways (full grid, compact table with the
 adjacency columns, unused entries among them). The tiled ``k_pass`` /
 ``t_pass`` / ``hoist_ff`` kernels are also held on grids cut to their
@@ -79,9 +81,10 @@ def _tiled_grid(dim, cap, window, device):
     kernels: the inner (z in 3D, y in 2D) extent ``"ragged"`` (2 k_pass
     tiles + 1 cell: no multiple of the tile) or ``"short"`` (one cell less
     than a k_pass tile, at least 3); every interior cell filled to a random
-    count below cap - 1, and the first and last cell of a k_pass, a t_pass
-    and a hoist_ff tile (interior cells, where the short grid has them) at
-    the cap and at cap - 1, so the fullest cells sit on tile edges.
+    count below cap - 1, and the first and last cell of a tile of each
+    tiled kernel (``TILED``; interior cells, where the short grid has
+    them) at the cap and at cap - 1, so the fullest cells sit on tile
+    edges.
     ``"air"``: the ragged
     grid with no particle. Masses, ``K`` and ``Q`` are scaled so that the
     outputs stay of order 1. Returns (spec, P, M, Q, K, counts, fullest
@@ -129,7 +132,7 @@ def _tiled_grid(dim, cap, window, device):
 
 
 # The kernels of tile_pass_kernel.
-TILED = ("k_pass", "t_pass", "hoist_ff")
+TILED = ("k_pass", "t_pass", "hoist_ff", "artificial_visc_ff")
 # (dim, cap, window): the tiled grids of _tiled_grid at every cap the
 # world's auto cap reaches, and the clustered fixture of _grid (cap 24).
 KT_CASES = ([(dim, cap, window) for dim in (2, 3) for cap in (8, 16, 24, 48)
@@ -480,7 +483,7 @@ def test_non_cubic_kernels_match_plain(cuda, dim, kd, kg):
             assert all(torch.equal(a, b) for a, b in zip(out, again))
     assert {n: pair.LAUNCHES[n] - before[n] for n in before} == {
         "k_pass": 2, "t_pass": 2, "k_pass_v2": 2, "hoist_ff": 2,
-        "hoist_fb": 8}
+        "hoist_fb": 8, "artificial_visc_ff": 0}
 
 
 @pytest.mark.parametrize("kd,kg", KERNEL_PAIRS)
@@ -741,10 +744,15 @@ def test_kernels_on_slab_grids(cuda, n_slabs):
         spec, h, P, M, counts = ctx.spec_f, ctx.h, ctx.P, ctx.M, ctx.counts
         K = (ctx.rho * 1e-6 * ctx.maskf).contiguous()
         Q = ctx.V.contiguous()
+        visc = (spec, h, 3, "cubic", P, ctx.V.contiguous(),
+                ctx.vol_grid(fl).contiguous(), ctx.rho.contiguous(), ctx.R0,
+                ctx.FID, counts, (1.0,), (1.0,), (0.0,), (10.0,))
         pairs = [
             (pair.k_pass(spec, h, 3, "cubic", P, M, K, counts),
              pair.k_pass_plain(spec, h, 3, "cubic", P, M, K, counts),
              KT_TOL),
+            (pair.artificial_visc_ff(*visc),
+             pair.artificial_visc_ff_plain(*visc), KT_TOL),
             (pair.t_pass(spec, h, 3, "cubic", P, M, Q, counts),
              pair.t_pass_plain(spec, h, 3, "cubic", P, M, Q, counts),
              KT_TOL),
@@ -799,3 +807,192 @@ def test_pair_counts_at_near_ties(cuda, dim):
     fb_ref = pair.hoist_fb_plain(*fb_args)[-1]
     assert int(fb_ref.sum()) == 0
     assert torch.equal(fb, fb_ref)
+
+
+# -- the artificial viscosity's fluid-fluid pass ------------------------------
+
+
+def _visc_check(args, label, tol=KT_TOL):
+    """``artificial_visc_ff`` on ``args``: one launch, every slot written
+    (garbage in the allocator's cached blocks beforehand), held to the
+    plain version (``_assert_close_peak``), a bitwise rerun. Returns
+    (kernel, plain)."""
+    P = args[4]
+    junk = torch.full(tuple(P.shape), float("nan"), device=P.device)
+    del junk
+    before = pair.LAUNCHES["artificial_visc_ff"]
+    out = pair.artificial_visc_ff(*args)
+    assert pair.LAUNCHES["artificial_visc_ff"] == before + 1
+    want = pair.artificial_visc_ff_plain(*args)
+    assert out.shape == want.shape and out.is_contiguous()
+    _assert_close_peak(out, want, tol, label)
+    assert torch.equal(out, pair.artificial_visc_ff(*args))
+    return out, want
+
+
+@pytest.mark.parametrize("kg", ["cubic", "poly6", "spiky", "viscosity"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_visc_ff_kernel_matches_plain(cuda, dim, kg):
+    """The pass on the two-fluid clustered grid (coefficients, alphas,
+    betas and speeds of sound all differ between the fluids) under every
+    gradient kernel: zeros on dead slots, terms on both fluids, and the
+    same slots touched as the plain version."""
+    from test_torch_visc_pass import visc_args, visc_grid
+
+    g = visc_grid(dim, cuda)
+    out, want = _visc_check(visc_args(g, kg), f"visc_ff {dim}D {kg}")
+    mag = out.abs().sum(dim=0)
+    assert not bool(mag[g.maskf == 0].any())
+    for f in (0, 1):
+        assert float(mag[g.FID == f].max()) > 0.0, f"fluid {f}"
+
+
+@pytest.mark.parametrize("dim,cap,window",
+                         [(dim, cap, "ragged") for dim in (2, 3)
+                          for cap in (8, 16, 48)]
+                         + [(dim, 16, "air") for dim in (2, 3)])
+def test_visc_ff_kernel_on_tile_edges(cuda, dim, cap, window):
+    """The pass on grids cut to its tiles (``_tiled_grid``: the fullest
+    cells on its tiles' edges), two fluids by slot parity; an all-air
+    grid gives zeros."""
+    spec, P, M, Q, K, counts, full = _tiled_grid(dim, cap, window, cuda)
+    t = pair.tiling("artificial_visc_ff", dim, cap, spec.num_cells)
+    assert t["blocks"] == -(-spec.num_cells // t["tile"])
+    assert 0 < t["smem"] <= 100 * 1024 or cap > 16
+    if window == "ragged":
+        assert {c % t["tile"] for c in full} >= {0, t["tile"] - 1}
+    live = M > 0
+    rank = torch.arange(cap, device=cuda)[:, None].expand_as(M)
+    FID = torch.where(live, rank % 2, -1).to(torch.int32).contiguous()
+    R0 = torch.where(FID == 1, 800.0, 1000.0).contiguous()
+    V = (Q * 1e5).contiguous()
+    args = (spec, H, dim, "cubic", P, V, (M * 1e-3).contiguous(),
+            (R0 * (1.0 + 0.05 * M)).contiguous(), R0, FID, counts,
+            (0.7, 0.4), (1.0, 0.6), (0.0, 0.3), (10.0, 14.0))
+    out, want = _visc_check(args, f"visc_ff {window} cap {cap}")
+    if window == "air":
+        assert int(torch.count_nonzero(out)) == 0
+    else:
+        assert float(want.abs().max()) > 0
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_visc_ff_at_near_ties_and_v_dot_r_near_zero(cuda, dim):
+    """Two gates of the pass at their edge: pairs at r^2 ~ h^2
+    (``test_torch_near_ties``: outside h under the rounded r^2, inside
+    under a fused one; every pair approaching), and isolated pairs whose
+    v.r is a few ulps either side of 0. Each slot there has one
+    partner, so a gate decided otherwise than the plain version's shows
+    as a slot that is zero in one and not in the other."""
+    from test_torch_near_ties import H as TIE_H
+    from test_torch_near_ties import near_tie_grid
+
+    g = near_tie_grid(dim, cuda)
+    live = g.M > 0
+    one = torch.where(live, 1.0, 0.0)
+    FID = torch.where(live, 0, -1).to(torch.int32).contiguous()
+    # v = -p: v_i - v_j = -(p_i - p_j), so v.r = -r^2 < 0 for every pair.
+    V = (-g.P * one[None]).contiguous()
+    args = (g.spec, TIE_H, dim, "cubic", g.P, V, (one * 1e-3).contiguous(),
+            (one * 1000.0).contiguous(), (one * 1000.0).contiguous(), FID,
+            g.counts, (1.0,), (1.0,), (0.0,), (10.0,))
+    out = pair.artificial_visc_ff(*args)
+    want = pair.artificial_visc_ff_plain(*args)
+    _assert_close_peak(out, want, KT_TOL, "visc_ff near ties")
+    assert torch.equal(out != 0, want != 0)
+
+    # Isolated pairs 0.5 h apart along u, 4 cells between sites; v_a = w
+    # + s eps u, v_b = w with w perpendicular to u: v.r = -0.5 h s eps up
+    # to rounding, s = +-1.
+    rng = np.random.default_rng(7 + dim)
+    n_sites = 64
+    side = int(np.ceil(n_sites ** (1.0 / dim)))
+    sites = np.stack(np.unravel_index(np.arange(n_sites), (side,) * dim),
+                     -1) * 4 * H + 2.5 * H
+    u = rng.normal(size=(n_sites, dim))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    w = rng.normal(size=(n_sites, dim))
+    w -= np.sum(w * u, axis=1, keepdims=True) * u
+    s = np.where(np.arange(n_sites) % 2 == 0, 1.0, -1.0)[:, None]
+    eps = rng.uniform(0.5, 4.0, size=(n_sites, 1)) * 1e-6
+    pos = np.concatenate([sites - 0.25 * H * u, sites + 0.25 * H * u])
+    vel = np.concatenate([w + s * eps * u, w])
+    hi = float(sites.max()) + 3 * H
+    spec = tdg.spec_for_aabb((0.0,) * dim, (hi,) * dim, H, cap=8)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)  # noqa: E731
+    n = len(pos)
+    binf = tdg.bin_particles(spec, t(pos),
+                             torch.ones(n, dtype=torch.bool, device=cuda))
+    P, Vg, VOL, RHO = tdg.to_grid_multi(spec, binf, [
+        (t(pos), tdg.POS_SENTINEL), (t(vel), 0.0),
+        (t(np.full(n, 1e-3)), 0.0), (t(np.full(n, 1000.0)), 1.0)])
+    FID = tdg.to_grid(spec, binf, torch.zeros(n, dtype=torch.int32,
+                                              device=cuda), fill=-1)
+    counts = (binf.mask > 0).sum(dim=0, dtype=torch.int32)
+    args = (spec, H, dim, "cubic", P, Vg, VOL, RHO, RHO.clone(), FID,
+            counts, (1.0,), (1.0,), (0.0,), (10.0,))
+    out = pair.artificial_visc_ff(*args)
+    want = pair.artificial_visc_ff_plain(*args)
+    _assert_close_peak(out, want, KT_TOL, "visc_ff v.r ~ 0")
+    touched = (want != 0).any(dim=0) & (binf.mask > 0)
+    assert torch.equal(out != 0, want != 0)
+    n_touched = int(touched.sum())
+    assert 0 < n_touched < n, n_touched  # both signs of v.r occur
+
+
+def test_visc_ff_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from test_torch_visc_pass import visc_args, visc_grid
+
+    g = visc_grid(3, cuda)
+    args = list(visc_args(g))
+    before = dict(pair.LAUNCHES)
+    bad_fid = list(args)
+    bad_fid[9] = g.FID.float()
+    with pytest.raises(ValueError):
+        pair.artificial_visc_ff(*bad_fid)
+    short = list(args)
+    short[12] = (1.0,)  # one alpha for two fluids
+    with pytest.raises(ValueError):
+        pair.artificial_visc_ff(*short)
+    with pytest.raises(KeyError):
+        pair.artificial_visc_ff(*args[:3], "gaussian", *args[4:])
+    assert pair.LAUNCHES == before
+
+
+@pytest.mark.parametrize("layout", ["brute", "compact", "dense"])
+def test_visc_ff_launches_only_on_the_grids(cuda, layout):
+    """A small dam world whose fluid carries the basic3 scenes'
+    ``ArtificialViscosity(1.0, 0.0)``: the grid launches the pass once a
+    substep (with each ``hoist_ff``); the brute tier and the compact
+    layout keep the plain fold and launch nothing."""
+    from salva_tpu_torch import forces
+
+    force = [forces.ArtificialViscosity(1.0, 0.0)]
+    w = _small_dam_world(cuda, "auto" if layout == "brute" else "dense",
+                         force)
+    if layout == "compact":
+        w.sim = w.sim.replace(dense_compact=True)
+    pair.reset_launches()
+    for _ in range(3):
+        w.step(1.0 / 200.0, (0.0, -9.81, 0.0))
+    assert w._effective_sim().layout == ("brute" if layout == "brute"
+                                         else "dense")
+    assert bool(torch.isfinite(w.fluids_state.positions).all())
+    n = pair.LAUNCHES["artificial_visc_ff"]
+    if layout == "dense":
+        assert n == pair.LAUNCHES["hoist_ff"] >= 3
+    else:
+        assert n == 0
+
+
+def test_visc_ff_launches_once_a_substep_on_the_n40_scene(cuda):
+    """``scenes.harness_basic3(nparticles=40)`` (64,000 particles, the
+    benchmark's n40 scene, on the dense grid): one launch of the pass a
+    substep."""
+    from salva_tpu_torch import scenes
+
+    s = scenes.harness_basic3(nparticles=40)
+    pair.reset_launches()
+    scenes.run(s, 2)
+    n = pair.LAUNCHES["artificial_visc_ff"]
+    assert n == pair.LAUNCHES["hoist_ff"] >= 2
