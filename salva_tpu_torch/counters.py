@@ -22,7 +22,10 @@ end_ns)`` to an in-memory record on ``time.perf_counter_ns``'s clock,
 read by ``take_spans()``; while a ``torch.profiler`` session is active it
 also enters ``torch.profiler.record_function(name)``, so the stage shows
 as a ``user_annotation`` on the kernels' clock. Off (the default), ``span``
-returns one shared object that does nothing.
+returns one shared object that does nothing. Each span that closes while
+counters are on also adds its host time to a total by name, kept past the
+record's cap and read by ``span_host_ns()``; ``Counters.enable()`` resets
+it.
 
 **Counts.** ``HOST_SYNCS`` counts the host reads of device values during a
 step, by site: each read goes through ``fetch(site, tensor)``, counted
@@ -74,6 +77,8 @@ MAX_SPANS = 100_000
 
 _on = False
 _spans = []  # [name, parent, step, substep, start_ns, end_ns] each
+_host_ns = {}  # span name -> host ns of its closed spans since enable()
+_host_lock = threading.Lock()  # the slab path closes spans on threads
 _local = threading.local()  # .open: this thread's open span indices
 
 
@@ -138,6 +143,8 @@ class _Span:
         if self.rec is not None:
             self.rec[5] = end
         _local.open.pop()
+        with _host_lock:
+            _host_ns[self.name] = _host_ns.get(self.name, 0) + (end - self.t0)
         if self.rf is not None:
             self.rf.__exit__(typ, value, tb)
         if self.timer is not None:
@@ -160,6 +167,13 @@ def fetch(site: str, tensor: torch.Tensor) -> torch.Tensor:
     HOST_SYNCS[site] += 1
     with span(_SYNC_SPANS[site]):
         return tensor.cpu()
+
+
+def span_host_ns():
+    """Host ns by span name of the spans closed since the last
+    ``Counters.enable()``, counters on: ``{name: ns}``, a copy. Unlike
+    ``take_spans`` it clears nothing and has no cap."""
+    return dict(_host_ns)
 
 
 def take_spans():
@@ -219,11 +233,13 @@ class Counters:
         ]
 
     def enable(self):
-        """Turn the timers and the spans on; the span record starts anew."""
+        """Turn the timers and the spans on; the span record and the host
+        totals by name start anew."""
         global _on
         self.enabled = True
         _on = True
         _spans.clear()
+        _host_ns.clear()
 
     def disable(self):
         global _on

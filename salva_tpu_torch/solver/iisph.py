@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import counters
 from ..config import IISPHConfig
 from .common import (
     SolverDiagnostics,
@@ -107,19 +108,21 @@ def compute_next_pressures(cfg: IISPHConfig, ctx: StepContext, pressures,
 
 def pressure_solve(cfg: IISPHConfig, ctx: StepContext, pressures, dii, aii,
                    predicted_densities):
-    """The Jacobi loop (`iisph_solver.rs:422-456`): the pressure swap
-    comes before the convergence check."""
+    """The Jacobi loop (`iisph_solver.rs:422-456`), in one
+    ``solver.jacobi`` span: the pressure swap comes before the convergence
+    check."""
     iters = 0
     err = torch.zeros((), dtype=torch.float32, device=pressures.device)
-    while iters < cfg.max_pressure_iter:
-        dij_pjl = compute_dij_pjl(ctx, pressures)
-        pressures, err = compute_next_pressures(
-            cfg, ctx, pressures, dij_pjl, dii, aii, predicted_densities)
-        done = _converged(err, cfg.max_density_error, iters,
-                          cfg.min_pressure_iter)
-        iters += 1
-        if done:
-            break
+    with counters.span("solver.jacobi"):
+        while iters < cfg.max_pressure_iter:
+            dij_pjl = compute_dij_pjl(ctx, pressures)
+            pressures, err = compute_next_pressures(
+                cfg, ctx, pressures, dij_pjl, dii, aii, predicted_densities)
+            done = _converged(err, cfg.max_density_error, iters,
+                              cfg.min_pressure_iter)
+            iters += 1
+            if done:
+                break
     return pressures, iters, err
 
 

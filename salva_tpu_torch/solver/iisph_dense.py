@@ -19,7 +19,8 @@ The Jacobi loop is a Python loop in place of ``lax.while_loop``; each
 iteration syncs with the host once (the convergence test). The
 iteration count follows the JAX loop exactly: the counter increments on
 every iteration, including the one that finds convergence, and that
-iteration's pressures are kept.
+iteration's pressures are kept. The loop runs in one ``solver.jacobi``
+span a substep, inside ``solver.pressure``.
 
 The dense non-pressure forces (``dense_forces``: the viscosity and
 surface-tension pair forces, and the elasticity as a
@@ -107,39 +108,44 @@ def build_dense_substep(sim: SimConfig, cfg: IISPHConfig, num_fluids: int,
 
             iters = 0
             err = torch.zeros((), dtype=torch.float32, device=dev)
-            while iters < cfg.max_pressure_iter:
-                # On a slab the ghost pressures are one iteration stale (the
-                # update is valid on owned cells only); pass 1 reads p at j.
-                P_grid = exchange(P_grid)
-                # Pass 1: D = dij_pjl (`:235-268`).
-                D = -dt2 * ctx.k_pass(P_grid * inv_rho2)
-                # Pass 2: q_j = d_jj p_j + D_j reduction (`:270-353`); dii
-                # and D are ghost-incomplete on a slab, and t_pass reads q
-                # at j.
-                q = exchange(dii * P_grid[None] + D)
-                t_q = ctx.t_pass(q)
-                sum_all = (
-                    torch.sum(D * ctx.Gsum, dim=0)  # D_i . (Gf + Gb)
-                    - t_q
-                    + P_grid * factor_i * ctx.s2_ff
-                )
-                candidate = ((1.0 - cfg.omega) * P_grid
-                             + cfg.omega * (derr - sum_all) / safe_aii)
-                positive = candidate > 0.0
-                next_p = torch.where(usable & positive & live,
-                                     torch.clamp(candidate, min=0.0), 0.0)
-                err_i = torch.where(
-                    usable & positive, (-sum_all - aii * next_p) / R0, 0.0
-                )
-                err = per_fluid_mean_max_grid(err_i, ctx.FID, maskf,
-                                              num_fluids, halo=halo,
-                                              interior=ctx.interior)
-                done = _converged(err, cfg.max_density_error, iters,
-                                  cfg.min_pressure_iter)
-                iters += 1
-                P_grid = next_p
-                if done:
-                    break
+            # The relaxed-Jacobi loop, one span a substep (each iteration's
+            # ``sync.converged`` nests in it).
+            with counters.span("solver.jacobi"):
+                while iters < cfg.max_pressure_iter:
+                    # On a slab the ghost pressures are one iteration stale
+                    # (the update is valid on owned cells only); pass 1 reads
+                    # p at j.
+                    P_grid = exchange(P_grid)
+                    # Pass 1: D = dij_pjl (`:235-268`).
+                    D = -dt2 * ctx.k_pass(P_grid * inv_rho2)
+                    # Pass 2: q_j = d_jj p_j + D_j reduction (`:270-353`);
+                    # dii and D are ghost-incomplete on a slab, and t_pass
+                    # reads q at j.
+                    q = exchange(dii * P_grid[None] + D)
+                    t_q = ctx.t_pass(q)
+                    sum_all = (
+                        torch.sum(D * ctx.Gsum, dim=0)  # D_i . (Gf + Gb)
+                        - t_q
+                        + P_grid * factor_i * ctx.s2_ff
+                    )
+                    candidate = ((1.0 - cfg.omega) * P_grid
+                                 + cfg.omega * (derr - sum_all) / safe_aii)
+                    positive = candidate > 0.0
+                    next_p = torch.where(usable & positive & live,
+                                         torch.clamp(candidate, min=0.0),
+                                         0.0)
+                    err_i = torch.where(
+                        usable & positive, (-sum_all - aii * next_p) / R0,
+                        0.0)
+                    err = per_fluid_mean_max_grid(err_i, ctx.FID, maskf,
+                                                  num_fluids, halo=halo,
+                                                  interior=ctx.interior)
+                    done = _converged(err, cfg.max_density_error, iters,
+                                      cfg.min_pressure_iter)
+                    iters += 1
+                    P_grid = next_p
+                    if done:
+                        break
 
             # Velocity changes from final pressures (`:355-404`); the final
             # k_pass and the boundary pass read p at j.
