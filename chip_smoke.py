@@ -114,8 +114,8 @@ phases:
    ``expand`` on each layout's binnings bitwise its plain expansion
    (the compact tables; the spill columns' extended run table); every
    kernel wrapper's plain version raises meanwhile. Then
-   ``phase_small_overflow``: bench_torch.py's dfsph_4k_dense world
-   (4,096 particles) SMALL_STEPS steps plain and on the 12 + spill auto
+   ``phase_small_overflow``: the DFSPH dam break at 4,096 particles on
+   the grid, SMALL_STEPS steps plain and on the 12 + spill auto
    tier, each step's neighbour and spill overflow logged (no gate: ROADMAP
    Queue 3, item 14);
 7b. slab_97k (``phase_slab_path``, ``slab_kernel_checks``): the slab path
@@ -484,8 +484,8 @@ LAYOUT_KERNELS = {"compact_97k": ("expand",),
                   "spill_97k": _SPILL_KERNELS,
                   "spill8_97k": _SPILL_KERNELS,
                   "spill_auto_97k": _SPILL_KERNELS}
-# bench_torch.py's dfsph_4k_dense world (ROADMAP Queue 3, item 14):
-# SMALL_N particles, SMALL_STEPS steps per variant.
+# The DFSPH dam break on the grid at 4,096 particles (ROADMAP Queue 3,
+# item 14): SMALL_N particles, SMALL_STEPS steps per variant.
 SMALL_N = 4096
 SMALL_STEPS = 30
 # The slab path (phase 7b, slab_97k): SLAB_N slabs of the 97k dam break
@@ -2536,8 +2536,8 @@ def phase_layouts_97k(pair):
 
 
 def phase_small_overflow(pair):
-    """Evidence for ROADMAP Queue 3, item 14 (no gate): bench_torch.py's
-    dfsph_4k_dense world (4,096 particles, the grid at the auto caps,
+    """Evidence for ROADMAP Queue 3, item 14 (no gate): the DFSPH dam
+    break at 4,096 particles (the grid at the auto caps,
     16 / 16) for SMALL_STEPS steps, as it is and with the 12 + spill auto
     tier (``dense_spill_auto``); each step's neighbour and spill overflow.
     Returns ({path: launches}, {variant: per-step record})."""

@@ -704,6 +704,13 @@ def shift_j(spec: DenseGridSpec, arr, offset):
     return torch.roll(arr, -s, dims=-1)
 
 
+def roll_views(spec: DenseGridSpec):
+    """The j-side views of a full-stencil fold over ``spec``: ``view(arr,
+    o)`` is :func:`shift_j` at the o-th of :func:`stencil_offsets`."""
+    offsets = stencil_offsets(spec)
+    return lambda arr, o: shift_j(spec, arr, offsets[o])
+
+
 def neighbor_offsets(dim: int):
     if dim == 2:
         return [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]

@@ -47,6 +47,11 @@ All passes take the per-cell live counts ``counts`` ([C] int32, ranks
 fill from 0, so slot (r, c) is live iff r < counts[c]); the plain hoists
 rebuild the occupancy masks from them (``hoist_fb`` takes the boundary
 side's counts ``counts_b`` the same way).
+
+Every plain fold of the dense solver, here and in ``solver/``, takes its
+per-offset pair block (j views, dpos, r^2, ``within``) from
+:func:`pair_blocks`; the sums two folds share are written once
+(:func:`t_body`, :func:`k_body`, :func:`fb_body`).
 """
 
 from __future__ import annotations
@@ -77,23 +82,67 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def fold_pairs(offsets, h, dim, pos_i, mask_i, pos_j, mask_j, jview,
-               j_arrays: Dict, body, init):
-    """Fold ``body(acc, dpos, r2, within, j) -> acc`` over all 3^dim
-    neighbor views produced by ``jview(arr, o)``."""
-    acc = init
-    h2 = h * h
-    for o in range(len(offsets)):
+def pair_blocks(n_offsets, h, dim, pos_i, mask_i, pos_j, mask_j, jview,
+                j_arrays: Dict):
+    """Yield ``(dpos, r2, within, j)``, the pair block of each of the
+    ``n_offsets`` neighbour views ``jview(arr, o)``: dpos [dim] of
+    [cap_i, cap_j, n] i - j position differences, their r^2, and the j
+    views of ``j_arrays``. ``within`` (r <= h, both slots live) is None
+    for a body that reads no mask (``mask_i`` None: dead slots hold the
+    far sentinel position and zero weights)."""
+    for o in range(n_offsets):
         pj = jview(pos_j, o)
-        mj = jview(mask_j, o)
         j = {k: jview(v, o) for k, v in j_arrays.items()}
         dpos = [pos_i[d][:, None, :] - pj[d][None, :, :] for d in range(dim)]
         r2 = dpos[0] * dpos[0]
         for d in range(1, dim):
             r2 = r2 + dpos[d] * dpos[d]
-        within = (r2 <= h2) & (mask_i[:, None, :] > 0) & (mj[None, :, :] > 0)
-        acc = body(acc, dpos, r2, within, j)
+        within = None
+        if mask_i is not None:
+            mj = jview(mask_j, o)
+            within = ((r2 <= h * h) & (mask_i[:, None, :] > 0)
+                      & (mj[None, :, :] > 0))
+        yield dpos, r2, within, j
+
+
+def fold_pairs(n_offsets, h, dim, pos_i, mask_i, pos_j, mask_j, jview,
+               j_arrays: Dict, body, init):
+    """Fold ``body(acc, dpos, r2, within, j) -> acc`` over
+    :func:`pair_blocks`."""
+    acc = init
+    for block in pair_blocks(n_offsets, h, dim, pos_i, mask_i, pos_j, mask_j,
+                             jview, j_arrays):
+        acc = body(acc, *block)
     return acc
+
+
+def t_body(h, dim, kernel_gradient):
+    """The ``t_pass`` sum of one pair block, m_j (Q_j . grad_ij), over the
+    j views ``m`` and ``q``; mask-free (dead slots carry zero mass)."""
+    kg_w, kg_dw = get_kernel(kernel_gradient)
+
+    def body(acc, dpos, r2, within, j):
+        _, dwr = w_dwr(r2, h, dim, kg_w, kg_dw)
+        t = j["q"][0][None, :, :] * dpos[0]
+        for d in range(1, dim):
+            t = t + j["q"][d][None, :, :] * dpos[d]
+        return acc + torch.sum(t * dwr * j["m"][None, :, :], dim=1)
+
+    return body
+
+
+def k_body(h, dim, kernel_gradient):
+    """The ``k_pass`` sum of one pair block, (m k)_j grad_ij, over the j
+    view ``mk``, into a list of ``dim`` planes; mask-free."""
+    kg_w, kg_dw = get_kernel(kernel_gradient)
+
+    def body(acc, dpos, r2, within, j):
+        _, dwr = w_dwr(r2, h, dim, kg_w, kg_dw)
+        coeff = j["mk"][None, :, :] * dwr
+        return [acc[d] + torch.sum(dpos[d] * coeff, dim=1)
+                for d in range(dim)]
+
+    return body
 
 
 # -- plain PyTorch versions (half-stencil folds) ------------------------------
@@ -107,13 +156,10 @@ def _rollj(arr, s: int):
 def _blocks_half(spec, dim, P):
     """(dpos, r2, s) for s in {0} + the positive flat shifts: each s > 0
     block covers the unordered cell-pair set {(c, c + s)}."""
-    pos_shifts = tuple(s for s in dg.flat_shifts(spec) if s > 0)
-    for s in (0,) + pos_shifts:
-        pj = _rollj(P, s)
-        dpos = [P[d][:, None, :] - pj[d][None, :, :] for d in range(dim)]
-        r2 = dpos[0] * dpos[0]
-        for d in range(1, dim):
-            r2 = r2 + dpos[d] * dpos[d]
+    shifts = (0,) + tuple(s for s in dg.flat_shifts(spec) if s > 0)
+    blocks = pair_blocks(len(shifts), None, dim, P, None, P, None,
+                         lambda arr, o: _rollj(arr, shifts[o]), {})
+    for (dpos, r2, _, _), s in zip(blocks, shifts):
         yield dpos, r2, s
 
 
@@ -211,13 +257,13 @@ def hoist_ff_plain(spec, h, dim, kernel_density, kernel_gradient, P, M,
     return rho, torch.stack(gf), sq, s2, cnt
 
 
-def _fb_body(h, dim, kernel_density, kernel_gradient, need_s2):
-    """``DenseCtx._hoist``'s ``fb_body``: the fluid-boundary sums of one
-    [cap_f, cap_b, n] pair block."""
+def fb_body(h, dim, kernel_density, kernel_gradient, need_s2):
+    """The fluid-boundary hoist's sums (rho, Gb, sq, s2, Sb, count) of one
+    [cap_f, cap_b, n] pair block, over the j views ``vol`` and ``vb``."""
     kd_w, kd_dw = get_kernel(kernel_density)
     kg_w, kg_dw = get_kernel(kernel_gradient)
 
-    def fb_body(acc, dpos, r2, within, j):
+    def body(acc, dpos, r2, within, j):
         rho, gb, sq, s2, sb, cnt = acc
         _, dwr = w_dwr(r2, h, dim, kg_w, kg_dw)
         wd, _ = w_dwr(r2, h, dim, kd_w, kd_dw)
@@ -238,7 +284,7 @@ def _fb_body(h, dim, kernel_density, kernel_gradient, need_s2):
         cnt = cnt + torch.sum(within, dim=1, dtype=torch.int32)
         return rho, torch.stack(gb_new), sq, s2, sb, cnt
 
-    return fb_body
+    return body
 
 
 def hoist_fb_plain(spec, h, dim, kernel_density, kernel_gradient, P, counts,
@@ -266,7 +312,6 @@ def hoist_fb_plain(spec, h, dim, kernel_density, kernel_gradient, P, counts,
     cap, C = P.shape[-2], P.shape[-1]
     maskf = _live_mask(counts, cap)
     maskb = _live_mask(counts_b, Pb.shape[-2])
-    shifts = dg.flat_shifts(spec)
     if cols is None:
         Pi, maski = P, maskf
     else:
@@ -275,12 +320,12 @@ def hoist_fb_plain(spec, h, dim, kernel_density, kernel_gradient, P, counts,
         Pi = P[..., cg]
         maski = torch.where(got[None, :], maskf[..., cg], 0.0)
     if cell_to_col is None:
-        def jview(arr, o):
-            return _rollj(arr, shifts[o])
+        jview = dg.roll_views(spec)
     else:
         base = (cg if cols is not None
                 else torch.arange(C, dtype=torch.int64, device=P.device))
-        sh = torch.tensor(shifts, dtype=torch.int64, device=P.device)
+        sh = torch.tensor(dg.flat_shifts(spec), dtype=torch.int64,
+                          device=P.device)
         nb = torch.clamp(base[:, None] + sh[None, :], 0, C)  # [n, 3^dim]
         nb = cell_to_col.long()[nb]
 
@@ -288,26 +333,33 @@ def hoist_fb_plain(spec, h, dim, kernel_density, kernel_gradient, P, counts,
             return arr[..., nb[:, o]]
 
     z = torch.zeros_like(maski)
-    rho, gb, sq, s2, sb, cnt = fold_pairs(
-        dg.neighbor_offsets(dim), h, dim, Pi, maski, Pb, maskb, jview,
+    out = fold_pairs(
+        3 ** dim, h, dim, Pi, maski, Pb, maskb, jview,
         {"vol": Volb, "vb": Vbvel},
-        _fb_body(h, dim, kernel_density, kernel_gradient, need_s2),
+        fb_body(h, dim, kernel_density, kernel_gradient, need_s2),
         (z, torch.zeros_like(Pi), z, z, z,
          torch.zeros_like(maski, dtype=torch.int32)),
     )
     if cols is None:
-        return rho, gb, sq, s2, sb, cnt
-    # Scatter back to the grid (unused table slots target the spare
-    # column C, which is cut off).
-    af_sc = torch.where(got, cols, C).long()
+        return out
+    return scatter_fb(out, torch.where(got, cols, C).long(), C)
+
+
+def scatter_fb(out, cols, width: int):
+    """An fb hoist's outputs over the entries of a column table (rho, Gb,
+    sq, s2, Sb, cnt; [..., n] each) scattered onto a [..., width] grid at
+    ``cols`` [n] int64; entries equal to ``width`` are unused (they land
+    in a spare column, cut off), and unlisted columns get zeros."""
+    rho, gb, sq, s2, sb, cnt = out
+    dim = gb.shape[0]
     packed = torch.cat([rho[None], gb, sq[None], s2[None], sb[None]], dim=0)
-    fullf = torch.zeros(packed.shape[:-1] + (C + 1,), dtype=packed.dtype,
-                        device=P.device)
-    fullf[..., af_sc] = packed
-    fulli = torch.zeros(cnt.shape[:-1] + (C + 1,), dtype=cnt.dtype,
-                        device=P.device)
-    fulli[..., af_sc] = cnt
-    fullf, fulli = fullf[..., :C], fulli[..., :C]
+    fullf = torch.zeros(packed.shape[:-1] + (width + 1,), dtype=packed.dtype,
+                        device=packed.device)
+    fullf[..., cols] = packed
+    fulli = torch.zeros(cnt.shape[:-1] + (width + 1,), dtype=cnt.dtype,
+                        device=cnt.device)
+    fulli[..., cols] = cnt
+    fullf, fulli = fullf[..., :width], fulli[..., :width]
     return (fullf[0], fullf[1:1 + dim], fullf[1 + dim], fullf[2 + dim],
             fullf[3 + dim], fulli)
 
@@ -362,7 +414,7 @@ def artificial_visc_ff_fold(n_offsets, jview, mask, h, dim, kernel_gradient,
             [torch.sum(dpos[d] * dwr * scale, dim=1) for d in range(dim)]
         )
 
-    return fold_pairs(range(n_offsets), h, dim, P, mask, P, mask, jview,
+    return fold_pairs(n_offsets, h, dim, P, mask, P, mask, jview,
                       {"v": V, "vol": VOL, "rho": RHO, "fid": FID}, body,
                       torch.zeros_like(P))
 
@@ -372,9 +424,8 @@ def artificial_visc_ff_plain(spec, h, dim, kernel_gradient, P, V, VOL, RHO,
                              speeds_of_sound):
     """:func:`artificial_visc_ff_fold` over the grid's 3^dim rolls, the
     live slots rebuilt from ``counts``."""
-    offs = dg.stencil_offsets(spec)
     return artificial_visc_ff_fold(
-        len(offs), lambda arr, o: dg.shift_j(spec, arr, offs[o]),
+        len(dg.stencil_offsets(spec)), dg.roll_views(spec),
         _live_mask(counts, P.shape[-2]), h, dim, kernel_gradient, P, V, VOL,
         RHO, R0, FID, coefficients, alphas, betas, speeds_of_sound)
 

@@ -27,25 +27,36 @@ particle sets to a 1D cyclic grid by index and walks its cyclic offsets
 0..C-1 instead of a cell stencil; every view is a roll and every layout
 shuffle a gather through the binding's ``grid_src``.
 
-On the grid, the four hot passes (``k_pass``, ``t_pass``, the ff hoist
-and the fb hoist) go through ``ops.pair`` (hand kernels for CUDA tensors,
-the plain half-stencil versions for CPU tensors), except where the
-reference runs its full-stencil plain folds (``solver/full_folds.py``):
-on the brute tier and on the compact layout, on every device (the
-reference runs no Pallas kernel there, and no hand kernel runs here),
-and on a grid with ``dense_half_stencil=False`` for CPU tensors (for
-CUDA tensors the kernels, which walk the full stencil). The dense+spill
-layout runs the ff passes through ``ops.pair`` on its main columns and
-its own plain folds for the pairs that touch a spill slot, on every
-device (the reference runs its half-stencil folds and those plain folds
-there).
+What serves each hot pass is chosen once, when the context binds
+(``_bind_passes``); the passes and the forces read that choice:
+
+====================  =========  =========  =========  =======
+binding               ff hoist   fb hoist   t, k       visc ff
+====================  =========  =========  =========  =======
+brute tier, compact   full fold  full fold  full fold  fold
+CPU, full stencil     full fold  pair       full fold  fold
+dense+spill           spill      spill      spill      --
+every other grid      pair       pair       pair       pair
+====================  =========  =========  =========  =======
+
+"CPU, full stencil" is a grid of CPU tensors with
+``dense_half_stencil=False``, or a slab (which has no half stencil).
+"full fold" is ``solver/full_folds.py`` and "fold" the artificial
+viscosity's fold over the force views, plain torch on every device, where
+the reference runs its full-stencil folds and no Pallas kernel. "pair" is
+the ``ops.pair`` wrappers: hand kernels for CUDA tensors, for CPU tensors
+the plain half-stencil versions (for the fb hoist the reference's full
+fold, bitwise). "spill" is ``ops.pair`` on the main columns and plain
+gathered folds for the pairs that touch a spill slot, on every device (no
+dense pair force runs with the spill structure).
 With frozen pair coefficients (``dense_frozen_pairs``) the hoists stay
 as above, and ``k_pass`` / ``t_pass`` become multiply-reduces over the
 coefficients s_ij = (dW/dr / r) m_j stored once a substep
 (``sp_multi``; in ``dense_pair_dtype``, accumulated in float32). The
 sorted binnings' layout shuffles (``to_grid`` / ``to_grid_multi``) go
 through ``ops.binning`` on every layout but the brute tier's.
-Everything else, the non-pressure forces included, is plain torch.
+Everything else, the non-pressure forces included, is plain torch, each
+fold's pair block from ``ops.pair.pair_blocks``.
 
 With a ``halo`` (``parallel/domain.py``, the slab path) the context
 covers one x-slab of the grid and its two ghost layers
@@ -71,6 +82,12 @@ from ..kernels import get_kernel, w_dwr
 from ..ops import pair
 from ..ops.pair import fold_pairs
 from . import full_folds
+from .forces_dense import (
+    DenseFields,
+    ParticleWiseForce,
+    visc_ff_fold,
+    visc_ff_pass,
+)
 
 
 def per_fluid_mean_max_grid(values, fid, mask, num_fluids: int, halo=None,
@@ -120,13 +137,7 @@ class DenseCtx:
             self._compute_boundary_volumes()
         with counters.span("solver.hoist"):
             self._hoist()
-            self.frozen = bool(sim.dense_frozen_pairs)
             if self.frozen:
-                if self.spill_E:
-                    raise NotImplementedError(
-                        "dense_frozen_pairs is incompatible with "
-                        "dense_spill_columns"
-                    )
                 self._freeze_pairs()
 
     def _bin(self, sim, spec_f, spec_b, fluids, boundaries, halo, need_s2):
@@ -146,20 +157,12 @@ class DenseCtx:
         # Brute all-pairs tier (``dense_grid.brute_spec``): a 1D cyclic
         # grid whose offsets 0..C-1 pair every cell with every cell.
         self.brute = spec_f.brute
-        self.offsets = dg.stencil_offsets(spec_f)
+        self.n_offsets = len(dg.stencil_offsets(spec_f))
         self.halo = halo
         # The compact active-cell layout (off on the brute tier and on the
         # slab path, as in the JAX package).
         self.compact = (bool(sim.dense_compact) and not self.brute
                         and halo is None)
-        # The full-stencil plain folds run the hot passes on the brute
-        # tier and the compact layout (every device) and, for CPU tensors,
-        # on a grid without the half stencil (a slab has none); ``ops.pair``
-        # runs them on the other grids.
-        self.use_full_folds = self.brute or self.compact or (
-            dev.type == "cpu"
-            and (halo is not None or not sim.dense_half_stencil)
-        )
         # Fluid-tracking grid window (config.fitted_dims): static dims,
         # origin recomputed here from the live fluid extent each substep.
         # Boundary particles outside the window are dropped from binning
@@ -216,8 +219,7 @@ class DenseCtx:
             # Slot ownership: the columns of the owned layers.
             layer = torch.arange(spec_f.num_cells, device=dev) // halo.nyz
             self.interior = ((layer >= 1) & (layer < nxl + 1))[None, :]
-        offs = self.offsets
-        self.jff = lambda arr, o: dg.shift_j(spec_f, arr, offs[o])
+        self.jff = dg.roll_views(spec_f)
         # Fluid-owner / boundary-j view of the non-pressure forces: a roll
         # on both grid boundary binnings (under the sparse one the forces
         # read the boundary arrays rematerialized onto the full grid, see
@@ -319,6 +321,66 @@ class DenseCtx:
             # The main slice as the pair kernels take it (contiguous).
             self._Pm = self._mslice(self.P).contiguous()
             self._Mm = self._mslice(self.M).contiguous()
+        self._bind_passes(sim)
+
+    def _bind_passes(self, sim):
+        """The one choice of what serves the two hoists, ``t_pass``,
+        ``k_pass`` and the artificial viscosity's fluid-fluid term on this
+        binding (the table in the module note): callables read by
+        :meth:`_hoist`, :meth:`t_pass`, :meth:`k_pass` and the forces.
+        Each takes the context as its first argument and holds none, so
+        that a context keeps no reference cycle and frees its tensors as
+        soon as it is dropped."""
+        grid = (self.spec_f, self.h, self.dim)
+        kd, kg = sim.kernel_density, sim.kernel_gradient
+        full = self.brute or self.compact or (
+            self.device.type == "cpu"
+            and (self.halo is not None or not sim.dense_half_stencil))
+        self.frozen = bool(sim.dense_frozen_pairs)
+        if self.frozen and self.spill_E:
+            raise NotImplementedError(
+                "dense_frozen_pairs is incompatible with dense_spill_columns")
+        if self.spill_E:
+            self._ff_hoist = DenseCtx._hoist_ff_spill
+            self._t_pass = DenseCtx._t_pass_spill
+            self._k_pass = DenseCtx._k_pass_spill
+        elif full:
+            self._ff_hoist = lambda c: full_folds.hoist_ff(
+                *grid, kd, kg, c.P, c.M, c.maskf, need_s2=c.need_s2,
+                jview=c.jff)
+            self._t_pass = lambda c, Q: full_folds.t_pass(
+                *grid, kg, c.P, c.M, Q, jview=c.jff)
+            self._k_pass = lambda c, K: full_folds.k_pass(
+                *grid, kg, c.P, c.M, K, jview=c.jff)
+        else:
+            self._ff_hoist = lambda c: pair.hoist_ff(
+                *grid, kd, kg, c.P, c.M, c.counts, need_s2=c.need_s2)
+            self._t_pass = lambda c, Q: pair.t_pass(
+                *grid, kg, c.P, c.M, Q, c.counts)
+            self._k_pass = lambda c, K: pair.k_pass(
+                *grid, kg, c.P, c.M, K, c.counts)
+        if self.frozen:
+            self._t_pass = DenseCtx._t_pass_frozen
+            self._k_pass = DenseCtx._k_pass_frozen
+        if self.brute or self.compact:
+            self._fb_hoist = lambda c: full_folds.hoist_fb(
+                *grid, kd, kg, c.P, c.maskf, c.Pb, c.maskb, c.Volb, c.Vbvel,
+                need_s2=c.need_s2, jview=c.jfb)
+        elif self.spill_E:
+            self._fb_hoist = DenseCtx._hoist_fb_spill
+        else:
+            # One pass for the three grid branches of the reference: the
+            # sparse table (boundary-adjacent columns only), every column
+            # over the compact boundary table (near-dense adjacency or no
+            # boundaries), and the full-grid boundary binning (identity).
+            self._fb_hoist = lambda c: pair.hoist_fb(
+                *grid, kd, kg, c.P, c.counts, c.Pb, c.Volb, c.Vbvel,
+                c.counts_b,
+                cell_to_col=c.binb.cell_to_active if c.sparse_b else None,
+                cols=c._fb_table() if c._fb_cols() else None,
+                need_s2=c.need_s2)
+        self._visc_ff = (visc_ff_fold if full
+                         else visc_ff_pass(self.spec_f, self.counts))
 
     def _bin_compact(self, sim, spec_f, spec_b, fluids, boundaries):
         """The compact layout: both particle sets bound to tables of their
@@ -434,7 +496,7 @@ class DenseCtx:
             return acc + torch.sum(torch.where(within, w, 0.0), dim=1)
 
         wsum = fold_pairs(
-            self.offsets, self.h, self.dim, self.Pb, self.maskb,
+            self.n_offsets, self.h, self.dim, self.Pb, self.maskb,
             self.Pb, self.maskb, self.jbb, {}, body,
             torch.zeros_like(self.maskb),
         )
@@ -449,45 +511,8 @@ class DenseCtx:
             self.Volb = self.halo.exchange(self.Volb)
 
     def _hoist(self):
-        dim, h = self.dim, self.h
-        kd, kg = self.sim.kernel_density, self.sim.kernel_gradient
-        if self.spill_E:
-            ff = self._hoist_ff_spill()
-        elif self.use_full_folds:
-            ff = full_folds.hoist_ff(
-                self.spec_f, h, dim, kd, kg, self.P, self.M, self.maskf,
-                need_s2=self.need_s2, jview=self.jff,
-            )
-        else:
-            ff = pair.hoist_ff(
-                self.spec_f, h, dim, kd, kg, self.P, self.M, self.counts,
-                need_s2=self.need_s2,
-            )
-        rho_ff, Gf, sq_ff, s2_ff, cnt_ff = ff
-        if self.brute or self.compact:
-            fb = full_folds.hoist_fb(
-                self.spec_f, h, dim, kd, kg, self.P, self.maskf, self.Pb,
-                self.maskb, self.Volb, self.Vbvel, need_s2=self.need_s2,
-                jview=self.jfb,
-            )
-        elif self.spill_E:
-            fb = self._hoist_fb_spill()
-        else:
-            # The fb hoist, one pass for the three grid branches of the
-            # reference (its fb hoist is a full fold with or without the
-            # half stencil): the sparse table (boundary-adjacent columns
-            # only), every column over the compact boundary table
-            # (near-dense adjacency or no boundaries), and the full-grid
-            # boundary binning (identity map).
-            fb = pair.hoist_fb(
-                self.spec_f, h, dim, kd, kg, self.P, self.counts, self.Pb,
-                self.Volb, self.Vbvel, self.counts_b,
-                cell_to_col=(self.binb.cell_to_active if self.sparse_b
-                             else None),
-                cols=self._fb_table() if self._fb_cols() else None,
-                need_s2=self.need_s2,
-            )
-        rho_fb, Gb_raw, sq_fb, s2_fb, Sb_raw, cnt_fb = fb
+        rho_ff, Gf, sq_ff, s2_ff, cnt_ff = self._ff_hoist(self)
+        rho_fb, Gb_raw, sq_fb, s2_fb, Sb_raw, cnt_fb = self._fb_hoist(self)
 
         R0 = self.R0
         self.rho = torch.where(self.live, rho_ff + R0 * rho_fb, R0)
@@ -687,16 +712,12 @@ class DenseCtx:
     def _ff_spill_fold(self, j_arrays, body, init):
         """The spill-i fold of a fluid-fluid pass: main-j, then spill-j
         gathered blocks over the spill columns' neighborhoods."""
-        acc = fold_pairs(
-            self.offsets, self.h, self.dim, self._sp_i(self.P),
-            self._sp_i(self.maskf), self.P, self.maskf, self._jv_sp_main,
-            j_arrays, body, init,
-        )
-        return fold_pairs(
-            self.offsets, self.h, self.dim, self._sp_i(self.P),
-            self._sp_i(self.maskf), self.P, self.maskf, self._jv_sp_spill,
-            j_arrays, body, acc,
-        )
+        for jview in (self._jv_sp_main, self._jv_sp_spill):
+            init = fold_pairs(
+                self.n_offsets, self.h, self.dim, self._sp_i(self.P),
+                self._sp_i(self.maskf), self.P, self.maskf, jview, j_arrays,
+                body, init)
+        return init
 
     def _ff_adj_fold(self, j_arrays, body, init):
         """The adjacent-main-i <- spill-j fold (condensed K-wide
@@ -705,7 +726,7 @@ class DenseCtx:
         mad = torch.where(self._adj_got, self.maskf[..., self._adj_cols], 0.0)
         K = self._adj_sp_nb.shape[1]
         return fold_pairs(
-            range(K), self.h, self.dim, Pad, mad, self.P, self.maskf,
+            K, self.h, self.dim, Pad, mad, self.P, self.maskf,
             self._jv_adj_spill, j_arrays, body, init,
         )
 
@@ -763,22 +784,22 @@ class DenseCtx:
         slice plus a gathered spill-i block over each spill column's
         3^dim boundary neighborhood."""
         dim, h = self.dim, self.h
-        fb_body = pair._fb_body(h, dim, self.sim.kernel_density,
-                                self.sim.kernel_gradient, self.need_s2)
+        fb_body = pair.fb_body(h, dim, self.sim.kernel_density,
+                               self.sim.kernel_gradient, self.need_s2)
         if self._fb_cols():
             return self._hoist_fb_sparse_spill(fb_body)
         pb, vbvel, volb, maskb = self._full_boundary()
         j_arr = {"vol": volb, "vb": vbvel}
         zm = torch.zeros_like(self._mslice(self.maskf))
         main = fold_pairs(
-            self.offsets, h, dim, self._mslice(self.P),
+            self.n_offsets, h, dim, self._mslice(self.P),
             self._mslice(self.maskf), pb, maskb, self.jfb, j_arr, fb_body,
             (zm, torch.zeros_like(self._mslice(self.P)), zm, zm, zm,
              torch.zeros_like(zm, dtype=torch.int32)),
         )
         zs = self._zeros_sp()
         sp = fold_pairs(
-            self.offsets, h, dim, self._sp_i(self.P), self._sp_i(self.maskf),
+            self.n_offsets, h, dim, self._sp_i(self.P), self._sp_i(self.maskf),
             pb, maskb, lambda arr, o: arr[..., self._sp_nb_cell[:, o]],
             j_arr, fb_body,
             (zs, self._zeros_sp((dim,)), zs, zs, zs,
@@ -810,62 +831,21 @@ class DenseCtx:
         nfb = self.binb.cell_to_active.long()[
             torch.clamp(af_cell[:, None] + sh[None, :], 0, C)]
         z = torch.zeros_like(maski)
-        rho, gb, sq, s2, sb, cnt = fold_pairs(
-            self.offsets, self.h, self.dim, Pi, maski, self.Pb, self.maskb,
-            lambda arr, o: arr[..., nfb[:, o]],
+        out = fold_pairs(
+            self.n_offsets, self.h, self.dim, Pi, maski, self.Pb,
+            self.maskb, lambda arr, o: arr[..., nfb[:, o]],
             {"vol": self.Volb, "vb": self.Vbvel}, fb_body,
             (z, torch.zeros_like(Pi), z, z, z,
              torch.zeros_like(maski, dtype=torch.int32)),
         )
-        # Back onto the extended grid (unused entries target the spare
-        # column CE, cut off).
-        af_sc = torch.where(got, af, self.CE)
-        packed = torch.cat([rho[None], gb, sq[None], s2[None], sb[None]])
-        fullf = torch.zeros(packed.shape[:-1] + (self.CE + 1,),
-                            dtype=packed.dtype, device=self.device)
-        fullf[..., af_sc] = packed
-        fulli = torch.zeros(cnt.shape[:-1] + (self.CE + 1,),
-                            dtype=cnt.dtype, device=self.device)
-        fulli[..., af_sc] = cnt
-        fullf, fulli = fullf[..., :self.CE], fulli[..., :self.CE]
-        dim = self.dim
-        return (fullf[0], fullf[1:1 + dim], fullf[1 + dim], fullf[2 + dim],
-                fullf[3 + dim], fulli)
-
-    def _t_body(self):
-        """The spill folds' ``t_pass`` body (mask-free: dead slots carry
-        zero mass and far positions)."""
-        kg_w, kg_dw = self.kg
-        dim, h = self.dim, self.h
-
-        def body(acc, dpos, r2, within, j):
-            _, dwr = w_dwr(r2, h, dim, kg_w, kg_dw)
-            t = j["q"][0][None, :, :] * dpos[0]
-            for d in range(1, dim):
-                t = t + j["q"][d][None, :, :] * dpos[d]
-            return acc + torch.sum(t * dwr * j["m"][None, :, :], dim=1)
-
-        return body
-
-    def _k_body(self):
-        """The spill folds' ``k_pass`` body."""
-        kg_w, kg_dw = self.kg
-        dim, h = self.dim, self.h
-
-        def body(acc, dpos, r2, within, j):
-            _, dwr = w_dwr(r2, h, dim, kg_w, kg_dw)
-            coeff = j["mk"][None, :, :] * dwr
-            return torch.stack([acc[d] + torch.sum(dpos[d] * coeff, dim=1)
-                                for d in range(dim)])
-
-        return body
+        return pair.scatter_fb(out, torch.where(got, af, self.CE), self.CE)
 
     def _t_pass_spill(self, Q):
         main = pair.t_pass(
             self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
             self._Pm, self._Mm, self._mslice(Q).contiguous(), self.counts)
         j_arr = {"m": self.M, "q": Q}
-        body = self._t_body()
+        body = pair.t_body(self.h, self.dim, self.sim.kernel_gradient)
         sp = self._ff_spill_fold(j_arr, body, self._zeros_sp())
         adj = self._ff_adj_fold(j_arr, body, self._zeros_adj())
         return self._assemble(main, sp, adj)
@@ -875,10 +855,11 @@ class DenseCtx:
             self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
             self._Pm, self._Mm, self._mslice(K).contiguous(), self.counts)
         j_arr = {"mk": self.M * K}
-        body = self._k_body()
-        sp = self._ff_spill_fold(j_arr, body, self._zeros_sp((self.dim,)))
-        adj = self._ff_adj_fold(j_arr, body, self._zeros_adj((self.dim,)))
-        return self._assemble(main, sp, adj)
+        body = pair.k_body(self.h, self.dim, self.sim.kernel_gradient)
+        lead = (self.dim,)
+        sp = self._ff_spill_fold(j_arr, body, list(self._zeros_sp(lead)))
+        adj = self._ff_adj_fold(j_arr, body, list(self._zeros_adj(lead)))
+        return self._assemble(main, torch.stack(sp), torch.stack(adj))
 
     # -- frozen pair coefficients (config.dense_frozen_pairs) ----------------
 
@@ -893,11 +874,13 @@ class DenseCtx:
         if not isinstance(dtype, torch.dtype):
             raise ValueError(f"dense_pair_dtype {self.sim.dense_pair_dtype!r}"
                              " names no torch dtype")
+        kg_w, kg_dw = self.kg
         self.S = [
-            (dwr * view(self.M)[None, :, :]).to(dtype)
-            for _dpos, dwr, view in full_folds._hot_blocks(
-                self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
-                self.P, self.jff)
+            (w_dwr(r2, self.h, self.dim, kg_w, kg_dw)[1]
+             * j["m"][None, :, :]).to(dtype)
+            for _dpos, r2, _, j in pair.pair_blocks(
+                self.n_offsets, self.h, self.dim, self.P, None, self.P,
+                None, self.jff, {"m": self.M})
         ]
 
     def sp_multi(self, X):
@@ -912,37 +895,27 @@ class DenseCtx:
                                   dim=2)
         return acc
 
+    def _t_pass_frozen(self, Q):
+        # grad_ij = s_ij (p_i - p_j):
+        # T_i = sum_d p_i,d SP(Q_d)_i - SP(sum_d Q_d p_d)_i.
+        ch = torch.cat([Q, torch.sum(Q * self.P, dim=0, keepdim=True)])
+        out = self.sp_multi(ch)
+        return torch.sum(self.P * out[:self.dim], dim=0) - out[self.dim]
+
+    def _k_pass_frozen(self, K):
+        # K_i,d = p_i,d SP(K)_i - SP(K p_d)_i.
+        out = self.sp_multi(torch.cat([K[None], K[None] * self.P]))
+        return self.P * out[0][None] - out[1:]
+
     # -- per-iteration passes -----------------------------------------------
 
     def t_pass(self, Q):
         """T_i = sum_ff m_j (Q_j . grad_ij) for a per-slot vector Q."""
-        if self.frozen:
-            # grad_ij = s_ij (p_i - p_j):
-            # T_i = sum_d p_i,d SP(Q_d)_i - SP(sum_d Q_d p_d)_i.
-            ch = torch.cat([Q, torch.sum(Q * self.P, dim=0, keepdim=True)])
-            out = self.sp_multi(ch)
-            return torch.sum(self.P * out[:self.dim], dim=0) - out[self.dim]
-        if self.spill_E:
-            return self._t_pass_spill(Q)
-        args = (self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
-                self.P, self.M, Q)
-        if self.use_full_folds:
-            return full_folds.t_pass(*args, jview=self.jff)
-        return pair.t_pass(*args, self.counts)
+        return self._t_pass(self, Q)
 
     def k_pass(self, K):
         """K_i = sum_ff k_j m_j grad_ij for a per-slot scalar k."""
-        if self.frozen:
-            # K_i,d = p_i,d SP(K)_i - SP(K p_d)_i.
-            out = self.sp_multi(torch.cat([K[None], K[None] * self.P]))
-            return self.P * out[0][None] - out[1:]
-        if self.spill_E:
-            return self._k_pass_spill(K)
-        args = (self.spec_f, self.h, self.dim, self.sim.kernel_gradient,
-                self.P, self.M, K)
-        if self.use_full_folds:
-            return full_folds.k_pass(*args, jview=self.jff)
-        return pair.k_pass(*args, self.counts)
+        return self._k_pass(self, K)
 
     def delta_density(self, Vp):
         """sum m_j (v_i'-v_j').grad + boundary term via hoisted sums:
@@ -959,9 +932,9 @@ class DenseCtx:
         kg_w, kg_dw = self.kg
         dim, h = self.dim, self.h
 
+        # No mask: coef is zero on dead fluid slots and the sentinel
+        # positions zero dwr for any empty-slot pairing.
         def body(acc, dpos, r2, within, j):
-            # No mask needed: coef is zero on dead fluid slots and the
-            # sentinel positions zero dwr for any empty-slot pairing.
             _, dwr = w_dwr(r2, h, dim, kg_w, kg_dw)
             c = j["coef"][None, :, :]
             return torch.stack(
@@ -970,7 +943,7 @@ class DenseCtx:
             )
 
         Fb = fold_pairs(
-            self.offsets, h, dim, self.Pb, self.maskb, self.P, self.maskf,
+            self.n_offsets, h, dim, self.Pb, None, self.P, None,
             self.jbf, {"coef": coef}, body, torch.zeros_like(self.Pb),
         )
         if self.spill_E:
@@ -981,8 +954,7 @@ class DenseCtx:
             nbs = C + self._c2s_ext[torch.clamp(
                 b_cell[:, None] + sh[None, :], 0, C)]  # [Ab+1, 3^dim]
             Fb = fold_pairs(
-                self.offsets, h, dim, self.Pb, self.maskb, self.P,
-                self.maskf,
+                self.n_offsets, h, dim, self.Pb, None, self.P, None,
                 lambda arr, o: arr[..., :self.cap2, :][..., nbs[:, o]],
                 {"coef": coef}, body, Fb,
             )
@@ -1061,8 +1033,6 @@ class DenseCtx:
         grid; ``particle_wise=False`` skips it (the caller adds its
         precomputed acceleration). The pair forces' field views are built
         only when one runs."""
-        from .forces_dense import DenseFields, ParticleWiseForce
-
         fields = None
         fb = None
         for force in dense_forces:
@@ -1076,15 +1046,14 @@ class DenseCtx:
                 jfb, jbf, Pb, Vbvel, Volb, maskb = self.force_field_views()
                 fields = DenseFields(
                     jff=self.jff, jfb=jfb, jbf=jbf,
-                    n_offsets=len(self.offsets), P=self.P, V=V, M=self.M,
+                    n_offsets=self.n_offsets, P=self.P, V=V, M=self.M,
                     VOL=self.vol_grid(fluids), R0=self.R0, RHO=self.rho,
                     FID=self.FID, maskf=self.maskf, Pb=Pb, Vbvel=Vbvel,
                     Volb=Volb, maskb=maskb, h=self.h, dim=self.dim, dt=dt,
                     inv_dt=inv_dt, kernel_density=self.sim.kernel_density,
                     kernel_gradient=self.sim.kernel_gradient,
                     halo=self.halo, interior=self.interior,
-                    spec=self.spec_f,
-                    counts=None if self.use_full_folds else self.counts,
+                    visc_ff=self._visc_ff,
                 )
             a_d, fb_d = force.apply(fields)
             A = A + a_d * self.maskf[None]

@@ -6,13 +6,14 @@ Port of ``salva_tpu.solver.forces_dense``: XSPH
 surface tension and the DFSPH implicit viscosity, each computed as dense
 pair passes over the shifted cell views, once per substep inside the
 dense solvers' predict-advection stage. They run as plain PyTorch (the
-JAX package has no Pallas kernel for them), but for one term: the
-artificial viscosity's fluid-fluid term goes through
-``ops.pair.artificial_visc_ff`` wherever the dense context sends its
-fluid-fluid passes to ``ops.pair`` (``DenseFields.counts`` set: the
-grids, sparse or full boundary binning, fitted window, frozen pairs and
-slab path), a hand CUDA pass on CUDA tensors and the plain fold on CPU
-ones; the brute tier and the compact layout keep the plain fold.
+JAX package has no Pallas kernel for them), each pass's pair blocks
+from ``ops.pair.pair_blocks``, but for one term: the artificial
+viscosity's fluid-fluid term is ``DenseFields.visc_ff``, which the dense
+context chooses when it binds (the table in ``dense_common``):
+``ops.pair.artificial_visc_ff`` where its fluid-fluid passes go through
+``ops.pair`` (a hand CUDA pass on CUDA tensors, the plain fold on CPU
+ones), else the plain fold over the force views (the brute tier, the
+compact layout).
 
 Interface: ``apply(f: DenseFields) -> (accel [D, capf, C],
 boundary_forces [D, capb, C] | None)``.
@@ -39,7 +40,26 @@ import torch
 from ..kernels import get_kernel, sph, w_dwr
 from ..kernels.sph import EPSILON
 from ..ops import pair
-from ..ops.pair import per_slot
+from ..ops.pair import pair_blocks, per_slot
+
+
+def visc_ff_fold(f: "DenseFields", *tables):
+    """The artificial viscosity's fluid-fluid acceleration as the plain
+    fold over the force views ``f.jff`` (``tables``: the per-fluid
+    coefficient, alpha, beta and speed-of-sound tuples)."""
+    return pair.artificial_visc_ff_fold(
+        f.n_offsets, f.jff, f.maskf, f.h, f.dim, f.kernel_gradient, f.P,
+        f.V, f.VOL, f.RHO, f.R0, f.FID, *tables)
+
+
+def visc_ff_pass(spec, counts):
+    """The artificial viscosity's fluid-fluid acceleration as one
+    ``ops.pair.artificial_visc_ff`` pass over the grid ``spec`` with the
+    per-cell live counts ``counts`` ([C] int32); called as
+    :func:`visc_ff_fold`."""
+    return lambda f, *tables: pair.artificial_visc_ff(
+        spec, f.h, f.dim, f.kernel_gradient, f.P, f.V, f.VOL, f.RHO, f.R0,
+        f.FID, counts, *tables)
 
 
 class DenseFields(NamedTuple):
@@ -83,12 +103,9 @@ class DenseFields(NamedTuple):
     # Slot ownership on the slab path ([1, C] bool, owned layers True), for
     # the global mean-error rule of the iterative forces.
     interior: object = None
-    # The grid's spec, and its per-cell live counts ([C] int32) where the
-    # dense context runs its fluid-fluid passes through ``ops.pair`` (not
-    # ``DenseCtx.use_full_folds``; None elsewhere): the terms that have a
-    # pass there take it.
-    spec: object = None
-    counts: object = None
+    # The artificial viscosity's fluid-fluid term, ``visc_ff(f, *tables)``
+    # (:func:`visc_ff_fold` or a :func:`visc_ff_pass`).
+    visc_ff: object = visc_ff_fold
 
 
 def _exchange(f: "DenseFields", arr):
@@ -96,30 +113,16 @@ def _exchange(f: "DenseFields", arr):
     return arr if f.halo is None else f.halo.exchange(arr)
 
 
-def _pairs(f: DenseFields, which: str, j_arrays):
-    """Yield (dpos, r2, within, j_views) for each neighbor view.
-
-    ``which``: "ff" (fluid owner, fluid j), "fb" (fluid owner, boundary
-    j), "bf" (boundary owner, fluid j).
-    """
-    dim, h = f.dim, f.h
-    h2 = h * h
-    if which == "ff":
-        pos_i, mask_i, pos_j, mask_j, jview = f.P, f.maskf, f.P, f.maskf, f.jff
-    elif which == "fb":
-        pos_i, mask_i, pos_j, mask_j, jview = f.P, f.maskf, f.Pb, f.maskb, f.jfb
-    else:
-        pos_i, mask_i, pos_j, mask_j, jview = f.Pb, f.maskb, f.P, f.maskf, f.jbf
-    for o in range(f.n_offsets):
-        pj = jview(pos_j, o)
-        mj = jview(mask_j, o)
-        j = {k: jview(v, o) for k, v in j_arrays.items()}
-        dpos = [pos_i[d][:, None, :] - pj[d][None, :, :] for d in range(dim)]
-        r2 = dpos[0] * dpos[0]
-        for d in range(1, dim):
-            r2 = r2 + dpos[d] * dpos[d]
-        within = (r2 <= h2) & (mask_i[:, None, :] > 0) & (mj[None, :, :] > 0)
-        yield dpos, r2, within, j
+def _blocks(f: DenseFields, which: str, j_arrays):
+    """``pair_blocks`` over one side pairing of the force views:
+    ``which`` "ff" (fluid owner, fluid j), "fb" (fluid owner, boundary j)
+    or "bf" (boundary owner, fluid j)."""
+    fluid, bound = (f.P, f.maskf), (f.Pb, f.maskb)
+    (pos_i, mask_i), (pos_j, mask_j), jview = {
+        "ff": (fluid, fluid, f.jff), "fb": (fluid, bound, f.jfb),
+        "bf": (bound, fluid, f.jbf)}[which]
+    return pair_blocks(f.n_offsets, f.h, f.dim, pos_i, mask_i, pos_j,
+                       mask_j, jview, j_arrays)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,7 +139,7 @@ class XSPHViscosityDense:
         dvel = torch.zeros_like(f.P)
 
         # Fluid part: same-fluid smoothing toward neighbor velocities.
-        for dpos, r2, within, j in _pairs(
+        for dpos, r2, within, j in _blocks(
             f, "ff",
             {"v": f.V, "vol": f.VOL, "rho": f.RHO, "fid": f.FID},
         ):
@@ -160,7 +163,7 @@ class XSPHViscosityDense:
         # Boundary part: smooth toward boundary velocities.
         any_b = any(v != 0.0 for v in self.boundary_coefficients)
         if any_b:
-            for dpos, r2, within, j in _pairs(
+            for dpos, r2, within, j in _blocks(
                 f, "fb", {"vb": f.Vbvel, "vol": f.Volb},
             ):
                 w = kd_w(torch.sqrt(r2), f.h, f.dim)
@@ -182,7 +185,7 @@ class XSPHViscosityDense:
             ci = (bcoeff * f.R0 / torch.clamp(f.RHO, min=EPSILON) * f.M
                   * f.inv_dt)
             Fb = torch.zeros_like(f.Pb)
-            for dpos, r2, within, j in _pairs(
+            for dpos, r2, within, j in _blocks(
                 f, "bf", {"ci": ci, "v": f.V},
             ):
                 w = kd_w(torch.sqrt(r2), f.h, f.dim)
@@ -213,19 +216,9 @@ class ArtificialViscosityDense:
     speeds_of_sound: Tuple[float, ...]
 
     def apply(self, f: DenseFields):
-        # Fluid-fluid (same fluid, v.r < 0): one pass of ``ops.pair`` (the
-        # hand kernel on CUDA tensors) where the context sends its ff
-        # passes there, else the fold over the force views.
-        tables = (self.fluid_coefficients, self.alphas, self.betas,
-                  self.speeds_of_sound)
-        if f.counts is not None:
-            accel = pair.artificial_visc_ff(
-                f.spec, f.h, f.dim, f.kernel_gradient, f.P, f.V, f.VOL,
-                f.RHO, f.R0, f.FID, f.counts, *tables)
-        else:
-            accel = pair.artificial_visc_ff_fold(
-                f.n_offsets, f.jff, f.maskf, f.h, f.dim, f.kernel_gradient,
-                f.P, f.V, f.VOL, f.RHO, f.R0, f.FID, *tables)
+        # Fluid-fluid (same fluid, v.r < 0).
+        accel = f.visc_ff(f, self.fluid_coefficients, self.alphas,
+                          self.betas, self.speeds_of_sound)
 
         any_b = any(v != 0.0 for v in self.boundary_coefficients)
         Fb = None
@@ -241,7 +234,7 @@ class ArtificialViscosityDense:
                 return w_dwr(r2, f.h, f.dim, kg_w, kg_dw)[1]
 
             # Fluid-boundary term.
-            for dpos, r2, within, j in _pairs(
+            for dpos, r2, within, j in _blocks(
                 f, "fb", {"vb": f.Vbvel, "vol": f.Volb},
             ):
                 dwr = grad_scale(r2)
@@ -268,7 +261,7 @@ class ArtificialViscosityDense:
             ci_common = bcoeff * f.R0 / torch.clamp(f.RHO, min=EPSILON) * f.M
             ci_visc_a = sos * alpha
             Fb = torch.zeros_like(f.Pb)
-            for dpos, r2, within, j in _pairs(
+            for dpos, r2, within, j in _blocks(
                 f, "bf",
                 {"c": ci_common, "sa": ci_visc_a, "b": beta, "v": f.V},
             ):
@@ -313,7 +306,7 @@ class Akinci2013SurfaceTensionDense:
 
         # Pass 1: normals n_i = h sum m_j / rho_j grad (`:43-68`).
         N = torch.zeros_like(f.P)
-        for dpos, r2, within, j in _pairs(
+        for dpos, r2, within, j in _blocks(
             f, "ff", {"m": f.M, "rho": f.RHO, "fid": f.FID},
         ):
             dwr = dwr_of(r2)
@@ -331,7 +324,7 @@ class Akinci2013SurfaceTensionDense:
 
         # Pass 2: cohesion + curvature (`:137-165`).
         accel = torch.zeros_like(f.P)
-        for dpos, r2, within, j in _pairs(
+        for dpos, r2, within, j in _blocks(
             f, "ff", {"vol": f.VOL, "rho": f.RHO, "fid": f.FID, "n": N},
         ):
             r = torch.sqrt(r2)
@@ -365,7 +358,7 @@ class Akinci2013SurfaceTensionDense:
         any_b = any(v != 0.0 for v in self.boundary_adhesion_coefficients)
         Fb = None
         if any_b:
-            for dpos, r2, within, j in _pairs(f, "fb", {"vol": f.Volb}):
+            for dpos, r2, within, j in _blocks(f, "fb", {"vol": f.Volb}):
                 r = torch.sqrt(r2)
                 safe = torch.where(r > EPSILON, r, 1.0)
                 adh = sph.adhesion_kernel(r, f.h, f.dim)
@@ -381,7 +374,7 @@ class Akinci2013SurfaceTensionDense:
             # Feedback (owner = boundary): F_b += sum_i adh_acc_i * m_i.
             ci = badh * f.R0 * f.M
             Fb = torch.zeros_like(f.Pb)
-            for dpos, r2, within, j in _pairs(f, "bf", {"c": ci}):
+            for dpos, r2, within, j in _blocks(f, "bf", {"c": ci}):
                 r = torch.sqrt(r2)
                 safe = torch.where(r > EPSILON, r, 1.0)
                 adh = sph.adhesion_kernel(r, f.h, f.dim)
@@ -414,7 +407,7 @@ class WCSPHSurfaceTensionDense:
         safe_vol = torch.where(f.VOL > 0, f.VOL, 1.0)
         accel = torch.zeros_like(f.P)
 
-        for dpos, r2, within, j in _pairs(
+        for dpos, r2, within, j in _blocks(
             f, "ff", {"vol": f.VOL, "fid": f.FID},
         ):
             w = kd_w(torch.sqrt(r2), f.h, f.dim)
@@ -433,7 +426,7 @@ class WCSPHSurfaceTensionDense:
         Fb = None
         if any_b:
             safe_m = torch.where(f.M > 0, f.M, 1.0)
-            for dpos, r2, within, j in _pairs(f, "fb", {"vol": f.Volb}):
+            for dpos, r2, within, j in _blocks(f, "fb", {"vol": f.Volb}):
                 w = kd_w(torch.sqrt(r2), f.h, f.dim)
                 scale = torch.where(
                     within,
@@ -447,7 +440,7 @@ class WCSPHSurfaceTensionDense:
                 )
             ci = bcoeff * f.R0
             Fb = torch.zeros_like(f.Pb)
-            for dpos, r2, within, j in _pairs(f, "bf", {"c": ci}):
+            for dpos, r2, within, j in _blocks(f, "bf", {"c": ci}):
                 w = kd_w(torch.sqrt(r2), f.h, f.dim)
                 scale = torch.where(
                     within, j["c"][None, :, :] * f.Volb[:, None, :] * w, 0.0
@@ -480,7 +473,7 @@ class He2014SurfaceTensionDense:
 
         # Pass 1: colors (`:40-75`).
         colors = torch.zeros_like(f.maskf)
-        for dpos, r2, within, j in _pairs(
+        for dpos, r2, within, j in _blocks(
             f, "ff", {"vr": vol_over_rho, "fid": f.FID},
         ):
             w = kd_w(torch.sqrt(r2), f.h, f.dim)
@@ -488,7 +481,7 @@ class He2014SurfaceTensionDense:
             colors = colors + torch.sum(
                 torch.where(ok, w * j["vr"][None, :, :], 0.0), dim=1
             )
-        for dpos, r2, within, j in _pairs(f, "fb", {"vol": f.Volb}):
+        for dpos, r2, within, j in _blocks(f, "fb", {"vol": f.Volb}):
             w = kd_w(torch.sqrt(r2), f.h, f.dim)
             colors = colors + torch.sum(
                 torch.where(within, w * j["vol"][None, :, :], 0.0), dim=1
@@ -498,7 +491,7 @@ class He2014SurfaceTensionDense:
         # Pass 2: |grad c|^2 (`:77-105`).
         safe_colors = torch.where(torch.abs(colors) > 0, colors, 1.0)
         gradc = torch.zeros_like(f.P)
-        for dpos, r2, within, j in _pairs(
+        for dpos, r2, within, j in _blocks(
             f, "ff", {"vr": vol_over_rho, "c": colors, "fid": f.FID},
         ):
             dwr = dwr_of(r2)
@@ -516,7 +509,7 @@ class He2014SurfaceTensionDense:
         m_over_rho = f.M / torch.clamp(f.RHO, min=EPSILON)
         safe_m = torch.where(f.M > 0, f.M, 1.0)
         accel = torch.zeros_like(f.P)
-        for dpos, r2, within, j in _pairs(
+        for dpos, r2, within, j in _blocks(
             f, "ff", {"mr": m_over_rho, "g": gradcs, "fid": f.FID},
         ):
             dwr = dwr_of(r2)
@@ -536,7 +529,7 @@ class He2014SurfaceTensionDense:
         any_b = any(v != 0.0 for v in self.boundary_tension_coefficients)
         Fb = None
         if any_b:
-            for dpos, r2, within, j in _pairs(f, "fb", {"vol": f.Volb}):
+            for dpos, r2, within, j in _blocks(f, "fb", {"vol": f.Volb}):
                 dwr = dwr_of(r2)
                 s = torch.where(
                     within,
@@ -552,7 +545,7 @@ class He2014SurfaceTensionDense:
             ci = ((f.M / torch.clamp(f.RHO, min=EPSILON)) * gradcs * bcoeff
                   * 0.25)
             Fb = torch.zeros_like(f.Pb)
-            for dpos, r2, within, j in _pairs(f, "bf", {"c": ci}):
+            for dpos, r2, within, j in _blocks(f, "bf", {"c": ci}):
                 dwr = dwr_of(r2)
                 s = torch.where(
                     within, j["c"][None, :, :] * f.Volb[:, None, :], 0.0
@@ -639,7 +632,7 @@ class DFSPHViscosityDense:
         Msum = {(s, d): zero for s, d, _, _ in entries}
         Sq = {}
         Nsum = {(s, d): zero for s, d, _, _ in entries}
-        for dpos, r2, within, j in _pairs(
+        for dpos, r2, within, j in _blocks(
             f, "ff", {"m": f.M, "vol": f.VOL, "fid": f.FID}
         ):
             ok = within & (f.FID[:, None, :] == j["fid"][None, :, :])
@@ -695,7 +688,7 @@ class DFSPHViscosityDense:
         def ts_pass(Vp):
             """TS_i = sum_j w G_ij v_j' [S]."""
             acc = [zero] * S
-            for dpos, r2, within, j in _pairs(
+            for dpos, r2, within, j in _blocks(
                 f, "ff", {"m": f.M, "v": Vp, "fid": f.FID}
             ):
                 w_pair = (
@@ -715,7 +708,7 @@ class DFSPHViscosityDense:
         def u_pass(U):
             """U_i = sum_j vol_j G_ij^T u_j [dim]."""
             acc = [zero] * dim
-            for dpos, r2, within, j in _pairs(
+            for dpos, r2, within, j in _blocks(
                 f, "ff", {"vol": f.VOL, "u": U, "fid": f.FID}
             ):
                 vol_pair = (

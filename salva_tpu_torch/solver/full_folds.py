@@ -1,13 +1,13 @@
 """The full-stencil plain folds of the dense solvers.
 
 Port of the folds ``salva_tpu.solver.dense_common.DenseCtx`` runs where
-neither its half stencil nor a Pallas kernel applies: ``_hot_blocks``
-with the full ``t_pass`` / ``k_pass`` folds, the fluid-fluid hoist fold
-of ``_hoist`` and its fluid-boundary roll fold. Each walks every offset
-of ``dense_grid.stencil_offsets(spec)`` (the 3^dim neighbor cells of a
+neither its half stencil nor a Pallas kernel applies: the full
+``t_pass`` / ``k_pass`` folds, the fluid-fluid hoist fold of ``_hoist``
+and its fluid-boundary roll fold. Each walks every offset of
+``dense_grid.stencil_offsets(spec)`` (the 3^dim neighbor cells of a
 grid, or the cyclic offsets 0..C-1 of the brute tier), one
-``[cap_i, cap_j, C]`` pair block per offset, accumulated offset by offset
-in the JAX fold's order.
+``[cap_i, cap_j, C]`` pair block per offset (``ops.pair.pair_blocks``),
+accumulated offset by offset in the JAX fold's order.
 
 They are plain PyTorch on every device. The brute tier runs them on the
 CPU and on the card alike (the JAX package runs no Pallas kernel there);
@@ -25,59 +25,32 @@ import torch
 
 from ..geometry import dense_grid as dg
 from ..kernels import get_kernel, w_dwr
-from ..ops.pair import _fb_body, fold_pairs
-
-
-def _jview(spec, offsets):
-    return lambda arr, o: dg.shift_j(spec, arr, offsets[o])
-
-
-def _hot_blocks(spec, h, dim, kernel_gradient, P, jview=None):
-    """(dpos, dwr, view) per offset, mask-free (empty slots hold the far
-    position sentinel); ``view(arr)`` is the j-side view of that offset:
-    ``jview(arr, o)``, by default the roll of the grid ``spec``."""
-    kg_w, kg_dw = get_kernel(kernel_gradient)
-    offsets = dg.stencil_offsets(spec)
-    jview = jview or _jview(spec, offsets)
-    for o in range(len(offsets)):
-        pj = jview(P, o)
-        dpos = [P[d][:, None, :] - pj[d][None, :, :] for d in range(dim)]
-        r2 = dpos[0] * dpos[0]
-        for d in range(1, dim):
-            r2 = r2 + dpos[d] * dpos[d]
-        _, dwr = w_dwr(r2, h, dim, kg_w, kg_dw)
-        yield dpos, dwr, (lambda arr, o=o: jview(arr, o))
+from ..ops.pair import fb_body, fold_pairs, k_body, t_body
 
 
 def t_pass(spec, h, dim, kernel_gradient, P, M, Q, jview=None):
     """T_i = sum_j m_j (Q_j . grad_ij) -> [cap, C]; ``jview``: the j-side
-    views (see :func:`_hot_blocks`)."""
-    acc = torch.zeros_like(M)
-    for dpos, dwr, view in _hot_blocks(spec, h, dim, kernel_gradient, P,
-                                       jview):
-        mj = view(M)
-        qj = view(Q)
-        t = torch.zeros_like(dwr)
-        for d in range(dim):
-            t = t + qj[d][None, :, :] * dpos[d]
-        acc = acc + torch.sum(t * dwr * mj[None, :, :], dim=1)
-    return acc
+    views, by default the rolls of the grid ``spec``."""
+    return fold_pairs(
+        len(dg.stencil_offsets(spec)), h, dim, P, None, P, None,
+        jview or dg.roll_views(spec), {"m": M, "q": Q},
+        t_body(h, dim, kernel_gradient), torch.zeros_like(M),
+    )
 
 
 def k_pass(spec, h, dim, kernel_gradient, P, M, K, jview=None):
     """K_i = sum_j k_j m_j grad_ij -> [dim, cap, C]."""
-    acc = [torch.zeros_like(M) for _ in range(dim)]
-    for dpos, dwr, view in _hot_blocks(spec, h, dim, kernel_gradient, P,
-                                       jview):
-        coeff = view(K)[None, :, :] * view(M)[None, :, :] * dwr
-        for d in range(dim):
-            acc[d] = acc[d] + torch.sum(dpos[d] * coeff, dim=1)
-    return torch.stack(acc)
+    return torch.stack(fold_pairs(
+        len(dg.stencil_offsets(spec)), h, dim, P, None, P, None,
+        jview or dg.roll_views(spec), {"mk": M * K},
+        k_body(h, dim, kernel_gradient),
+        [torch.zeros_like(M) for _ in range(dim)],
+    ))
 
 
 def ff_body(h, dim, kernel_density, kernel_gradient, need_s2):
-    """``DenseCtx._hoist``'s ``ff_body``: the fluid-fluid sums (rho, Gf,
-    sq, s2, count) of one [cap_i, cap_j, n] pair block."""
+    """The fluid-fluid hoist's sums (rho, Gf, sq, s2, count) of one
+    [cap_i, cap_j, n] pair block, over the j view ``m``."""
     kd_w, kd_dw = get_kernel(kernel_density)
     kg_w, kg_dw = get_kernel(kernel_gradient)
 
@@ -106,11 +79,10 @@ def hoist_ff(spec, h, dim, kernel_density, kernel_gradient, P, M, maskf,
              need_s2=True, jview=None):
     """(rho_ff, Gf, sq_ff, s2_ff, cnt_ff) over the live slots ``maskf``;
     s2 is zero unless ``need_s2``."""
-    offsets = dg.stencil_offsets(spec)
     z = torch.zeros_like(maskf)
     return fold_pairs(
-        offsets, h, dim, P, maskf, P, maskf,
-        jview or _jview(spec, offsets), {"m": M},
+        len(dg.stencil_offsets(spec)), h, dim, P, maskf, P, maskf,
+        jview or dg.roll_views(spec), {"m": M},
         ff_body(h, dim, kernel_density, kernel_gradient, need_s2),
         (z, torch.zeros_like(P), z, z,
          torch.zeros_like(maskf, dtype=torch.int32)),
@@ -123,13 +95,11 @@ def hoist_fb(spec, h, dim, kernel_density, kernel_gradient, P, maskf, Pb,
     ``maskf``, the boundary binned on the same columns as the fluid
     ([cap_b, C]: the brute tier, or a grid's full-grid boundary binning)
     or read through ``jview`` (the compact layout's boundary table)."""
-    offsets = dg.stencil_offsets(spec)
     z = torch.zeros_like(maskf)
     return fold_pairs(
-        offsets, h, dim, P, maskf, Pb, maskb,
-        jview or _jview(spec, offsets),
-        {"vol": Volb, "vb": Vbvel},
-        _fb_body(h, dim, kernel_density, kernel_gradient, need_s2),
+        len(dg.stencil_offsets(spec)), h, dim, P, maskf, Pb, maskb,
+        jview or dg.roll_views(spec), {"vol": Volb, "vb": Vbvel},
+        fb_body(h, dim, kernel_density, kernel_gradient, need_s2),
         (z, torch.zeros_like(P), z, z, z,
          torch.zeros_like(maskf, dtype=torch.int32)),
     )

@@ -61,7 +61,7 @@ from .object.state import (
     set_rows,
     set_rows_drop,
 )
-from .solver.dense_common import fold_pairs
+from .ops.pair import fold_pairs
 from .solver.elasticity import (
     Becker2009ElasticityForce,
     build_elasticity_state,
@@ -1164,7 +1164,7 @@ class LiquidWorld:
             return acc + torch.sum(torch.where(within & ok, w, 0.0), dim=1)
 
         wsum = fold_pairs(
-            dg.neighbor_offsets(dim), h, dim, P, binb.mask, P, binb.mask,
+            3 ** dim, h, dim, P, binb.mask, P, binb.mask,
             lambda arr, o: arr[..., nbt[:, o]],
             {"mem": mem, "flt": flt, "id": bid}, body,
             torch.zeros_like(binb.mask),

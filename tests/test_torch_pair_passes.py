@@ -438,7 +438,7 @@ def test_dense_ctx_runs_the_full_folds(full_state, monkeypatch):
                       dense_sparse_boundary=False, dense_half_stencil=False,
                       domain=((0.0,) * 3, (0.8,) * 3))
     ctx = TDenseCtx(tsim, tspec, tspec_b, fl, bd, need_s2=True)
-    assert ctx.use_full_folds and ctx.brute == (kind == "brute")
+    assert ctx.brute == (kind == "brute")
     # The port binds the state as the JAX package does (volumes: its
     # own boundary fold, to the last bits).
     for k, got in (("P", ctx.P), ("M", ctx.M), ("mask", ctx.maskf),

@@ -77,28 +77,26 @@ def visc_args(g, kernel_gradient="cubic", tables=TABLES):
 
 def dense_fields(g, kernel_gradient="cubic", pair_kernels=False):
     """The force's ``DenseFields`` over ``g`` (roll views; a boundary of
-    one empty-but-sentinel slot per cell), with the grid's counts where
-    ``pair_kernels`` (the grids' route), without them as the brute tier
-    and the compact layout hand the force."""
+    one empty-but-sentinel slot per cell), its fluid-fluid term the pass
+    over the grid's counts where ``pair_kernels`` (the grids' route), the
+    fold over the views as the brute tier and the compact layout hand the
+    force."""
     spec = g.spec
-    offs = tdg.neighbor_offsets(spec.dim)
-
-    def roll(a, o):
-        return tdg.shift_j(spec, a, offs[o])
-
+    roll = tdg.roll_views(spec)
     C = spec.num_cells
     dev = g.P.device
     Pb = torch.full((spec.dim, 1, C), tdg.POS_SENTINEL, device=dev)
     zb = torch.zeros((1, C), device=dev)
     return fd.DenseFields(
-        jff=roll, jfb=roll, jbf=roll, n_offsets=len(offs), P=g.P, V=g.V,
-        M=g.VOL * g.R0, VOL=g.VOL, R0=g.R0, RHO=g.RHO, FID=g.FID,
+        jff=roll, jfb=roll, jbf=roll, n_offsets=3 ** spec.dim, P=g.P,
+        V=g.V, M=g.VOL * g.R0, VOL=g.VOL, R0=g.R0, RHO=g.RHO, FID=g.FID,
         maskf=g.maskf, Pb=Pb, Vbvel=torch.zeros_like(Pb), Volb=zb,
         maskb=zb, h=H, dim=spec.dim,
         dt=torch.tensor(DT, device=dev),
         inv_dt=torch.tensor(1.0 / DT, device=dev),
         kernel_density="cubic", kernel_gradient=kernel_gradient,
-        spec=spec, counts=g.counts if pair_kernels else None)
+        visc_ff=(fd.visc_ff_pass(spec, g.counts) if pair_kernels
+                 else fd.visc_ff_fold))
 
 
 def visc_force(boundary=(0.0, 0.0), tables=TABLES):
