@@ -79,7 +79,13 @@ phases:
    its planted faults, timed and bounded, one device launch a call
    (``visc_ff_check``; phases 9, 11 and 13 hold it at their worlds'
    states, where a fluid carries the force); every dense path launches
-   it exactly where a fluid carries ``ArtificialViscosity``;
+   it exactly where a fluid carries ``ArtificialViscosity``; and the
+   pressure solves' boundary-owner pass (``boundary_forces``, a hand
+   kernel with no TPU counterpart) against its plain fold at the same
+   DFSPH forces path's state, held with its planted faults, timed and bounded,
+   one device launch a call (``boundary_forces_check``; every phase that
+   runs phase 5's checks holds it at its world's state); every grid path
+   launches it once a substep;
 6. each main path (DFSPH and IISPH, without and with the viscosity
    forces; DFSPH under poly6 / spiky and with faucet3's tension)
    stepped 5 times through the kernels and 5 times through the plain
@@ -282,6 +288,7 @@ HOIST_TOL = dict(rtol=1e-3, atol=1e-3)
 OUTPUTS = {
     "k_pass": ("K",),
     "artificial_visc_ff": ("F",),
+    "boundary_forces": ("F",),
     "t_pass": ("T",),
     "hoist_ff": ("rho", "Gf", "sq", "s2"),
     "hoist_fb": ("rho", "Gb", "sq", "s2", "Sb"),
@@ -408,6 +415,9 @@ REPLACES = {
     # The artificial viscosity's fluid-fluid term, plain jnp in the JAX
     # package (no Pallas kernel).
     "artificial_visc_ff": "salva_tpu/solver/forces_dense.py:203",
+    # The pressure solves' boundary-owner fold, plain jnp in the JAX
+    # package (no Pallas kernel).
+    "boundary_forces": "salva_tpu/solver/dense_common.py:1314",
 }
 SOURCES = {name: "salva_tpu_torch/csrc/pair_passes.cu" for name in REPLACES}
 SOURCES["expand"] = "salva_tpu_torch/csrc/expand.cu"
@@ -416,12 +426,13 @@ SOURCES["rigid_solve"] = "salva_tpu_torch/csrc/rigid_solve.cu"
 # the JAX package, no solver calls it): phase 5 holds and times it. The
 # artificial viscosity's fluid-fluid pass runs on the dense paths whose
 # fluid carries that force (``visc_launch_gate``).
-MAIN_PATH_KERNELS = ("k_pass", "t_pass", "hoist_ff", "hoist_fb", "expand")
+MAIN_PATH_KERNELS = ("k_pass", "t_pass", "hoist_ff", "hoist_fb",
+                     "boundary_forces", "expand")
 # The ``ops.pair`` wrappers a main path calls, each with its ``*_plain``
 # twin (the artificial viscosity's fluid-fluid pass only where a fluid
 # carries that force).
 PAIR_WRAPPERS = ("k_pass", "t_pass", "hoist_ff", "hoist_fb",
-                 "artificial_visc_ff")
+                 "boundary_forces", "artificial_visc_ff")
 # The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): HBM3
 # bandwidth and float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -479,8 +490,10 @@ LAYOUT_SAME_ITERS = ("frozen_97k_f32",)
 # main-path kernel must launch no time.
 _SPILL_KERNELS = ("k_pass", "t_pass", "hoist_ff", "expand")
 LAYOUT_KERNELS = {"compact_97k": ("expand",),
-                  "frozen_97k_f32": ("hoist_ff", "hoist_fb", "expand"),
-                  "frozen_97k_bf16": ("hoist_ff", "hoist_fb", "expand"),
+                  "frozen_97k_f32": ("hoist_ff", "hoist_fb",
+                                     "boundary_forces", "expand"),
+                  "frozen_97k_bf16": ("hoist_ff", "hoist_fb",
+                                      "boundary_forces", "expand"),
                   "spill_97k": _SPILL_KERNELS,
                   "spill8_97k": _SPILL_KERNELS,
                   "spill_auto_97k": _SPILL_KERNELS}
@@ -518,7 +531,7 @@ OPS_CANDIDATE = {2: 5, 3: 8}
 OPS_DWR = {"cubic": 14, "poly6": 8, "spiky": 6, "viscosity": 12}
 OPS_W = {"cubic": 11, "poly6": 6, "spiky": 5, "viscosity": 11}
 OPS_ACC = {"k_pass": 8, "t_pass": 8, "hoist_ff": 24, "hoist_fb": 33,
-           "k_pass_v2": 8, "artificial_visc_ff": 31}
+           "k_pass_v2": 8, "artificial_visc_ff": 31, "boundary_forces": 9}
 # Float32 operations of one impulse of the rigid solve, counted from
 # csrc/rigid_solve.cu: {dim: {(part, bodies): ops}}, the normal impulse
 # (relative velocity, effective mass, the clamped accumulation, the
@@ -1549,11 +1562,12 @@ def k_pass_v2_check(pair, results, spec, h, dim, P, M, K, counts, n_live,
 def phase_kernels(pair, world, full=True, visc_world=None):
     """Phase 5: each kernel vs its plain version at the state of the
     DFSPH main path's world after its 30 steps (the shapes the main path
-    gives it), and the artificial viscosity's fluid-fluid pass at the
-    state of ``visc_world`` (default ``world``) where a fluid there
-    carries that force. ``full=False`` (the 2D twin's state): the cubic
-    checks of k_pass, t_pass, both hoists, that pass (without planted
-    faults) and expand only (no k_pass_v2, no other SPH kernel names)."""
+    gives it), the artificial viscosity's fluid-fluid pass at the state
+    of ``visc_world`` (default ``world``) where a fluid there carries that
+    force, and the boundary-owner pass at that state. ``full=False`` (the
+    2D twin's state): the cubic checks of k_pass, t_pass, both hoists,
+    those two passes (without planted faults) and expand only (no
+    k_pass_v2, no other SPH kernel names)."""
     from salva_tpu_torch.geometry import dense_grid as tdg
 
     ctx = step_ctx(world)
@@ -1695,6 +1709,7 @@ def phase_kernels(pair, world, full=True, visc_world=None):
     visc_world = world if visc_world is None else visc_world
     visc = (visc_ff_check(pair, visc_world, full)
             if carries_visc(visc_world) else None)
+    bforce = boundary_forces_check(pair, visc_world, full)
 
     # Every SPH kernel name (KERNEL_NAMES): k_pass, t_pass and k_pass_v2
     # under each non-cubic gradient kernel, hoist_ff (with and without s2)
@@ -1945,6 +1960,7 @@ def phase_kernels(pair, world, full=True, visc_world=None):
                 r["max_abs_err"] for r in rec.values())
     if visc is not None:
         results["artificial_visc_ff"] = visc
+    results["boundary_forces"] = bforce
     results["expand"] = phase_expand(world, ctx)
     return results
 
@@ -2057,6 +2073,93 @@ def visc_ff_check(pair, world, full):
         f"read, {written} B written; {ops:.4g} float32 operations over "
         f"{n_eval} candidate / {within} within-h pairs); kernel / bound "
         f"{ms / b_ms:.1f}")
+    return dict(max_abs_err=err, ms=ms, call_ms=one, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, launches_per_call=n_dev,
+                kernel_names=[kg])
+
+
+def boundary_forces_check(pair, world, full):
+    """The pressure solves' boundary-owner pass at the state of ``world``:
+    ``boundary_forces`` against ``boundary_forces_plain`` (the fold over
+    the binding's fluid views) on the next step's binning, with a
+    coefficient of the DFSPH solve's order (1e-6 rho m on the live
+    slots), and a bitwise rerun; with ``full`` the planted faults (one
+    particle fewer in the fluid cell whose last particle carries the
+    largest term, |Gb| coef; the output x FAULT_SCALE) and one device
+    launch a call. Device time behind the spin kernel, a call with its
+    launch, the plain fold's time and the bound (the fluid slots within h
+    of a boundary particle and the live boundary slots read once, with
+    the two count arrays; the output planes written; dW/dr / r and
+    ``OPS_ACC`` for every pair within h, ``OPS_CANDIDATE`` for every
+    candidate). Returns the record."""
+    from salva_tpu_torch.geometry import dense_grid as tdg
+
+    tag = "[kernels] boundary_forces"
+    ctx = step_ctx(world)
+    spec, h, dim, counts = ctx.spec_f, ctx.h, ctx.dim, ctx.counts
+    kg = world.sim.kernel_gradient
+    C = spec.num_cells
+    coef = (ctx.rho * ctx.M * 1e-6).contiguous()
+    owner = ctx.binb.active_cells if ctx.sparse_b else None
+    side = (ctx.Pb, ctx.Volb, ctx.counts_b)
+
+    def run(c):
+        return pair.boundary_forces(spec, h, dim, kg, ctx.P, coef, c, *side,
+                                    owner_cells=owner)
+
+    def plain():
+        return pair.boundary_forces_plain(spec, h, dim, kg, ctx.P, coef,
+                                          counts, *side, owner_cells=owner)
+
+    cap_b, Cb = ctx.Pb.shape[1:]
+    log(f"{tag}: {dim}D, {C} cells, cap {spec.cap}; boundary "
+        f"{'sparse table' if owner is not None else 'full grid'} of {Cb} "
+        f"columns, cap {cap_b}, {int(ctx.counts_b.sum())} live slots; "
+        f"gradient kernel {kg}")
+    if full:
+        last = torch.clamp(counts.long() - 1, min=0)
+        term = (ctx.Gb.norm(dim=0) * coef).gather(0, last[None])[0]
+        short, _, cell = drop_last(counts, torch.arange(C, device="cuda"),
+                                   torch.where(counts > 0, term, -1.0))
+        log(f"{tag}: planted fault drops the last particle of cell {cell} "
+            f"({int(counts[cell])} particles, |Gb| coef of that particle "
+            f"{float(term[cell]):.4e})")
+        out, err = hold_kernel("boundary_forces", "boundary_forces",
+                               lambda f: run(short if f else counts), plain,
+                               KT_TOL)
+    else:
+        out, err = hold_outputs("boundary_forces", "boundary_forces",
+                                lambda: run(counts), plain, KT_TOL)
+    ms = cuda_ms(lambda: run(counts), 50)
+    one = call_ms(lambda: run(counts), 20)
+    plain_ms = cuda_ms(plain, 5)
+    # A profile without device events reads None, never 0 (ROADMAP
+    # Queue 3, item 12).
+    n_dev = (device_launches(lambda: run(counts)) or None) if full else None
+    assert n_dev in (None, 1), f"{tag}: {n_dev} launches a call"
+    # Candidates: each live boundary slot against every live fluid slot of
+    # its cell's 3^dim neighbours (the boundary counts on the full grid).
+    cb_full = torch.zeros(C + 1, dtype=torch.int64, device="cuda")
+    cols = (torch.arange(C, device="cuda") if owner is None
+            else torch.clamp(owner.long(), max=C))
+    cb_full.index_add_(0, cols, ctx.counts_b.long())
+    c64 = counts.long()
+    n_eval = sum(int((cb_full[:C] * shift_flat(c64, s)).sum())
+                 for s in tdg.flat_shifts(spec))
+    within = int(ctx.cnt_fb.sum())
+    n_pf = int((ctx.cnt_fb > 0).sum())
+    n_pb = int(ctx.counts_b.sum())
+    read = 4 * ((dim + 1) * (n_pf + n_pb) + C + Cb)
+    written = nbytes(out)
+    b_ms, b_by, ops = bound("boundary_forces", dim, read, written, n_eval,
+                            within, (kg, kg))
+    log(f"{tag}: kernel {ms:.4f} ms device time ({one:.4f} ms a call with "
+        f"its launch; {n_dev} device launch(es) a call, None: not profiled "
+        f"or no device events), plain {plain_ms:.4f} ms; bound {b_ms:.5f} "
+        f"ms ({b_by}; {read} B read: {n_pf} fluid slots within h of the "
+        f"boundary, {n_pb} boundary slots; {written} B written; {ops:.4g} "
+        f"float32 operations over {n_eval} candidate / {within} within-h "
+        f"pairs); kernel / bound {ms / b_ms:.1f}")
     return dict(max_abs_err=err, ms=ms, call_ms=one, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, launches_per_call=n_dev,
                 kernel_names=[kg])

@@ -26,6 +26,9 @@
 //   visc_ff  <- the fluid-fluid term of the dense artificial viscosity
 //               (solver/forces_dense.py); tile_pass_kernel<ViscFF>, see
 //               ViscFF
+//   boundary_forces <- the pressure solves' boundary-owner gradient fold
+//               (solver/dense_common.py DenseCtx.boundary_forces);
+//               bforce_warps, see below
 // The TPU kernels split each pass into an ungated 8-row slice plus a
 // gated complement over 8-row slot groups, because the TPU computes in
 // (8, 128) tiles. Here every kernel walks the true occupancy of each
@@ -164,6 +167,26 @@
 // visit are either all of them (cols == nullptr) or the sparse hoist's
 // adjacency table, so a table that overflows drops exactly the columns
 // the reference drops.
+//
+// The boundary forces (bforce_warps), once a substep after the pressure
+// solve: F_b = Volb_b sum_i -(p_b - p_i) dW/dr / r coef_i over the live
+// fluid slots of each boundary cell's 3^dim neighbours, the fb hoist with
+// the roles reversed. The plain fold it replaces visits the 27 offsets in
+// ~60 eager operations each (~1,700 launches a substep on a host-bound
+// step); the pair work is a fraction of the fb hoist's (one gradient a
+// pair within h, DIM accumulations), so what bounds the pass is the
+// output planes (DIM x cap_b x Cb x 4 B) and one launch. The design is
+// hoist_fb_warps' with the roles swapped: a warp per (boundary column,
+// 8-slot group) item, lane = 4 il + jl (boundary slot 8 g + il; j-lane jl
+// takes fluid slots jl, jl + 4, ... of each neighbour cell); lanes
+// o < 3^dim load neighbour cell o's fluid count (cells outside [0, C)
+// empty), a ballot lists the cells with fluid; the distance phase queues
+// the pairs the gradient kernel queues (Sph<Kg>::queue, r^2 rounded), and
+// the gradient runs on the queue only. The boundary columns are the
+// sparse binning's occupied-cell table (owner_cell = active_cells, whose
+// void and unused entries hold C and come back zero) or the full grid
+// (owner_cell null). Every slot is written, Volb_b's product fused, so a
+// call is one launch and no fill.
 //
 // Determinism: each output slot is summed by its own four lanes in a
 // fixed order (stencil rows or offsets, then rank); there are no
@@ -1222,6 +1245,124 @@ __global__ void __launch_bounds__(kFbThreads)
   }
 }
 
+// ---- boundary_forces: a warp per (boundary column, 8-slot group) ---------
+// (design and bound: the file note)
+
+constexpr int kBfThreads = 256;
+// Entries of each lane's queue of within-h fluid pairs.
+constexpr int kBfQueue = 16;
+
+// The pressure solves' forces on the boundary: per slot b of boundary
+// column t (the cell owner_cell[t], or t when owner_cell is null), over the
+// live fluid slots i of that cell's 3^dim neighbour cells,
+//   F_b = Volb_b sum_i -(p_b - p_i) dW/dr / r coef_i.
+// `out` is [DIM, cap_b, Cb]; every slot is written (zeros for dead slots
+// and for columns whose cell lies outside [0, C), the void column of the
+// sparse binning among them). Item w = column t, 8-slot group g,
+// w = t * groups + g. Kg: the gradient kernel.
+template <int DIM, int Kg>
+__global__ void __launch_bounds__(kBfThreads)
+    bforce_warps(const float* __restrict__ P, const float* __restrict__ coef,
+                 const int* __restrict__ count,
+                 const float* __restrict__ Pb,
+                 const float* __restrict__ Volb,
+                 const int* __restrict__ count_b,
+                 const int* __restrict__ owner_cell, float* __restrict__ out,
+                 int cap, int C, int cap_b, int Cb, int ny, int nz,
+                 Params k) {
+  constexpr int kWarps = kBfThreads / 32;
+  __shared__ int queues[kWarps][kBfQueue][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = (cap_b + 7) >> 3;
+  const long long item = (long long)blockIdx.x * kWarps + warp;
+  if (item >= (long long)Cb * groups) return;  // warp-uniform
+  const int t = (int)(item / groups);
+  const int g = (int)(item - (long long)t * groups);
+  const int il = lane >> 2, jl = lane & 3;
+  const int r = 8 * g + il;
+  const size_t plane = (size_t)cap * C;
+  const size_t plane_b = (size_t)cap_b * Cb;
+  const size_t slot = (size_t)r * Cb + t;
+  const int c = owner_cell ? owner_cell[t] : t;
+  const int n_b = (c >= 0 && c < C) ? min(count_b[t], cap_b) : 0;
+  const bool live_b = r < n_b;
+  float acc[DIM];
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) acc[d] = 0.0f;
+  if (n_b > 8 * g) {  // warp-uniform: a live group
+    // Lane o < 3^dim: neighbour cell o and its fluid count.
+    int fcol = 0, fcnt = 0;
+    if (lane < Stencil<DIM>::kOffsets) {
+      const int n = c + flat_shift<DIM>(lane, ny, nz);
+      if (n >= 0 && n < C) {  // outside the grid: an empty cell
+        fcol = n;
+        fcnt = min(count[n], cap);
+      }
+    }
+    unsigned cells = __ballot_sync(0xffffffffu, fcnt > 0);
+    float pb[DIM];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      pb[d] = live_b ? Pb[d * plane_b + slot] : 0.0f;
+    }
+    int len = 0;
+    int* q = &queues[warp][0][lane];
+    // p_b - p_i and r^2 (rounded as the plain fold rounds it) for fluid
+    // slot is.
+    auto dist2 = [&](size_t is, float (&dp)[DIM]) {
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) dp[d] = pb[d] - P[d * plane + is];
+      return r2_rounded<DIM>(dp);
+    };
+    auto flush = [&]() {
+      for (int e = 0; e < len; ++e) {
+        const size_t is = (size_t)q[e * 32];
+        float dp[DIM];
+        const float r2 = dist2(is, dp);
+        const float dwr = Sph<Kg>::dwr(r2, k);
+        const float ci = coef[is];
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) acc[d] -= dp[d] * dwr * ci;
+      }
+      len = 0;
+    };
+    // The cells with fluid, in stencil order; j-lane jl takes their live
+    // slots jl, jl + 4, ... and queues those its gradient kernel queues
+    // (beyond that rule dW/dr / r is +-0: the file note).
+    while (cells) {
+      const int o = __ffs(cells) - 1;
+      cells &= cells - 1;
+      const int n = __shfl_sync(0xffffffffu, fcol, o);
+      const int nf = __shfl_sync(0xffffffffu, fcnt, o);
+      for (int j0 = 0; j0 < nf; j0 += 4) {
+        if (__any_sync(0xffffffffu, len == kBfQueue)) flush();
+        const int j = j0 + jl;
+        if (live_b && j < nf) {
+          const size_t is = (size_t)j * C + n;
+          float dp[DIM];
+          if (Sph<Kg>::queue(dist2(is, dp), k)) q[len++ * 32] = (int)is;
+        }
+      }
+    }
+    flush();
+  }
+  // The 4 j-lane partial sums of each boundary slot, in a fixed order.
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) {
+    float v = acc[d];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    acc[d] = v;
+  }
+  if (jl == 0 && r < cap_b) {
+    const float vol = live_b ? Volb[slot] : 0.0f;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      out[d * plane_b + slot] = live_b ? vol * acc[d] : 0.0f;
+    }
+  }
+}
+
 // The passes of tile_pass_kernel, as salva_pass_tiling names them.
 enum TiledPass {
   kTileK = 0, kTileT = 1, kTileHoist = 2, kTileHoistS2 = 3, kTileVisc = 4
@@ -1425,6 +1566,45 @@ int salva_hoist_fb(const float* P, const int* count, const int* cols,
       }
       return (int)cudaGetLastError();
     });
+  });
+}
+
+// The boundary-owner gradient pass (bforce_warps). P [dim, cap, C], coef
+// [cap, C] and count [C] on the fluid grid; Pb [dim, cap_b, Cb], Volb
+// [cap_b, Cb] and count_b [Cb] on the boundary grid; `owner_cell` [Cb]
+// the fluid-grid cell of each boundary column (the sparse binning's
+// active_cells), or null when the boundary grid is the full grid (Cb =
+// C). `out` is [dim, cap_b, Cb]; every slot is written.
+int salva_boundary_forces(const float* P, const float* coef,
+                          const int* count, const float* Pb,
+                          const float* Volb, const int* count_b,
+                          const int* owner_cell, float* out, int dim,
+                          int cap, int C, int cap_b, int Cb, int ny, int nz,
+                          int kg, const float* params, void* stream) {
+  if (cap_b <= 0 || Cb <= 0) return kNotLaunched;
+  // A queued fluid slot is an int index j * C + n.
+  if (cap < 0 || C <= 0 || (long long)cap * C > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Params k = load_params(params);
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long warps = (long long)Cb * ((cap_b + 7) / 8);
+  const int per_block = kBfThreads / 32;
+  const dim3 grid((unsigned)((warps + per_block - 1) / per_block));
+  return with_kernel(kg, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    if (dim == 3) {
+      bforce_warps<3, G><<<grid, kBfThreads, 0, s>>>(
+          P, coef, count, Pb, Volb, count_b, owner_cell, out, cap, C, cap_b,
+          Cb, ny, nz, k);
+    } else if (dim == 2) {
+      bforce_warps<2, G><<<grid, kBfThreads, 0, s>>>(
+          P, coef, count, Pb, Volb, count_b, owner_cell, out, cap, C, cap_b,
+          Cb, ny, nz, k);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
   });
 }
 

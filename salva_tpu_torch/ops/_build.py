@@ -67,6 +67,8 @@ _SIGNATURES = {
                         _P],
     "salva_visc_ff": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                       _I, _I, _I, _F, _P, _P],
+    "salva_boundary_forces": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _P, _P],
     "salva_expand": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "salva_rigid_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _F, _F, _P],

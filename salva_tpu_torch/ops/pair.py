@@ -1,5 +1,6 @@
-"""The four dense pair passes of the DFSPH and IISPH solvers, and the
-fluid-fluid term of the dense artificial viscosity.
+"""The four dense pair passes of the DFSPH and IISPH solvers, the
+fluid-fluid term of the dense artificial viscosity, and the pressure
+solves' boundary forces.
 
 Each pass has a hand-written CUDA kernel (``csrc/pair_passes.cu``) and a
 plain PyTorch version beside it:
@@ -13,6 +14,8 @@ wrapper                 computes, per live slot i of the grid   plain version
 ``hoist_fb``            rho, Gb, sq, s2, Sb, count (j boundary)  ``hoist_fb_plain``
 ``k_pass_v2``           ``k_pass`` in 8-slot groups (below)      ``k_pass_plain``
 ``artificial_visc_ff``  Monaghan viscosity, same fluid [dim,...] ``artificial_visc_ff_plain``
+``boundary_forces``     per live boundary slot b: Volb_b sum_i   ``boundary_forces_plain``
+                        grad_bi coef_i (i fluid) [dim,cap_b,Cb]
 ======================  ======================================  =============================
 
 (grad_ij = (p_i - p_j) dW/dr / r, summed over the 3^dim cell stencil.)
@@ -40,13 +43,17 @@ The fluid-fluid plain versions are the half-stencil folds of
 stencil shares one ``[cap, cap, C]`` pair block, whose mirrored j-side
 sum is rolled back onto cell c + s. ``hoist_fb_plain`` is the same
 class's fluid-boundary fold (``_hoist_fb_sparse`` and the roll fold of
-``_hoist``). The kernels walk the full stencil per output slot instead,
-so the two agree to float32 summation order.
+``_hoist``). ``boundary_forces_plain`` is ``DenseCtx``'s boundary-owner
+fold (:func:`boundary_forces_fold`) over the fluid grid's rolls or, under
+the sparse boundary binning, its column table (:func:`owner_view`). The
+kernels walk the full stencil per output slot instead, so the two agree
+to float32 summation order.
 
 All passes take the per-cell live counts ``counts`` ([C] int32, ranks
 fill from 0, so slot (r, c) is live iff r < counts[c]); the plain hoists
-rebuild the occupancy masks from them (``hoist_fb`` takes the boundary
-side's counts ``counts_b`` the same way).
+rebuild the occupancy masks from them (``hoist_fb`` and
+``boundary_forces`` take the boundary side's counts ``counts_b`` the same
+way).
 
 Every plain fold of the dense solver, here and in ``solver/``, takes its
 per-offset pair block (j views, dpos, r^2, ``within``) from
@@ -74,7 +81,7 @@ from ..kernels.sph import (
 )
 
 LAUNCHES = {"k_pass": 0, "t_pass": 0, "hoist_ff": 0, "hoist_fb": 0,
-            "k_pass_v2": 0, "artificial_visc_ff": 0}
+            "k_pass_v2": 0, "artificial_visc_ff": 0, "boundary_forces": 0}
 
 
 def reset_launches():
@@ -419,6 +426,64 @@ def artificial_visc_ff_fold(n_offsets, jview, mask, h, dim, kernel_gradient,
                       torch.zeros_like(P))
 
 
+def boundary_forces_fold(n_offsets, jview, h, dim, kernel_gradient, Pb, P,
+                         coef, init):
+    """The pressure solves' boundary-owner fold: ``init`` plus, per
+    boundary slot b of ``Pb`` [dim, cap_b, Cb], the sum over the
+    ``n_offsets`` fluid views ``jview(arr, o)`` of -(p_b - p_i) dW/dr / r
+    coef_i -> [dim, cap_b, Cb]. No mask: ``coef`` is zero on dead fluid
+    slots, and the sentinel positions zero dW/dr / r for any empty-slot
+    pairing."""
+    kg_w, kg_dw = get_kernel(kernel_gradient)
+
+    def body(acc, dpos, r2, within, j):
+        _, dwr = w_dwr(r2, h, dim, kg_w, kg_dw)
+        c = j["coef"][None, :, :]
+        return torch.stack(
+            [acc[d] - torch.sum(dpos[d] * dwr * c, dim=1)
+             for d in range(dim)]
+        )
+
+    return fold_pairs(n_offsets, h, dim, Pb, None, P, None, jview,
+                      {"coef": coef}, body, init)
+
+
+def owner_view(spec, owner_cells):
+    """The fluid-side view of a boundary-owner fold under the sparse
+    boundary binning: at offset ``o``, the fluid column of each boundary
+    column's cell (``owner_cells`` [A_b + 1] int32, the binning's
+    ``active_cells``; void and unused entries hold C and read column 0,
+    whose slots their sentinel positions leave out) shifted by the
+    stencil's flat shift and clamped into the grid. Its [A_b + 1, 3^dim]
+    column table is built at the first call."""
+    C = spec.num_cells
+    table = []
+
+    def view(arr, o):
+        if not table:
+            sh = torch.tensor(dg.flat_shifts(spec), dtype=torch.int64,
+                              device=owner_cells.device)
+            cells = owner_cells.long()[:, None]
+            table.append(torch.clamp(
+                torch.where(cells >= C, 0, cells + sh[None, :]), 0, C - 1))
+        return arr[..., table[0][:, o]]
+
+    return view
+
+
+def boundary_forces_plain(spec, h, dim, kernel_gradient, P, coef, counts,
+                          Pb, Volb, counts_b, owner_cells=None):
+    """Volb_b times :func:`boundary_forces_fold` over the grid's 3^dim
+    rolls (``owner_cells`` None: the full-grid boundary binning) or the
+    sparse binning's :func:`owner_view`."""
+    jview = (dg.roll_views(spec) if owner_cells is None
+             else owner_view(spec, owner_cells))
+    F = boundary_forces_fold(len(dg.stencil_offsets(spec)), jview, h, dim,
+                             kernel_gradient, Pb, P, coef,
+                             torch.zeros_like(Pb))
+    return Volb[None] * F
+
+
 def artificial_visc_ff_plain(spec, h, dim, kernel_gradient, P, V, VOL, RHO,
                              R0, FID, counts, coefficients, alphas, betas,
                              speeds_of_sound):
@@ -633,14 +698,41 @@ def hoist_ff(spec, h, dim, kernel_density, kernel_gradient, P, M, counts,
             out[3 + dim].view(torch.int32))
 
 
+def _check_side(name, device, on_cpu, floats, ints):
+    """Validate a pass's boundary-side operands: ``floats`` / ``ints``,
+    (tensor, expected shape, label) of float32 / int32, each on
+    ``device`` (and contiguous for the kernel); raise otherwise."""
+    for t, shape, _ in floats:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    for t, shape, label in ints:
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {label} must be int32 of shape "
+                             f"{shape}")
+    for t, _, _ in floats + ints:
+        if t.device != device or not (on_cpu or t.is_contiguous()):
+            raise ValueError(
+                f"{name}: every operand must be a contiguous tensor on "
+                f"{device}"
+            )
+
+
+def _boundary_grid(name, dim, Pb):
+    """(cap_b, Cb) of the boundary positions ``Pb`` [dim, cap_b, Cb]."""
+    if Pb.ndim != 3 or Pb.shape[0] != dim:
+        raise ValueError(f"{name}: expected boundary positions "
+                         "[dim, cap_b, Cb]")
+    return Pb.shape[1], Pb.shape[2]
+
+
 def _check_fb(dim, C, on_cpu, device, Pb, Volb, Vbvel, counts_b,
               cell_to_col, cols):
     """Validate ``hoist_fb``'s boundary-side operands (see
     :func:`hoist_fb_plain`); raise on anything the kernel does not take."""
-    if Pb.ndim != 3 or Pb.shape[0] != dim:
-        raise ValueError("hoist_fb: expected boundary positions "
-                         "[dim, cap_b, Cb]")
-    cap_b, Cb = Pb.shape[1], Pb.shape[2]
+    cap_b, Cb = _boundary_grid("hoist_fb", dim, Pb)
     ints = [(counts_b, (Cb,), "counts_b")]
     if cell_to_col is None:
         if Cb != C or cols is not None:
@@ -655,23 +747,9 @@ def _check_fb(dim, C, on_cpu, device, Pb, Volb, Vbvel, counts_b,
         if cols.ndim != 1:
             raise ValueError("hoist_fb: cols must be one-dimensional")
         ints.append((cols, tuple(cols.shape), "cols"))
-    for t, shape in ((Pb, (dim, cap_b, Cb)), (Volb, (cap_b, Cb)),
-                     (Vbvel, (dim, cap_b, Cb))):
-        if t.dtype != torch.float32:
-            raise TypeError(f"hoist_fb: expected float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"hoist_fb: expected shape {shape}, got "
-                             f"{tuple(t.shape)}")
-    for t, shape, name in ints:
-        if t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(f"hoist_fb: {name} must be int32 of shape "
-                             f"{shape}")
-    for t in [Pb, Volb, Vbvel] + [t for t, _, _ in ints]:
-        if t.device != device or not (on_cpu or t.is_contiguous()):
-            raise ValueError(
-                f"hoist_fb: every operand must be a contiguous tensor on "
-                f"{device}"
-            )
+    _check_side("hoist_fb", device, on_cpu,
+                [(Pb, (dim, cap_b, Cb), "Pb"), (Volb, (cap_b, Cb), "Volb"),
+                 (Vbvel, (dim, cap_b, Cb), "Vbvel")], ints)
     return cap_b, Cb
 
 
@@ -750,4 +828,52 @@ def artificial_visc_ff(spec, h, dim, kernel_gradient, P, V, VOL, RHO, R0,
             out.data_ptr(), *_grid_args(spec, dim, P),
             _KERNEL_IDS[kernel_gradient], h * h * 0.01,
             _pair_params(h, dim), device=P.device)
+    return out
+
+
+def boundary_forces(spec, h, dim, kernel_gradient, P, coef, counts, Pb, Volb,
+                    counts_b, owner_cells=None):
+    """The pressure solves' forces on the boundary, per boundary slot b:
+    F_b = Volb_b sum_i -(p_b - p_i) dW/dr / r coef_i over the live fluid
+    slots i of the 3^dim cells around b's cell -> [dim, cap_b, Cb].
+
+    - ``P`` [dim, cap, C], ``coef`` [cap, C] float32 and ``counts`` [C]:
+      the fluid grid (``coef`` zero on dead slots, for the plain fold);
+    - ``Pb`` [dim, cap_b, Cb], ``Volb`` [cap_b, Cb] and ``counts_b`` [Cb]:
+      the boundary grid;
+    - ``owner_cells`` [Cb] int32: the fluid-grid cell of each boundary
+      column (the sparse binning's ``active_cells``; void and unused
+      entries hold C and come back zero), or None for the full-grid
+      binning (Cb == C, identity).
+
+    On CPU tensors :func:`boundary_forces_plain`; on CUDA tensors one
+    launch of the kernel, which writes every slot (zeros for dead slots
+    and void columns)."""
+    on_cpu = _check("boundary_forces", spec, dim, (kernel_gradient,),
+                    [(P, _vec), (coef, _scl)], counts)
+    cap_b, Cb = _boundary_grid("boundary_forces", dim, Pb)
+    ints = [(counts_b, (Cb,), "counts_b")]
+    if owner_cells is None:
+        if Cb != P.shape[2]:
+            raise ValueError(
+                "boundary_forces: without owner_cells the boundary grid is "
+                f"the fluid grid ({P.shape[2]} columns, got {Cb})")
+    else:
+        ints.append((owner_cells, (Cb,), "owner_cells"))
+    _check_side("boundary_forces", P.device, on_cpu,
+                [(Pb, (dim, cap_b, Cb), "Pb"), (Volb, (cap_b, Cb), "Volb")],
+                ints)
+    if on_cpu:
+        return boundary_forces_plain(spec, h, dim, kernel_gradient, P, coef,
+                                     counts, Pb, Volb, counts_b,
+                                     owner_cells=owner_cells)
+    out = torch.empty_like(Pb)
+    dim_, cap, C, ny, nz = _grid_args(spec, dim, P)
+    _launch("boundary_forces", "salva_boundary_forces", P.data_ptr(),
+            coef.data_ptr(), counts.data_ptr(), Pb.data_ptr(),
+            Volb.data_ptr(), counts_b.data_ptr(),
+            None if owner_cells is None else owner_cells.data_ptr(),
+            out.data_ptr(), dim_, cap, C, cap_b, Cb, ny, nz,
+            _KERNEL_IDS[kernel_gradient], _pair_params(h, dim),
+            device=P.device)
     return out

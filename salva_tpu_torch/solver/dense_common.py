@@ -30,23 +30,25 @@ shuffle a gather through the binding's ``grid_src``.
 What serves each hot pass is chosen once, when the context binds
 (``_bind_passes``); the passes and the forces read that choice:
 
-====================  =========  =========  =========  =======
-binding               ff hoist   fb hoist   t, k       visc ff
-====================  =========  =========  =========  =======
-brute tier, compact   full fold  full fold  full fold  fold
-CPU, full stencil     full fold  pair       full fold  fold
-dense+spill           spill      spill      spill      --
-every other grid      pair       pair       pair       pair
-====================  =========  =========  =========  =======
+====================  =========  =========  =========  =======  ========
+binding               ff hoist   fb hoist   t, k       visc ff  b forces
+====================  =========  =========  =========  =======  ========
+brute tier, compact   full fold  full fold  full fold  fold     fold
+CPU, full stencil     full fold  pair       full fold  fold     pair
+dense+spill           spill      spill      spill      --       fold
+every other grid      pair       pair       pair       pair     pair
+====================  =========  =========  =========  =======  ========
 
 "CPU, full stencil" is a grid of CPU tensors with
 ``dense_half_stencil=False``, or a slab (which has no half stencil).
-"full fold" is ``solver/full_folds.py`` and "fold" the artificial
-viscosity's fold over the force views, plain torch on every device, where
+"full fold" is ``solver/full_folds.py``; "fold" the artificial
+viscosity's fold over the force views, or the boundary forces' fold
+(``ops.pair.boundary_forces_fold``, and under the spill structure a
+second fold over the spill slots), plain torch on every device, where
 the reference runs its full-stencil folds and no Pallas kernel. "pair" is
 the ``ops.pair`` wrappers: hand kernels for CUDA tensors, for CPU tensors
-the plain half-stencil versions (for the fb hoist the reference's full
-fold, bitwise). "spill" is ``ops.pair`` on the main columns and plain
+the plain half-stencil versions (for the fb hoist and the boundary
+forces the reference's full fold, bitwise). "spill" is ``ops.pair`` on the main columns and plain
 gathered folds for the pairs that touch a spill slot, on every device (no
 dense pair force runs with the spill structure).
 With frozen pair coefficients (``dense_frozen_pairs``) the hoists stay
@@ -325,9 +327,10 @@ class DenseCtx:
 
     def _bind_passes(self, sim):
         """The one choice of what serves the two hoists, ``t_pass``,
-        ``k_pass`` and the artificial viscosity's fluid-fluid term on this
-        binding (the table in the module note): callables read by
-        :meth:`_hoist`, :meth:`t_pass`, :meth:`k_pass` and the forces.
+        ``k_pass``, the artificial viscosity's fluid-fluid term and the
+        boundary forces on this binding (the table in the module note):
+        callables read by :meth:`_hoist`, :meth:`t_pass`, :meth:`k_pass`,
+        :meth:`boundary_forces` and the forces.
         Each takes the context as its first argument and holds none, so
         that a context keeps no reference cycle and frees its tensors as
         soon as it is dropped."""
@@ -366,8 +369,10 @@ class DenseCtx:
             self._fb_hoist = lambda c: full_folds.hoist_fb(
                 *grid, kd, kg, c.P, c.maskf, c.Pb, c.maskb, c.Volb, c.Vbvel,
                 need_s2=c.need_s2, jview=c.jfb)
+            self._b_forces = DenseCtx._boundary_forces_fold
         elif self.spill_E:
             self._fb_hoist = DenseCtx._hoist_fb_spill
+            self._b_forces = DenseCtx._boundary_forces_fold
         else:
             # One pass for the three grid branches of the reference: the
             # sparse table (boundary-adjacent columns only), every column
@@ -379,6 +384,11 @@ class DenseCtx:
                 cell_to_col=c.binb.cell_to_active if c.sparse_b else None,
                 cols=c._fb_table() if c._fb_cols() else None,
                 need_s2=c.need_s2)
+            # The boundary-owner pass over the same two binnings (the
+            # sparse one's occupied-cell table, or the full grid).
+            self._b_forces = lambda c, coef: pair.boundary_forces(
+                *grid, kg, c.P, coef, c.counts, c.Pb, c.Volb, c.counts_b,
+                owner_cells=c.binb.active_cells if c.sparse_b else None)
         self._visc_ff = (visc_ff_fold if full
                          else visc_ff_pass(self.spec_f, self.counts))
 
@@ -435,22 +445,12 @@ class DenseCtx:
             spec_f, self.binb.active_cells, self.binb.cell_to_active
         ).long()
         self.jbb = lambda arr, o: arr[..., nbb[:, o]]
-        C = spec_f.num_cells
-        shifts = torch.tensor(dg.flat_shifts(spec_f), dtype=torch.int64,
-                              device=self.device)
         active = self.binb.active_cells.long()  # [A_b + 1], void = C
-        is_void = active >= C
         self._b_active = active
-        self._b_is_void = is_void
-
-        def jbf(arr, o):
-            """Full-grid fluid column of each boundary active cell at
-            offset o (void columns read column 0; their boundary
-            slots are sentinel-masked)."""
-            cols = torch.where(is_void, 0, active + shifts[o])
-            return arr[..., torch.clamp(cols, 0, C - 1)]
-
-        self.jbf = jbf
+        self._b_is_void = active >= spec_f.num_cells
+        # The full-grid fluid column of each boundary column's cell at
+        # offset o (the spill tier's boundary-owner fold).
+        self.jbf = pair.owner_view(spec_f, self.binb.active_cells)
 
     @property
     def bin_overflow(self):
@@ -924,28 +924,20 @@ class DenseCtx:
         return torch.sum(Vp * self.Gsum, dim=0) - t - self.Sb
 
     def boundary_forces(self, coef):
-        """One boundary-owner pass: F_b = Volb_b sum_i grad_ij coef_i
-        (grad w.r.t. the fluid point; dpos in the fold is p_b - p_i).
+        """F_b = Volb_b sum_i grad_ij coef_i over each boundary slot's
+        fluid neighbours (grad w.r.t. the fluid point; dpos is p_b - p_i):
+        one boundary-owner pass, as the binding chose it."""
+        return self._b_forces(self, coef)
+
+    def _boundary_forces_fold(self, coef):
+        """The plain boundary-owner fold over the binding's fluid views.
         Under the spill structure a second fold adds the spill fluid
         slots' contributions (j = the spill columns of each boundary
         cell's 3^dim neighborhood)."""
-        kg_w, kg_dw = self.kg
-        dim, h = self.dim, self.h
-
-        # No mask: coef is zero on dead fluid slots and the sentinel
-        # positions zero dwr for any empty-slot pairing.
-        def body(acc, dpos, r2, within, j):
-            _, dwr = w_dwr(r2, h, dim, kg_w, kg_dw)
-            c = j["coef"][None, :, :]
-            return torch.stack(
-                [acc[d] - torch.sum(dpos[d] * dwr * c, dim=1)
-                 for d in range(dim)]
-            )
-
-        Fb = fold_pairs(
-            self.n_offsets, h, dim, self.Pb, None, self.P, None,
-            self.jbf, {"coef": coef}, body, torch.zeros_like(self.Pb),
-        )
+        Fb = pair.boundary_forces_fold(
+            self.n_offsets, self.jbf, self.h, self.dim,
+            self.sim.kernel_gradient, self.Pb, self.P, coef,
+            torch.zeros_like(self.Pb))
         if self.spill_E:
             C = self._Cmain
             sh = torch.tensor(dg.flat_shifts(self.spec_f), dtype=torch.int64,
@@ -953,11 +945,11 @@ class DenseCtx:
             b_cell = torch.clamp(self._b_active, max=C)  # void -> C
             nbs = C + self._c2s_ext[torch.clamp(
                 b_cell[:, None] + sh[None, :], 0, C)]  # [Ab+1, 3^dim]
-            Fb = fold_pairs(
-                self.n_offsets, h, dim, self.Pb, None, self.P, None,
+            Fb = pair.boundary_forces_fold(
+                self.n_offsets,
                 lambda arr, o: arr[..., :self.cap2, :][..., nbs[:, o]],
-                {"coef": coef}, body, Fb,
-            )
+                self.h, self.dim, self.sim.kernel_gradient, self.Pb, self.P,
+                coef, Fb)
         return self.Volb[None] * Fb
 
     # -- force-facing views ---------------------------------------------------

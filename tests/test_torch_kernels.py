@@ -14,7 +14,10 @@ and 3D, with cells over 8 particles (for the artificial viscosity's
 fluid-fluid pass, ``tests/test_torch_visc_pass.py``'s two-fluid grid,
 velocities and densities); for ``hoist_fb``, a moving boundary
 layer through it, binned both ways (full grid, compact table with the
-adjacency columns, unused entries among them). The tiled ``k_pass`` /
+adjacency columns, unused entries among them); for ``boundary_forces``,
+such a layer binned into the full grid, into an occupied-cell table with
+void entries and into one slab's grid, with garbage in the dead fluid
+slots. The tiled ``k_pass`` /
 ``t_pass`` / ``hoist_ff`` kernels are also held on grids cut to their
 tiles (``_tiled_grid``: caps 8 to 48, inner extents that are no multiple
 of a tile or shorter than one, the fullest cells on tile edges, an
@@ -483,7 +486,7 @@ def test_non_cubic_kernels_match_plain(cuda, dim, kd, kg):
             assert all(torch.equal(a, b) for a, b in zip(out, again))
     assert {n: pair.LAUNCHES[n] - before[n] for n in before} == {
         "k_pass": 2, "t_pass": 2, "k_pass_v2": 2, "hoist_ff": 2,
-        "hoist_fb": 8, "artificial_visc_ff": 0}
+        "hoist_fb": 8, "artificial_visc_ff": 0, "boundary_forces": 0}
 
 
 @pytest.mark.parametrize("kd,kg", KERNEL_PAIRS)
@@ -544,10 +547,11 @@ def test_hoist_fb_with_no_columns_is_zero_and_not_counted(cuda):
     assert all(int(torch.count_nonzero(o)) == 0 for o in out)
 
 
-def _small_dam_world(device, layout, forces=()):
+def _small_dam_world(device, layout, forces=(), solver=None, dense_cap=None):
     """``tests/test_brute.py``'s ``_dam_world`` at n=5 (125 particles on
     a lattice 2 radii apart, falling at 2 m/s over a sampled floor), the
-    fluid carrying ``forces``."""
+    fluid carrying ``forces``; ``solver`` None: DFSPH; ``dense_cap`` None:
+    the auto cap tier."""
     from salva_tpu_torch import shapes
     from salva_tpu_torch.sampling import shape_surface_sample
     from salva_tpu_torch.world import Boundary, Fluid, LiquidWorld
@@ -555,7 +559,7 @@ def _small_dam_world(device, layout, forces=()):
     r = 0.05
     w = LiquidWorld(particle_radius=r, dim=3, layout=layout, fit_grid=False,
                     domain=((-1.0, -0.4, -1.0), (1.0, 2.0, 1.0)),
-                    device=device)
+                    device=device, solver=solver, dense_cap=dense_cap)
     ax = np.arange(5) * 2.0 * r
     pos = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"),
                    -1).reshape(-1, 3).astype(np.float32)
@@ -996,3 +1000,199 @@ def test_visc_ff_launches_once_a_substep_on_the_n40_scene(cuda):
     scenes.run(s, 2)
     n = pair.LAUNCHES["artificial_visc_ff"]
     assert n == pair.LAUNCHES["hoist_ff"] >= 2
+
+
+# -- the boundary forces' boundary-owner pass --------------------------------
+
+
+def _bf_boundary(spec, device, layout, owner_spec=None):
+    """The jittered boundary layer of :func:`_boundary` (at y ~ 0.5,
+    through the fluid of :func:`_grid`), binned as ``boundary_forces``
+    takes it: ``"full"`` into the fluid grid's cells (no owner table),
+    ``"sparse"`` into a 256-entry occupied-cell table with void entries.
+    ``owner_spec``: bin into that (slab) grid instead, on the full-grid
+    layout. Returns (Pb, Volb, counts_b, owner_cells)."""
+    dim = spec.dim
+    rng = np.random.default_rng(29 + dim)
+    ticks = np.arange(0.05, 1.6, 0.1)
+    grid = np.stack(np.meshgrid(*([ticks] * (dim - 1)), indexing="ij"),
+                    axis=-1).reshape(-1, dim - 1)
+    bpos = np.insert(grid, 1, 0.5, axis=1)
+    bpos = bpos + rng.uniform(-0.02, 0.02, size=bpos.shape)
+    nb = len(bpos)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    bpos = t(bpos)
+    vol = t(rng.uniform(1e-3, 2e-3, size=nb))
+    alive = torch.ones(nb, dtype=torch.bool, device=device)
+    bspec = spec.replace(cap=8)
+    owner = None
+    if owner_spec is not None:
+        binb, sb = owner_spec(bspec, bpos, alive)
+    elif layout == "full":
+        binb, sb = tdg.bin_particles(bspec, bpos, alive), bspec
+    else:
+        binb = tdg.bin_particles_active(bspec, 256, bpos, alive)
+        sb = tdg.ActiveSpec(257, bspec.cap)
+        owner = binb.active_cells
+        assert bool((owner >= spec.num_cells).any())  # void entries
+    Pb, Volb = tdg.to_grid_multi(sb, binb, [(bpos, tdg.POS_SENTINEL),
+                                            (vol, 0.0)])
+    counts_b = (binb.mask > 0).sum(dim=0, dtype=torch.int32)
+    return Pb, Volb, counts_b, owner
+
+
+def _coef(M, seed=0):
+    """A pressure coefficient of the solvers' order on the live slots,
+    zero on the dead ones."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(M.shape, generator=g).to(M.device) + 0.5) * (M > 0)
+
+
+def _bf_check(args, label, owner=None):
+    """``boundary_forces`` on ``args``: one launch, every slot written
+    (garbage in the allocator's cached blocks beforehand), held to the
+    plain fold (``_assert_close_peak``), zero on dead boundary slots, a
+    bitwise rerun. Returns (kernel, plain)."""
+    Pb = args[7]
+    junk = torch.full(tuple(Pb.shape), float("nan"), device=Pb.device)
+    del junk
+    before = pair.LAUNCHES["boundary_forces"]
+    out = pair.boundary_forces(*args, owner_cells=owner)
+    assert pair.LAUNCHES["boundary_forces"] == before + 1
+    want = pair.boundary_forces_plain(*args, owner_cells=owner)
+    assert out.shape == want.shape and out.is_contiguous()
+    _assert_close_peak(out, want, KT_TOL, label)
+    dead = torch.arange(Pb.shape[1], device=Pb.device)[:, None] >= args[9]
+    assert not bool(out[:, dead].any())
+    assert torch.equal(out, pair.boundary_forces(*args, owner_cells=owner))
+    return out, want
+
+
+@pytest.mark.parametrize("layout", ["full", "sparse"])
+@pytest.mark.parametrize("kg", ["cubic", "poly6", "spiky", "viscosity"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_boundary_forces_kernel_matches_plain(cuda, dim, kg, layout):
+    """The pass under every gradient kernel on both boundary binnings
+    (the sparse one's void columns come back zero), with dead fluid slots
+    holding garbage positions where ``coef`` is 0: the kernel reads no
+    dead slot, and the plain fold adds their terms times 0."""
+    spec, P, M, V, K, counts = _grid(dim, cuda)
+    Pb, Volb, counts_b, owner = _bf_boundary(spec, cuda, layout)
+    coef = _coef(M)
+    args = (spec, H, dim, kg, P, coef, counts, Pb, Volb, counts_b)
+    out, want = _bf_check(args, f"boundary_forces {dim}D {kg} {layout}",
+                          owner)
+    assert float(want.abs().max()) > 0
+    if owner is not None:
+        assert not bool(out[..., owner >= spec.num_cells].any())
+    g = torch.Generator().manual_seed(1)
+    garbage = (torch.rand(P.shape, generator=g).to(cuda) * 1.6)
+    P_bad = torch.where(M[None] > 0, P, garbage).contiguous()
+    bad = (spec, H, dim, kg, P_bad, coef, counts, Pb, Volb, counts_b)
+    assert torch.equal(pair.boundary_forces(*bad, owner_cells=owner), out)
+    _assert_close_peak(pair.boundary_forces_plain(*bad, owner_cells=owner),
+                       want, KT_TOL, "plain fold with dead-slot garbage")
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_boundary_forces_on_a_slab_and_an_all_air_grid(cuda, dim):
+    """On one slab's grid (``bin_particles_slab``: two ghost layers, the
+    cells beyond them empty for the kernel and rolled cyclically by the
+    plain fold) the owned columns agree; with no fluid every slot is
+    zero."""
+    spec, P, M, V, K, counts = _grid(dim, cuda)
+    pos = P[:, M > 0].T.contiguous()
+    nxl = (spec.dims[0] - 2) // 2
+    local = spec.replace(dims=(nxl + 2,) + spec.dims[1:])
+    alive = torch.ones(pos.shape[0], dtype=torch.bool, device=cuda)
+    binf = tdg.bin_particles_slab(spec, nxl, 0, pos, alive)
+    Ps, Ms = tdg.to_grid_multi(local, binf, [
+        (pos, tdg.POS_SENTINEL), (torch.ones_like(pos[:, 0]), 0.0)])
+    cs = (binf.mask > 0).sum(dim=0, dtype=torch.int32)
+    Pb, Volb, counts_b, _ = _bf_boundary(
+        spec, cuda, "full", owner_spec=lambda bspec, bpos, balive: (
+            tdg.bin_particles_slab(bspec, nxl, 0, bpos, balive),
+            bspec.replace(dims=local.dims)))
+    args = (local, H, dim, "cubic", Ps, _coef(Ms), cs, Pb, Volb, counts_b)
+    out = pair.boundary_forces(*args)
+    want = pair.boundary_forces_plain(*args)
+    nyz = local.num_cells // local.dims[0]
+    own = slice(nyz, (nxl + 1) * nyz)
+    _assert_close_peak(out[..., own], want[..., own], KT_TOL, "slab")
+    assert float(want[..., own].abs().max()) > 0
+    air = torch.full_like(P, tdg.POS_SENTINEL)
+    none = torch.zeros_like(counts)
+    Pb, Volb, counts_b, owner = _bf_boundary(spec, cuda, "sparse")
+    args = (spec, H, dim, "cubic", air, torch.zeros_like(M), none, Pb, Volb,
+            counts_b)
+    out, want = _bf_check(args, "all air", owner)
+    assert int(torch.count_nonzero(out)) == 0
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_boundary_forces_at_near_ties(cuda, dim):
+    """Boundary-fluid pairs at r^2 ~ h^2 (``test_torch_near_ties``:
+    outside h under the rounded r^2, inside under a fused one): the pass
+    rounds r^2 as the plain fold does, so the same slots are zero."""
+    from test_torch_near_ties import H as TIE_H
+    from test_torch_near_ties import near_tie_grid
+
+    g = near_tie_grid(dim, cuda)
+    args = (g.spec, TIE_H, dim, "cubic", g.P_i, _coef(g.M_i), g.counts_i,
+            g.Pb, g.Volb, g.counts_b)
+    out, want = _bf_check(args, "boundary_forces near ties")
+    assert torch.equal(out != 0, want != 0)
+
+
+def test_boundary_forces_refuses_what_the_kernel_does_not_take(cuda):
+    spec, P, M, V, K, counts = _grid(3, cuda)
+    Pb, Volb, counts_b, owner = _bf_boundary(spec, cuda, "sparse")
+    coef = _coef(M)
+    args = [spec, H, 3, "cubic", P, coef, counts, Pb, Volb, counts_b]
+    before = dict(pair.LAUNCHES)
+    for i, bad, err in ((5, coef.double(), TypeError),
+                        (8, Volb[:, :-1], ValueError),
+                        (7, Pb.cpu(), ValueError),
+                        (7, Pb.transpose(1, 2).contiguous().transpose(1, 2),
+                         ValueError),
+                        (3, "gaussian", KeyError)):
+        a = list(args)
+        a[i] = bad
+        with pytest.raises(err):
+            pair.boundary_forces(*a, owner_cells=owner)
+    with pytest.raises(ValueError):  # no table: the grids must agree
+        pair.boundary_forces(*args)
+    with pytest.raises(ValueError):
+        pair.boundary_forces(*args, owner_cells=owner.long())
+    assert pair.LAUNCHES == before
+
+
+@pytest.mark.parametrize("case", ["dfsph", "iisph", "brute", "compact",
+                                  "spill"])
+def test_boundary_forces_launches_only_on_the_grids(cuda, case):
+    """A small dam world: the grid launches the pass once a substep (with
+    each ``hoist_ff``) under DFSPH and IISPH; the brute tier, the compact
+    layout and dense+spill keep the plain fold and launch nothing. (The
+    spill world asks for cap 4 under the lattice's 8 a cell, so that its
+    cells spill: the auto cap tier would drop the spill table.)"""
+    from salva_tpu_torch.config import IISPHConfig
+
+    w = _small_dam_world(cuda, "auto" if case == "brute" else "dense",
+                         solver=IISPHConfig() if case == "iisph" else None,
+                         dense_cap=4 if case == "spill" else None)
+    if case == "compact":
+        w.sim = w.sim.replace(dense_compact=True)
+    if case == "spill":
+        w.sim = w.sim.replace(dense_spill_columns=64, dense_spill_k=9)
+    pair.reset_launches()
+    for _ in range(3):
+        w.step(1.0 / 200.0, (0.0, -9.81, 0.0))
+    sim = w._effective_sim()
+    assert sim.layout == ("brute" if case == "brute" else "dense")
+    assert (sim.dense_spill_columns == 64) == (case == "spill")
+    assert bool(torch.isfinite(w.fluids_state.positions).all())
+    n = pair.LAUNCHES["boundary_forces"]
+    if case in ("dfsph", "iisph"):
+        assert n == pair.LAUNCHES["hoist_ff"] >= 3
+    else:
+        assert n == 0

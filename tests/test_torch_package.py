@@ -68,7 +68,7 @@ def test_cpu_run_launches_no_kernel():
     assert w.device.type == "cpu"
     assert pair.LAUNCHES == {"k_pass": 0, "t_pass": 0, "hoist_ff": 0,
                              "hoist_fb": 0, "k_pass_v2": 0,
-                             "artificial_visc_ff": 0}
+                             "artificial_visc_ff": 0, "boundary_forces": 0}
     assert binning.LAUNCHES == {"expand": 0}
     pos = w.fluid_positions(0)
     assert pos.shape == (36, 2) and np.isfinite(pos).all()
